@@ -1,0 +1,50 @@
+"""Index core of the torch port: one segment table, one router, one engine
+per backend, and snapshot serving (counterpart of ``repro.index``).
+
+Module map:
+  table.py    -- immutable ``SegmentTable`` + ``route_keys`` (THE router) +
+                 the shard partition helpers; numpy-only
+  query.py    -- the typed query plane: ``PointResult``/``RangeResult`` and
+                 the ``QueryVerbs`` mixin deriving point / range / count /
+                 predecessor / successor from the one ``search`` primitive
+  engine.py   -- ``LookupEngine`` registry: numpy / torch-window /
+                 torch-bisect / cuda bounded-window search, the
+                 ``DeviceIndex`` device form, and ``DispatchEngine``
+  snapshot.py -- ``Snapshot`` + ``ServingHandle`` atomic swap into serving
+
+``table`` and ``query`` are imported eagerly (pure numpy); the engine and
+snapshot names resolve lazily (PEP 562) so host-only code never pulls in
+torch.
+"""
+from .query import (PointResult, QueryVerbs, RangeResult, check_range,
+                    check_side, merge_sorted_sources)
+from .table import (SegmentTable, build_shard_tables, numpy_lookup,
+                    numpy_search, route_keys, shard_boundaries,
+                    shard_cut_indices, shard_partition)
+
+_ENGINE_NAMES = {
+    "DeviceIndex", "DispatchEngine", "LookupEngine", "LookupPlan",
+    "available_backends", "device_index", "kernel_lookup", "kernel_search",
+    "make_engine", "make_plan", "predict_positions", "register_backend",
+    "resolve_device", "snap_leftmost", "snap_side", "torch_lookup",
+    "torch_search",
+}
+_SNAPSHOT_NAMES = {"ServingHandle", "Snapshot", "SnapshotPublisher"}
+
+__all__ = [
+    "PointResult", "QueryVerbs", "RangeResult", "SegmentTable",
+    "build_shard_tables", "check_range", "check_side",
+    "merge_sorted_sources", "numpy_lookup", "numpy_search", "route_keys",
+    "shard_boundaries", "shard_cut_indices", "shard_partition",
+    *sorted(_ENGINE_NAMES), *sorted(_SNAPSHOT_NAMES),
+]
+
+
+def __getattr__(name):
+    if name in _ENGINE_NAMES:
+        from . import engine
+        return getattr(engine, name)
+    if name in _SNAPSHOT_NAMES:
+        from . import snapshot
+        return getattr(snapshot, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

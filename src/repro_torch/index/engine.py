@@ -1,0 +1,517 @@
+"""`LookupEngine`: one bounded-window search implementation per backend.
+
+Port of ``repro.index.engine``.  Each backend mirrors one of the reference:
+
+    numpy         (numpy)       host vectorized bounded bisect, f64 keys
+    torch-window  (xla-window)  gather the 2e+2 window and compare-reduce
+    torch-bisect  (xla-bisect)  log2(2e+2) halving steps of single gathers
+    cuda          (pallas)      the hand-written CUDA window kernel
+                                (``repro_torch.kernels.fitting_lookup``)
+    dispatch      (dispatch)    batch-size tiers over the above
+
+``make_engine(table, backend="cuda", device=None)`` returns an engine whose
+``lookup`` maps a query batch to global ranks (-1 if absent; the *leftmost*
+rank for duplicated keys) and whose ``search(queries, side)`` returns
+``np.searchsorted`` insertion ranks, from which ``repro_torch.index.query``
+derives point / range / count / predecessor / successor.  Device backends
+place the table's f32/i32 form on an explicit torch device: ``None`` means
+``"cuda"`` and raises where no card is present, so nothing quietly runs on
+the CPU; ``device="cpu"`` runs the same code on the CPU, where the ``cuda``
+backend runs its kernel's plain torch twin.
+
+Backends return identical ranks for any key column whose keys and queries
+are exact in f32 (integer keys < 2^24, the serving regime -- see
+``rescale_keys``): ``numpy`` compares in f64, the device backends in f32.
+
+Every device path ends in a duplicate snap (``snap_leftmost`` /
+``snap_side``) that costs one host sync per batch: it reads which queries
+landed inside a duplicate run before running ``torch.searchsorted`` over the
+column for just those queries (the reference gates the same work with
+``lax.cond``).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Literal, NamedTuple, Protocol, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.contracts import hot_path
+from repro_torch.analysis.sanitizer import make_lock
+
+from .query import QueryVerbs, check_side
+from .table import SegmentTable, numpy_lookup, numpy_search
+
+
+def resolve_device(device=None) -> torch.device:
+    """The torch device an entry point runs on: ``None`` means the current
+    CUDA card.  Raises where CUDA is asked for and no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "torch backends on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class DeviceIndex(NamedTuple):
+    """f32/i32 device form of a SegmentTable, resident on one torch device."""
+    seg_start: torch.Tensor  # (S,) f32  first key of each segment
+    slope: torch.Tensor      # (S,) f32
+    base: torch.Tensor       # (S,) i32  global position of segment start
+    seg_end: torch.Tensor    # (S,) i32  one past the segment end
+    keys: torch.Tensor       # (N,) f32  the sorted key column
+    error: int
+
+
+def device_index(table: SegmentTable, device=None) -> DeviceIndex:
+    """Convert (and cache on the table, per device -- snapshots are shared
+    by engines).  Table arrays are read-only, so each is copied into a fresh
+    tensor rather than shared."""
+    dev = resolve_device(device)
+    idx = table._device_cache.get(dev)
+    if idx is None:
+        def put(arr, dtype):
+            return torch.tensor(np.asarray(arr, dtype), device=dev)
+        idx = DeviceIndex(
+            seg_start=put(table.start_key, np.float32),
+            slope=put(table.slope, np.float32),
+            base=put(table.base, np.int32),
+            seg_end=put(table.seg_end, np.int32),
+            keys=put(table.keys, np.float32),
+            error=int(table.error),
+        )
+        table._device_cache[dev] = idx
+    return idx
+
+
+# --------------------------------------------------------------------- device
+def _snap(keys: torch.Tensor, queries: torch.Tensor, rank: torch.Tensor,
+          need: torch.Tensor, side: str) -> torch.Tensor:
+    """Replace ``rank`` by the full-column searchsorted rank where ``need``
+    is set.  The ``nonzero`` is the batch's one host sync; the search runs
+    over the flagged queries only."""
+    hits = need.nonzero().squeeze(1)
+    if hits.numel() == 0:
+        return rank
+    fixed = torch.searchsorted(keys, queries[hits], side=side, out_int32=True)
+    return rank.index_put((hits,), fixed.to(rank.dtype))
+
+
+def snap_leftmost(keys: torch.Tensor, queries: torch.Tensor,
+                  rank: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+    """Snap duplicate hits to the leftmost occurrence (mirror of the
+    ``numpy_lookup`` fix): when a found rank's left neighbour still equals
+    the query, the duplicate run straddles a segment boundary and the window
+    search returned an in-segment rank.  A miss may carry a rank past the
+    column (a window wider than it counts the clamped last key again), so
+    the neighbour's index is clamped at both ends, as a JAX gather does."""
+    n = keys.shape[0]
+    need = hit & (rank > 0) & (keys[(rank - 1).clamp(0, n - 1)] == queries)
+    return _snap(keys, queries, rank, need, "left")
+
+
+def snap_side(keys: torch.Tensor, queries: torch.Tensor, rank: torch.Tensor,
+              side: str) -> torch.Tensor:
+    """Side-generalized duplicate snap for insertion-rank searches: a bounded
+    window parks inside a duplicate run that extends past it, which shows at
+    the landing position alone -- for ``side="left"`` the left neighbour
+    still equals the query, for ``side="right"`` the landing key itself."""
+    n = keys.shape[0]
+    if side == "left":
+        need = (rank > 0) & (keys[(rank - 1).clamp(min=0)] == queries)
+    else:
+        need = (rank < n) & (keys[rank.clamp(max=n - 1)] == queries)
+    return _snap(keys, queries, rank, need, side)
+
+
+def predict_positions(idx: DeviceIndex, queries: torch.Tensor) -> torch.Tensor:
+    """Interpolated (approximate) global positions; error <= idx.error by Eq. 1.
+
+    Route, interpolate in f32 (``torch.round`` rounds half to even, like
+    ``jnp.round``), clamp into the owning segment's position range so gap
+    queries cannot overshoot.  The rounded offset saturates at the int32
+    range and is added in int64, so a far out-of-domain query clamps to its
+    segment's end instead of wrapping."""
+    sid = torch.searchsorted(idx.seg_start, queries, right=True) - 1
+    sid = sid.clamp(0, idx.seg_start.shape[0] - 1)
+    local = (queries - idx.seg_start[sid]) * idx.slope[sid]
+    local = torch.nan_to_num(torch.round(local), nan=0.0).clamp(-2.0 ** 31,
+                                                                2.0 ** 31)
+    base = idx.base[sid]
+    pred = base.to(torch.int64) + local.to(torch.int64)
+    return torch.minimum(torch.maximum(pred, base), idx.seg_end[sid]).to(
+        torch.int32)
+
+
+def _window(idx: DeviceIndex, start: torch.Tensor) -> tuple[torch.Tensor,
+                                                            torch.Tensor]:
+    """Gather the 2e+2 keys from each window start: (offsets, values), with
+    gathers past the column clamped to its last key."""
+    n = idx.keys.shape[0]
+    w = 2 * idx.error + 2
+    offs = start[:, None] + torch.arange(w, dtype=torch.int32,
+                                         device=start.device)[None, :]
+    return offs, idx.keys[offs.clamp(max=n - 1)]
+
+
+def _bisect(idx: DeviceIndex, queries: torch.Tensor, pred: torch.Tensor,
+            side: str) -> torch.Tensor:
+    """log2(2e+2) halving steps on the clipped +-error window."""
+    n = idx.keys.shape[0]
+    e = idx.error
+    lo = (pred - e).clamp(0, n)
+    hi = (pred + e + 1).clamp(0, n)
+    for _ in range(int(np.ceil(np.log2(2 * e + 2)))):
+        mid = (lo + hi) // 2
+        v = idx.keys[mid.clamp(max=n - 1)]
+        ok = (v < queries) if side == "left" else (v <= queries)
+        go = ok & (lo < hi)
+        lo, hi = torch.where(go, mid + 1, lo), torch.where(go, hi, mid)
+    return lo
+
+
+def torch_lookup(idx: DeviceIndex, queries: torch.Tensor,
+                 strategy: Literal["window", "bisect"] = "window"
+                 ) -> torch.Tensor:
+    """Batched point lookup, rank or -1 (twin of ``xla_lookup``)."""
+    n = idx.keys.shape[0]
+    pred = predict_positions(idx, queries)
+    e = idx.error
+    if strategy == "window":
+        w = 2 * e + 2
+        start = (pred - e).clamp(0, max(n - w, 0))
+        _, vals = _window(idx, start)
+        rank = start + (vals < queries[:, None]).sum(1, dtype=torch.int32)
+        hit = (vals == queries[:, None]).any(1)
+        rank = snap_leftmost(idx.keys, queries, rank, hit)
+        return torch.where(hit, rank, -1)
+    lo = _bisect(idx, queries, pred, "left")
+    ok = (lo < n) & (idx.keys[lo.clamp(max=n - 1)] == queries)
+    lo = snap_leftmost(idx.keys, queries, lo, ok)
+    return torch.where(ok, lo, -1)
+
+
+def torch_search(idx: DeviceIndex, queries: torch.Tensor, side: str = "left",
+                 strategy: Literal["window", "bisect"] = "bisect"
+                 ) -> torch.Tensor:
+    """Batched bounded-window rank search (twin of ``xla_search``): the
+    insertion rank ``searchsorted(keys, q, side)`` of every query, via the
+    interpolated +-error window and a final :func:`snap_side`."""
+    check_side(side)
+    n = idx.keys.shape[0]
+    pred = predict_positions(idx, queries)
+    e = idx.error
+    if strategy == "window":
+        w = 2 * e + 2
+        start = (pred - e).clamp(0, max(n - w, 0))
+        offs, vals = _window(idx, start)
+        q = queries[:, None]
+        cmp = (vals < q) if side == "left" else (vals <= q)
+        rank = start + ((offs < n) & cmp).sum(1, dtype=torch.int32)
+        return snap_side(idx.keys, queries, rank, side)
+    lo = _bisect(idx, queries, pred, side)
+    return snap_side(idx.keys, queries, lo, side)
+
+
+# ----------------------------------------------------------------------- cuda
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class LookupPlan(NamedTuple):
+    """Static window geometry for a (N, error) pair (the reference kernel's
+    plan; the CUDA kernel reads only ``window`` and ``n_pad``)."""
+    kb: int         # key block size of the reference kernel
+    window: int     # 2*error + 2
+    n_blocks: int
+    n_pad: int      # window starts are clamped to [0, n_pad - window]
+
+
+def make_plan(n_keys: int, error: int) -> LookupPlan:
+    window = 2 * error + 2
+    kb = max(128, _round_up(window, 128))
+    n_pad = _round_up(max(n_keys, kb), kb)
+    return LookupPlan(kb=kb, window=window, n_blocks=n_pad // kb, n_pad=n_pad)
+
+
+def _kernel_window(idx: DeviceIndex, queries: torch.Tensor, side: str
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route + interpolate + clamp (torch), then the window kernel: the
+    reference's window start ``clip(pred - e, 0, n_pad - W)``, kept exactly,
+    so every query is answered over the reference kernel's window."""
+    # lazy: repro_torch.kernels imports this module for its thin wrappers
+    from repro_torch.kernels.fitting_lookup import fitting_lookup_window
+
+    plan = make_plan(int(idx.keys.shape[0]), int(idx.error))
+    pred = predict_positions(idx, queries)
+    qlo = (pred - idx.error).clamp(0, plan.n_pad - plan.window)
+    return fitting_lookup_window(idx.keys, queries, qlo, window=plan.window,
+                                 n_pad=plan.n_pad, side=side)
+
+
+def kernel_lookup(idx: DeviceIndex, queries: torch.Tensor) -> torch.Tensor:
+    """Batched point lookup via the window kernel (twin of ``pallas_lookup``).
+    Returns ranks, -1 where absent."""
+    rank, found = _kernel_window(idx, queries, "left")
+    res = torch.where(found, rank, -1)
+    return snap_leftmost(idx.keys, queries, res, res >= 0)
+
+
+def kernel_search(idx: DeviceIndex, queries: torch.Tensor,
+                  side: str = "left") -> torch.Tensor:
+    """Batched insertion-rank search via the window kernel (twin of
+    ``pallas_search``): the kernel counts with the side's comparison, and
+    :func:`snap_side` resolves duplicate runs extending past the window."""
+    check_side(side)
+    rank, _ = _kernel_window(idx, queries, side)
+    return snap_side(idx.keys, queries, rank, side)
+
+
+# ------------------------------------------------------------------- registry
+@runtime_checkable
+class LookupEngine(Protocol):
+    """A lookup path over one immutable SegmentTable snapshot.
+
+    Every registered backend implements ``lookup`` and the query plane's
+    primitive ``search(queries, side)`` (host arrays in and out) and, via the
+    :class:`repro_torch.index.query.QueryVerbs` mixin, the typed verbs."""
+    backend: str
+    table: SegmentTable
+
+    def lookup(self, queries) -> np.ndarray:
+        """Global rank of each query, -1 if absent (host array out)."""
+        ...
+
+    def search(self, queries, side: str = "left") -> np.ndarray:
+        """``searchsorted(keys, queries, side)`` insertion ranks (host array
+        out): the one primitive every typed query verb derives from."""
+        ...
+
+
+_BACKENDS: dict[str, Callable[..., LookupEngine]] = {}
+
+
+def register_backend(name: str):
+    def deco(cls):
+        cls.backend = name
+        _BACKENDS[name] = cls
+        return cls
+    return deco
+
+
+def available_backends() -> list[str]:
+    return sorted(_BACKENDS)
+
+
+def make_engine(table: SegmentTable, backend: str = "cuda", *, device=None,
+                **opts) -> LookupEngine:
+    """The one constructor every layer goes through to get a lookup path.
+
+    The default is the CUDA kernel's backend.  ``device`` places a device
+    backend (``None``: the CUDA card, raising if there is none); the host
+    ``numpy`` backend, which only a caller that names it gets, has none."""
+    try:
+        cls = _BACKENDS[backend]
+    except KeyError:
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"available: {available_backends()}") from None
+    if getattr(cls, "uses_device", False):
+        opts["device"] = device
+    return cls(table, **opts)
+
+
+def _prewarm_queries(table: SegmentTable, size: int) -> np.ndarray:
+    """A representative warm-up batch: real keys cycled to ``size``."""
+    sample = np.asarray(table.keys[: min(table.n_keys, size)], np.float64)
+    return np.resize(sample, size)
+
+
+@register_backend("numpy")
+class NumpyEngine(QueryVerbs):
+    def __init__(self, table: SegmentTable):
+        self.table = table
+        self.fn = functools.partial(numpy_lookup, table)
+
+    def lookup(self, queries) -> np.ndarray:
+        return self.fn(queries)
+
+    def search(self, queries, side: str = "left") -> np.ndarray:
+        return numpy_search(self.table, queries, side)
+
+    def prewarm(self, batch_sizes=None) -> None:
+        """No-op: the host path has nothing to build."""
+
+
+class _DeviceEngine(QueryVerbs):
+    """Shared scaffolding: place the table on the device once; each backend
+    names its point-lookup and search functions over the device form."""
+    uses_device = True
+
+    def __init__(self, table: SegmentTable, *, device=None):
+        self.table = table
+        self.device = resolve_device(device)
+        self.index = device_index(table, self.device)
+
+    def _lookup(self, idx: DeviceIndex, q: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _search(self, idx: DeviceIndex, q: torch.Tensor,
+                side: str) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _queries(self, queries) -> tuple[torch.Tensor, tuple]:
+        """Host or device queries -> a flat f32 tensor on this device."""
+        if isinstance(queries, torch.Tensor):
+            q = queries.to(self.device, torch.float32)
+        else:
+            q = torch.from_numpy(np.array(queries, np.float32)).to(self.device)
+        return q.reshape(-1), tuple(q.shape)
+
+    def lookup(self, queries) -> np.ndarray:
+        if self.table.n_keys == 0:   # empty table: every probe misses
+            return np.full(np.shape(queries), -1, np.int64)
+        q, shape = self._queries(queries)
+        return self._lookup(self.index, q).reshape(shape).cpu().numpy()
+
+    def search(self, queries, side: str = "left") -> np.ndarray:
+        check_side(side)
+        if self.table.n_keys == 0:   # empty table: every rank is 0
+            return np.zeros(np.shape(queries), np.int64)
+        q, shape = self._queries(queries)
+        out = self._search(self.index, q, side).reshape(shape)
+        return out.cpu().numpy().astype(np.int64)
+
+    def prewarm(self, batch_sizes=None) -> None:
+        """Run the lookup and both search sides once at each batch size, so
+        a kernel's first-use build is paid here.  Default one size."""
+        if self.table.n_keys == 0:
+            return
+        for size in batch_sizes or (256,):
+            q = _prewarm_queries(self.table, int(size))
+            self.lookup(q)
+            self.search(q, "left")
+            self.search(q, "right")
+
+
+@register_backend("torch-window")
+class TorchWindowEngine(_DeviceEngine):
+    def _lookup(self, idx, q):
+        return torch_lookup(idx, q, "window")
+
+    def _search(self, idx, q, side):
+        return torch_search(idx, q, side, "window")
+
+
+@register_backend("torch-bisect")
+class TorchBisectEngine(_DeviceEngine):
+    def _lookup(self, idx, q):
+        return torch_lookup(idx, q, "bisect")
+
+    def _search(self, idx, q, side):
+        return torch_search(idx, q, side, "bisect")
+
+
+@register_backend("cuda")
+class CudaEngine(_DeviceEngine):
+    def _lookup(self, idx, q):
+        return kernel_lookup(idx, q)
+
+    def _search(self, idx, q, side):
+        return kernel_search(idx, q, side)
+
+
+@register_backend("dispatch")
+class DispatchEngine(QueryVerbs):
+    """Batch-size-aware backend dispatch over one snapshot.
+
+    The backends trade fixed cost against per-query cost: numpy wins for
+    tiny probes (no device round trip), the torch bisect for medium batches,
+    and the CUDA window kernel for large fan-out.  Each ``lookup`` /
+    ``search`` batch goes to the tier its size puts it in:
+
+        size <= small_max            -> numpy
+        small_max < size < large_min -> torch-bisect
+        size >= large_min            -> cuda
+
+    Tier engines are built lazily on first use and cached for the lifetime
+    of this engine (i.e. of the snapshot).  Every tier returns identical
+    ranks for exact-f32 workloads, so dispatch preserves semantics.
+
+    ``small_max``/``large_min`` are required: their defaults come from the
+    Sec. 6 cost model, which the port does not have yet.
+    """
+    uses_device = True
+    TIERS = ("numpy", "torch-bisect", "cuda")   # small, medium, large
+
+    def __init__(self, table: SegmentTable, *, small_max: int | None = None,
+                 large_min: int | None = None, device=None):
+        if small_max is None or large_min is None:
+            raise ValueError(
+                "DispatchEngine needs explicit small_max and large_min: the "
+                "cost-model defaults (core/cost_model.py) come with the "
+                "port's planning slice (ROADMAP queue A, slice 3)")
+        if not 0 <= small_max < large_min:
+            raise ValueError(f"need 0 <= small_max < large_min, got "
+                             f"{small_max=} {large_min=}")
+        self.table = table
+        self.device = resolve_device(device)
+        self.small_max = int(small_max)
+        self.large_min = int(large_min)
+        self._engines: dict[str, LookupEngine] = {}
+        self._lock = make_lock("DispatchEngine._lock")
+
+    def backend_for(self, batch_size: int) -> str:
+        """The tier backend a batch of ``batch_size`` queries dispatches to."""
+        small, medium, large = self.TIERS
+        if batch_size <= self.small_max:
+            return small
+        return medium if batch_size < self.large_min else large
+
+    def engine_for(self, batch_size: int) -> LookupEngine:
+        name = self.backend_for(batch_size)
+        eng = self._engines.get(name)
+        if eng is None:
+            with self._lock:           # don't build the same tier twice
+                eng = self._engines.get(name)
+                if eng is None:
+                    eng = make_engine(self.table, name, device=self.device)
+                    self._engines[name] = eng
+        return eng
+
+    @hot_path
+    def lookup(self, queries) -> np.ndarray:
+        return self.engine_for(int(np.size(queries))).lookup(queries)
+
+    @hot_path
+    def search(self, queries, side: str = "left") -> np.ndarray:
+        """The query plane's primitive, routed by batch size like ``lookup``."""
+        return self.engine_for(int(np.size(queries))).search(queries, side)
+
+    def prewarm(self, batch_sizes=None) -> None:
+        """Opt-in eager tier construction: build each tier a batch size maps
+        to and run it once at that size (default one size per tier)."""
+        if batch_sizes is None:
+            batch_sizes = [self.large_min]
+            if self.small_max >= 1:
+                batch_sizes.append(self.small_max)
+            if self.small_max + 1 < self.large_min:
+                batch_sizes.append(self.small_max + 1)
+        for size in batch_sizes:
+            eng = self.engine_for(int(size))
+            warm = getattr(eng, "prewarm", None)
+            if warm is not None:
+                warm(batch_sizes=(int(size),))
+
+
+__all__ = [
+    "DeviceIndex", "DispatchEngine", "LookupEngine", "LookupPlan",
+    "available_backends", "device_index", "kernel_lookup", "kernel_search",
+    "make_engine", "make_plan", "predict_positions", "register_backend",
+    "resolve_device", "snap_leftmost", "snap_side", "torch_lookup",
+    "torch_search",
+]

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: the learned-index read path.
+"""Smoke test of the torch port on one CUDA card: the learned-index read path
+and RecurrentGemma-9B serving.
 
 Run from the repository root, with no arguments:
 
@@ -10,7 +11,8 @@ and fails (non-zero exit, no result line) where no CUDA card is present or
 the port's sources are missing.  Phases, each of which raises on failure:
 
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
-2. The build: compile ``csrc/fitting_lookup.cu`` with ``nvcc`` for sm_90a
+2. The build: compile ``csrc/fitting_lookup.cu``, ``flash_attention.cu`` and
+   ``rglru_scan.cu`` with ``nvcc`` for sm_90a, one process each, all at once,
    and print ``ptxas``'s register/spill report.
 3. The data: ``iot_like(2**23)`` keys, rescaled to [0, 2^23] and floored to
    integers (exact in f32; duplicates stay), a 32 MB f32 column on the card,
@@ -30,8 +32,28 @@ the port's sources are missing.  Phases, each of which raises on failure:
    torch-window, torch-bisect and dispatch, every answer checked equal to
    ``np.searchsorted`` on the f32 column.  The kernel's launch count is set
    to 0 just before this phase and read just after; it must be > 0.
-6. A ``{"kernels": [...]}`` line, the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+6. LM kernels vs plain: ``flash_attention`` at the local layer's prefill
+   (B 1, H 16, Hkv 1, T = S = 4096, hd 256, window 2048, bf16), then with
+   softcap and GQA (hd 128, H 8, Hkv 4, T = S = 2048, f32), non-causal
+   (hd 64, f32) and one decode query against S = 4096 (bf16); the RG-LRU
+   scan at B 4, T = W = 4096 f32 with h0.  Each against its plain twin
+   (tolerances at ``FLASH_TOL`` / ``RGLRU_RTOL``, with their reasons),
+   timed beside its bound and, for attention without softcap,
+   ``scaled_dot_product_attention`` with the same boolean mask.
+7. Consistency: recurrentgemma-9b at full width, depth cut to one
+   (rglru, rglru, local) unit plus one rglru layer, f32 with TF32 off for
+   matmul and cuDNN: B 2, prefill 2,304 tokens (past the 2,048 window) +
+   16 teacher-forced decode steps == a cache-free forward, rtol = atol =
+   3e-2.
+8. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
+   parameters, bf16, drawn from seed 0 on the card): the prefill step at
+   B 4, T 4,096 (timed, tokens/s), then ``ContinuousBatcher`` (4 slots,
+   cache 4,160) drains 8 requests with prompts of 256 to 3,072 tokens and
+   16 new tokens each; every request gets its 16 tokens, all in the
+   vocabulary, and the logits are finite.  The LM kernels' launch counts
+   are set to 0 just before this phase and must be > 0 after it.
+9. A ``{"kernels": [...]}`` line (all three kernels), the card line again,
+   and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -302,6 +324,364 @@ def read_path(torch, snapshots, keys):
                       f"{ms:.3f} ms host wall", flush=True)
     return timings
 
+# ------------------------------------------------------------ LM serving
+ARCH = "recurrentgemma-9b"
+BF16_OPS = 989e12          # H100 SXM dense bf16/fp16 tensor-core op/s
+# flash cases: (name, B, H, Hkv, Tq, S, hd, dtype, options)
+FLASH_CASES = (
+    ("local prefill", 1, 16, 1, 4096, 4096, 256, "bfloat16",
+     {"causal": True, "window": 2048}),
+    ("softcap gqa", 1, 8, 4, 2048, 2048, 128, "float32",
+     {"causal": True, "softcap": 50.0}),
+    ("non-causal", 2, 8, 2, 1024, 1024, 64, "float32", {"causal": False}),
+    ("decode query", 4, 16, 1, 1, 4096, 256, "bfloat16",
+     {"causal": True, "window": 2048}),
+)
+# The reference's own bounds for a blocked against a dense softmax
+# (tests/test_kernels_extra.py): both accumulate in f32, in another order.
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
+# The scan: each step rounds its product and its sum as the twin's separate
+# multiply and add do, so they should agree exactly; 1e-5 relative is the
+# reference's scan tolerance, the most a reordering could cost.
+RGLRU_SHAPE = (4, 4096, 4096)
+RGLRU_RTOL = 1e-5
+# Phase 7: full width, depth cut to one unit + one tail layer, f32.
+CONSIST_STACKS = ((("rglru", "rglru", "local"), 1), (("rglru",), 1))
+CONSIST_B, CONSIST_T_PRE, CONSIST_T_DEC = 2, 2304, 16
+CONSIST_TOL = 3e-2         # rtol = atol, tests/test_multistep_decode.py
+# Phase 8: full width and depth, bf16.
+PREFILL_B, PREFILL_T = 4, 4096
+N_SLOTS, CACHE_LEN, N_REQUESTS, MAX_NEW = 4, 4160, 8, 16
+PROMPT_LENS = (256, 3072)
+
+
+def flash_vs_plain(torch, dev):
+    """Phase 6: the flash kernel against its twin and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_torch)
+    cases = []
+    for name, b, h, hkv, tq, s, hd, dt, kw in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(SEED + tq + hd)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((b, h, tq, hd), (b, hkv, s, hd),
+                                 (b, hkv, s, hd)))
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_torch(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dt]
+        bad = (got.float() - want.float()).abs() > tol + tol * \
+            want.float().abs()
+        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash {name}: kernel != plain twin "
+                                 f"(max abs err {err}, {int(bad.sum())} "
+                                 f"elements outside {tol})")
+        qpos = torch.arange(tq, device=dev)[:, None] + (s - tq)
+        kpos = torch.arange(s, device=dev)[None, :]
+        mask = torch.ones((tq, s), dtype=torch.bool, device=dev)
+        if kw.get("causal", True):
+            mask &= kpos <= qpos
+        if kw.get("window"):
+            mask &= kpos > qpos - kw["window"]
+        pairs = int(mask.sum()) * b * h
+        ops = 4 * hd * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        op_ms = ops / (BF16_OPS if dtype != torch.float32 else F32_OPS) * 1e3
+        byte_ms = nbytes / HBM_BPS * 1e3
+        ms = median_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw))
+        plain_ms = median_ms(torch, lambda: flash_attention_torch(q, k, v,
+                                                                  **kw))
+        lib_ms = None
+        if "softcap" not in kw:
+            kx, vx = (t[:, :, None].expand(b, hkv, h // hkv, s, hd)
+                      .reshape(b, h, s, hd) for t in (k, v))
+            lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, kx, vx, attn_mask=mask))
+        cases.append({"case": name, "b": b, "h": h, "hkv": hkv, "tq": tq,
+                      "s": s, "hd": hd, "dtype": dt, **kw, "tol": tol,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": max(op_ms, byte_ms),
+                      "bound_by": "operations" if op_ms >= byte_ms
+                      else "bytes", "flop": ops, "bytes": nbytes})
+        lib = "none (softcap)" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"flash {name}: B={b} H={h} Hkv={hkv} Tq={tq} S={s} hd={hd} "
+              f"{dt} {kw}: within {tol} (max abs err {err:.3g}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
+              f"{max(op_ms, byte_ms):.4f} ms ({ops / 1e9:.1f} GFLOP)",
+              flush=True)
+    return cases
+
+
+def rglru_vs_plain(torch, dev):
+    """Phase 6: the RG-LRU scan kernel against its twin."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan_cuda,
+                                                rglru_scan_torch)
+    b, t, w = RGLRU_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    u = torch.randn((b, t, w), generator=g, device=dev)
+    a = torch.rand((b, t, w), generator=g, device=dev)
+    h0 = torch.randn((b, w), generator=g, device=dev)
+    got, got_last = rglru_scan_cuda(u, a, h0)
+    want, want_last = rglru_scan_torch(u, a, h0)
+    torch.cuda.synchronize()
+    err = max(float((got - want).abs().max()),
+              float((got_last - want_last).abs().max()))
+    rel = err / max(float(want.abs().max()), 1e-30)
+    if rel > RGLRU_RTOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"rglru: kernel != plain twin (max abs err "
+                             f"{err}, relative {rel})")
+    nbytes = (3 * b * t * w + 2 * b * w) * 4
+    ops = 2 * b * t * w
+    byte_ms, op_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    ms = median_ms(torch, lambda: rglru_scan_cuda(u, a, h0))
+    plain_ms = median_ms(torch, lambda: rglru_scan_torch(u, a, h0), reps=5,
+                         warmup=1)
+    case = {"b": b, "t": t, "w": w, "h0": True, "max_abs_err": err,
+            "relative_err": rel, "exact": err == 0.0, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "bytes": nbytes}
+    print(f"rglru B={b} T={t} W={w} f32 with h0: max abs err {err:.3g} "
+          f"({'bit-exact' if err == 0 else f'relative {rel:.3g}'}); kernel "
+          f"{ms:.4f} ms, plain (loop over T) {plain_ms:.2f} ms, library "
+          f"none, bound {case['bound_ms']:.4f} ms", flush=True)
+    return case
+
+
+def lm_consistency(torch, dev):
+    """Phase 7: teacher-forced prefill + decode == a cache-free forward,
+    at full width in f32, depth cut to CONSIST_STACKS."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, forward, init_caches,
+                                    init_params, prefill)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(ARCH), stacks=CONSIST_STACKS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.float32, device=dev)
+    n = CONSIST_T_PRE + CONSIST_T_DEC
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    toks = torch.randint(0, cfg.vocab, (CONSIST_B, n), generator=g,
+                         device=dev, dtype=torch.int32)
+    ref, _ = forward(params, cfg, toks)
+    ref = ref[:, CONSIST_T_PRE:].clone()
+    caches = init_caches(cfg, CONSIST_B, n, dtype=torch.float32, device=dev)
+    _, caches = prefill(params, cfg, toks[:, :CONSIST_T_PRE], caches,
+                        last_only=True)
+    worst = 0.0
+    for i in range(CONSIST_T_DEC):
+        pos = torch.full((CONSIST_B,), CONSIST_T_PRE + i, device=dev)
+        logits, caches = decode_step(
+            params, cfg, toks[:, CONSIST_T_PRE + i: CONSIST_T_PRE + i + 1],
+            pos, caches)
+        diff = (logits[:, 0] - ref[:, i]).abs()
+        worst = max(worst, float(diff.max()))
+        if bool((diff > CONSIST_TOL + CONSIST_TOL * ref[:, i].abs()).any()):
+            raise AssertionError(f"consistency: decode step {i} diverged "
+                                 f"from forward (max abs diff "
+                                 f"{float(diff.max())})")
+    torch.cuda.synchronize()
+    print(f"consistency ({ARCH} full width, depth cut to {CONSIST_STACKS}, "
+          f"f32, TF32 off for matmul and cuDNN): B={CONSIST_B} prefill "
+          f"{CONSIST_T_PRE} (window {cfg.window}) + {CONSIST_T_DEC} decode "
+          f"steps == forward within rtol=atol={CONSIST_TOL}; max abs diff "
+          f"{worst:.3g}, max |logit| {float(ref.abs().max()):.3g} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"max_abs_diff": worst, "stacks": repr(CONSIST_STACKS)}
+
+
+def device_breakdown(torch, fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and sum the device time of
+    its kernels by kind: the two LM kernels, matrix products (cuBLAS /
+    CUTLASS), copies and the rest (elementwise, reductions, indexing).
+    ``wall_ms`` is the host wall of the profiled call, synchronised;
+    ``idle`` is the share of it in which no kernel ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"flash_attention": 0.0, "rglru_scan": 0.0, "matmul": 0.0,
+             "copy": 0.0, "other": 0.0}
+    by_name: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = ev.name
+        us = ev.time_range.elapsed_us()
+        if "flash_fwd_kernel" in name:
+            kinds["flash_attention"] += us
+        elif "rglru_scan_kernel" in name:
+            kinds["rglru_scan"] += us
+        elif any(k in name.lower() for k in ("gemm", "xmma", "cutlass",
+                                             "nvjet")):
+            kinds["matmul"] += us       # cuBLAS / cuBLASLt / CUTLASS
+        elif "memcpy" in name.lower() or "memset" in name.lower():
+            kinds["copy"] += us
+        else:
+            kinds["other"] += us
+        by_name[name] = by_name.get(name, 0.0) + us
+    out = {k: v / 1e3 for k, v in kinds.items()}
+    busy = sum(out.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out.update(wall_ms=wall_ms, busy_ms=busy,
+               idle=(1.0 - busy / wall_ms) if busy else None,
+               top=[(n[:60], us / 1e3) for n, us in top])
+    return out
+
+
+def print_breakdown(label: str, parts: dict) -> None:
+    if not parts["busy_ms"]:
+        print(f"{label}: the profiler saw no device time (not measured)")
+        return
+    print(f"{label} (torch.profiler, device ms): " + ", ".join(
+        f"{k} {parts[k]:.2f}" for k in ("flash_attention", "rglru_scan",
+                                        "matmul", "copy", "other"))
+        + f"; busy {parts['busy_ms']:.2f} of {parts['wall_ms']:.2f} ms "
+        f"wall, idle share {parts['idle']:.3f}", flush=True)
+    for name, ms in parts["top"]:
+        print(f"  {ms:9.2f} ms  {name}")
+
+
+def lm_serving(torch, dev):
+    """Phase 8: full width and depth in bf16: the prefill step, then the
+    continuous batcher draining N_REQUESTS requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.models import decode_step, init_caches, init_params, \
+        prefill
+    from repro_torch.models.model import param_bytes, param_count
+    from repro_torch.serve import ContinuousBatcher, Request, \
+        make_prefill_step
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n_params, n_bytes = param_count(cfg), param_bytes(params)
+    print(f"serving {ARCH}: {n_params} parameters, {n_bytes} bytes bf16 on "
+          f"the card ({time.perf_counter() - t0:.1f} s to draw)", flush=True)
+
+    flash_attention_cuda.launches = 0
+    rglru_scan_cuda.launches = 0
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_T), generator=g,
+                         device=dev, dtype=torch.int32)
+    step = make_prefill_step(cfg)
+    walls = []
+    for _ in range(3):                 # the first call warms the libraries
+        caches = init_caches(cfg, PREFILL_B, PREFILL_T, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, caches = step(params, toks, caches)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if nxt.shape != (PREFILL_B,) or not bool(((nxt >= 0)
+                                              & (nxt < cfg.vocab)).all()):
+        raise AssertionError(f"prefill step gave tokens {nxt.tolist()}")
+    logits, _ = prefill(params, cfg, toks, init_caches(
+        cfg, PREFILL_B, PREFILL_T, device=dev), last_only=True)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not all finite")
+    del caches, logits
+    prefill_s = float(np.median(walls[1:]))
+    print(f"prefill step B={PREFILL_B} T={PREFILL_T}: {prefill_s:.3f} s "
+          f"(median of {len(walls) - 1} after a warm-up of "
+          f"{walls[0]:.3f} s), {PREFILL_B * PREFILL_T / prefill_s:.0f} "
+          f"tokens/s", flush=True)
+    prefill_parts = device_breakdown(torch, lambda: step(
+        params, toks, init_caches(cfg, PREFILL_B, PREFILL_T, device=dev)))
+    print_breakdown(f"prefill step B={PREFILL_B} T={PREFILL_T}",
+                    prefill_parts)
+
+    rng = np.random.default_rng(SEED + 13)
+    batcher = ContinuousBatcher(cfg, params, n_slots=N_SLOTS,
+                                cache_len=CACHE_LEN, device=dev)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).astype(np.int32),
+                    max_new=MAX_NEW)
+            for i, n in enumerate(rng.integers(*PROMPT_LENS, N_REQUESTS,
+                                               endpoint=True))]
+    for r in reqs:
+        batcher.submit(r)
+    decode_ticks, ticks = [], 0
+    t_start = time.perf_counter()
+    while batcher.queue or any(batcher.slot_req):
+        admits = bool(batcher.queue) and None in batcher.slot_req
+        t0 = time.perf_counter()
+        batcher.tick()
+        torch.cuda.synchronize()
+        if not admits:
+            decode_ticks.append(time.perf_counter() - t0)
+        ticks += 1
+        if ticks > 10_000:
+            raise AssertionError("batcher did not drain")
+    wall = time.perf_counter() - t_start
+    n_tok = sum(len(r.out) for r in reqs)
+    if sorted(r.rid for r in batcher.completed) != list(range(N_REQUESTS)):
+        raise AssertionError("not every request completed")
+    for r in reqs:
+        if len(r.out) != MAX_NEW or not all(0 <= x < cfg.vocab
+                                            for x in r.out):
+            raise AssertionError(f"request {r.rid}: {len(r.out)} tokens "
+                                 f"{r.out}")
+    # one more decode step over the drained slots' caches, at the positions
+    # the last four requests reached: its logits must be finite
+    last = reqs[-N_SLOTS:]
+    tokens = torch.tensor([[r.out[-1]] for r in last], dtype=torch.int32,
+                          device=dev)
+    pos = torch.tensor([len(r.prompt) + MAX_NEW - 1 for r in last],
+                       device=dev)
+    logits, _ = decode_step(params, cfg, tokens, pos, batcher.caches)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("decode logits are not all finite")
+    decode_parts = device_breakdown(torch, lambda: decode_step(
+        params, cfg, tokens, pos, batcher.caches))
+    print_breakdown(f"decode step B={N_SLOTS}", decode_parts)
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "rglru_scan": rglru_scan_cuda.launches}
+    print(f"batcher: {N_REQUESTS} requests (prompts "
+          f"{sorted(len(r.prompt) for r in reqs)}), {N_SLOTS} slots, cache "
+          f"{CACHE_LEN}: drained in {ticks} ticks, {n_tok} tokens, "
+          f"{wall:.2f} s; median decode tick {np.median(decode_ticks) * 1e3:.1f} "
+          f"ms ({len(decode_ticks)} ticks without admission); launches "
+          f"{launches}", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"serving did not launch every LM kernel: "
+                             f"{launches}")
+    del params, batcher
+    return launches, {"prefill_breakdown": prefill_parts,
+                      "decode_breakdown": decode_parts,
+                      "prefill_s": prefill_s,
+                      "prefill_tokens_per_s": PREFILL_B * PREFILL_T
+                      / prefill_s, "ticks": ticks, "tokens": n_tok,
+                      "drain_s": wall,
+                      "decode_tick_ms": float(np.median(decode_ticks)) * 1e3}
+
+
+def build_all(_build) -> None:
+    """Compile every kernel source at once (one nvcc each, in parallel) and
+    print ptxas's register and spill report."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = ("fitting_lookup", "flash_attention", "rglru_scan")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(_build.build, names)))
+    print(f"build: {', '.join(n + '.cu' for n in names)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        print(f"  {name} -> {lib.name}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
+
 
 def main() -> int:
     import torch
@@ -323,13 +703,7 @@ def main() -> int:
           flush=True)
     dev = resolve_device()
 
-    t0 = time.perf_counter()
-    lib = _build.build("fitting_lookup")
-    print(f"build: fitting_lookup.cu in {time.perf_counter() - t0:.2f} s "
-          f"-> {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all(_build)
 
     t0 = time.perf_counter()
     keys = make_keys()
@@ -359,6 +733,12 @@ def main() -> int:
     if launches <= 0:
         raise AssertionError("the read path never launched fitting_lookup")
 
+    flash_cases = flash_vs_plain(torch, dev)
+    rglru_case = rglru_vs_plain(torch, dev)
+    lm_consistency(torch, dev)
+    torch.cuda.empty_cache()
+    lm_launches, serving = lm_serving(torch, dev)
+
     head = next(c for c in cases if (c["error"], c["side"]) == HEADLINE)
     entry = {
         "name": "fitting_lookup", "route": "cuda",
@@ -375,9 +755,31 @@ def main() -> int:
                      "n": N_KEYS, "q": Q_KERNEL},
         "cases": cases,
     }
+    flash_head = flash_cases[0]
+    lm_entries = [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:71",
+        "launches": lm_launches["flash_attention"],
+        "max_abs_err": flash_head["max_abs_err"], "equal": True,
+        **{k: flash_head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+        "headline": {k: flash_head[k] for k in ("case", "b", "h", "hkv",
+                                                "tq", "s", "hd", "dtype")},
+        "cases": flash_cases,
+    }, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:37",
+        "launches": lm_launches["rglru_scan"], "equal": True,
+        **{k: rglru_case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")},
+        "headline": {k: rglru_case[k] for k in ("b", "t", "w")},
+    }]
+    print(json.dumps({"serving": serving}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, *lm_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """FITing-Tree on PyTorch and CUDA: the port of the JAX package ``repro``.
 
 The JAX package stays the reference; this package mirrors its layout and
-names (``core/``, ``index/``, ``kernels/``, ``analysis/``) and imports
-neither ``jax`` nor anything of ``repro``.  Its kernels are hand-written CUDA
-C++ for Hopper (``csrc/``), built with ``nvcc`` at first use.  Entry points
-run on the CUDA card unless the caller passes ``device="cpu"``.
+names (``core/``, ``index/``, ``kernels/``, ``analysis/``, and for the LM
+substrate ``models/``, ``configs/``, ``serve/``) and imports neither ``jax``
+nor anything of ``repro``.  Its kernels are hand-written CUDA C++ for Hopper
+(``csrc/``: ``fitting_lookup``, ``flash_attention``, ``rglru_scan``), built
+with ``nvcc`` at first use.  Entry points run on the CUDA card unless the
+caller passes ``device="cpu"``.
 
 The read path, end to end::
 
@@ -12,7 +14,20 @@ The read path, end to end::
     handle = ServingHandle()               # serves on the CUDA card
     handle.install(Snapshot.from_arrays(keys, error=64))
     ranks = handle.search(queries, "left")
-"""
-from . import analysis, core, index, kernels
 
-__all__ = ["analysis", "core", "index", "kernels"]
+RecurrentGemma-9B serving (prefill on the flash-attention and RG-LRU
+kernels, greedy decode over ring caches)::
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ContinuousBatcher, Request
+    cfg = get_config("recurrentgemma-9b")
+    batcher = ContinuousBatcher(cfg, init_params(cfg, seed=0), n_slots=4,
+                                cache_len=4160)
+    batcher.submit(Request(0, prompt, max_new=16))
+    batcher.run_until_drained()
+"""
+from . import analysis, configs, core, index, kernels, models, serve
+
+__all__ = ["analysis", "configs", "core", "index", "kernels", "models",
+           "serve"]

@@ -1,17 +1,30 @@
 """Hand-written Hopper kernels of the port (CUDA C++ sources in ``csrc/``).
 
-fitting_lookup -- the paper's hot path: the bounded-window rank search
-                  (``fitting_lookup_cuda``, its plain twin
-                  ``fitting_lookup_torch``, and ``fitting_lookup_window``,
-                  which picks between them by device)
-ops.py         -- the device-index-level wrapper ``ops.fitting_lookup``
-ref.py         -- the torch oracle ``lookup_ref``
+fitting_lookup  -- the paper's hot path: the bounded-window rank search
+                   (``fitting_lookup_cuda``, its plain twin
+                   ``fitting_lookup_torch``, and ``fitting_lookup_window``,
+                   which picks between them by device)
+flash_attention -- blocked online-softmax attention forward: causal, window,
+                   softcap, GQA (``flash_attention_cuda``, its twin
+                   ``flash_attention_torch``, and the module's
+                   ``flash_attention``, which picks by device); the LM's
+                   prefill attention
+rglru_scan      -- the RG-LRU linear recurrence over time (``rglru_scan_cuda``,
+                   its twin ``rglru_scan_torch``, and the module's
+                   ``rglru_scan``); the LM's prefill scan
+ops.py          -- the device-index-level wrapper ``ops.fitting_lookup``
+ref.py          -- the torch oracles ``lookup_ref``, ``attention_ref``,
+                   ``rglru_ref``
 """
 from .fitting_lookup import (fitting_lookup_cuda, fitting_lookup_torch,
                              fitting_lookup_window)
+from .flash_attention import flash_attention_cuda, flash_attention_torch
 from .ops import LookupPlan, make_lookup_fn, make_plan
-from .ref import lookup_ref
+from .ref import attention_ref, lookup_ref, rglru_ref
+from .rglru_scan import rglru_scan_cuda, rglru_scan_torch
 
-__all__ = ["LookupPlan", "fitting_lookup_cuda", "fitting_lookup_torch",
-           "fitting_lookup_window", "lookup_ref", "make_lookup_fn",
-           "make_plan"]
+__all__ = ["LookupPlan", "attention_ref", "fitting_lookup_cuda",
+           "fitting_lookup_torch", "fitting_lookup_window",
+           "flash_attention_cuda", "flash_attention_torch", "lookup_ref",
+           "make_lookup_fn", "make_plan", "rglru_ref", "rglru_scan_cuda",
+           "rglru_scan_torch"]

@@ -1,0 +1,159 @@
+"""Blocked (flash) attention forward, hand-written in CUDA for Hopper, and
+its plain torch twin.
+
+Replaces ``src/repro/kernels/flash_attention.py::flash_attention``: causal
+and sliding-``window`` masks, tanh logit ``softcap``, grouped-query heads
+(q head h reads kv head ``h // (H / Hkv)``), queries aligned to the end of
+the keys (``q_offset = S - Tq``), f32 accumulation, output in q's type.
+q is (B, H, Tq, hd); k and v are (B, Hkv, S, hd), all f32 or all bf16.  It
+is the prefill attention of every ``attn`` and ``local`` block
+(``models/blocks.apply_attention``, with ``q_offset = 0``).  The source,
+``csrc/flash_attention.cu``, states what bounds the kernel and what its
+design does about it.
+
+* :func:`flash_attention_cuda` launches the kernel on CUDA tensors and counts
+  its launches in ``flash_attention_cuda.launches``.  Any strides on the
+  batch, head and position axes; the head dim must be dense.
+* :func:`flash_attention_torch` is the same function as one masked softmax
+  in f32 plain torch ops.
+* :func:`flash_attention` picks by device: the plain twin for CPU tensors
+  only; for a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_i64 = ctypes.c_int64
+_int = ctypes.c_int
+_ptr = ctypes.c_void_p
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library, its launcher's C signature declared."""
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([_int, _int, _ptr, _ptr, _ptr, _ptr] + [_i64] * 12
+                   + [_int] * 7 + [ctypes.c_float, ctypes.c_float, _ptr])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int | None, softcap: float | None) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B, H, Tq, hd) and k, v (B, Hkv, S, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, tq, hd = q.shape
+    kb, hkv, s, khd = k.shape
+    if kb != b or khd != hd or hkv == 0 or h % hkv != 0:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"match (same B and hd, H a multiple of Hkv)")
+    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v must share one of "
+                         f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must share one device")
+    if s == 0:
+        raise ValueError("attention over zero keys")
+    if causal and tq > s:
+        raise ValueError(f"causal attention with Tq={tq} > S={s} leaves "
+                         f"query rows with no key")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+
+
+def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          softcap: float | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """The kernel's function in plain torch ops: masked softmax attention
+    with grouped heads, in f32."""
+    _check(q, k, v, causal, window, softcap)
+    b, h, tq, hd = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.float().reshape(b, hkv, h // hkv, tq, hd)
+    logits = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) * scale
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = torch.arange(tq, device=q.device)[:, None] + (s - tq)
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((tq, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgts,bksd->bkgtd", probs, v.float())
+    return out.reshape(b, h, tq, hd).to(q.dtype)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         softcap: float | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+
+    Returns (B, H, Tq, hd) in q's type: a view of a (B, Tq, H, hd) buffer,
+    so the model's ``transpose(1, 2)`` back to token-major is free.  Raises
+    if the tensors are not on a CUDA device, hd is not one of
+    :data:`HEAD_DIMS`, the library cannot be built, or the launch reports an
+    error."""
+    _check(q, k, v, causal, window, softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
+                         f"{q.device}")
+    b, h, tq, hd = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} has no kernel; it takes {HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v must be dense along the head dim")
+    lib = _library()
+    out = torch.empty((b, tq, h, hd), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if b == 0 or tq == 0:
+        return out
+    scale = scale if scale is not None else hd ** -0.5
+    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), *strides, b, h, hkv, tq, s,
+            int(causal), window or 0, softcap or 0.0, scale, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """The kernel for CUDA tensors, its plain twin for CPU tensors."""
+    kw = {"causal": causal, "window": window, "softcap": softcap,
+          "scale": scale}
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, **kw)
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v, **kw)
+    raise ValueError(f"no flash_attention kernel for device {q.device}")

@@ -1,0 +1,11 @@
+"""The port's LM stack: blocks, configs, init/forward/decode entry points
+(port of ``repro.models``), for the block types ``attn``, ``local`` and
+``rglru``."""
+from .config import ModelConfig, MoEConfig, simple_decoder
+from .convert import params_from_jax
+from .model import (decode_step, forward, init_caches, init_params,
+                    param_count, prefill)
+
+__all__ = ["ModelConfig", "MoEConfig", "simple_decoder", "init_params",
+           "forward", "init_caches", "prefill", "decode_step", "param_count",
+           "params_from_jax"]

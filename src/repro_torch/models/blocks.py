@@ -1,0 +1,252 @@
+"""Model blocks of the port (functional: explicit parameter dicts), for the
+block types ``attn``, ``local`` and ``rglru`` (port of
+``repro.models.blocks``).
+
+Every block follows ``apply_<x>(params, x, cfg, ctx) -> (x, new_cache)``
+where ``ctx`` carries mode/positions/cache.  Caches make prefill/decode work:
+KV rings for attention (global cache = ring of size S, local = ring of size
+window), recurrent states for the RG-LRU.
+
+The two hot functions of prefill run on the port's hand-written kernels:
+attention over the prompt is ``kernels.flash_attention`` (the reference
+computes the same function in XLA, ``_attend`` under the prefill mask), and
+the RG-LRU scan is ``kernels.rglru_scan`` (the reference's associative
+``_rglru_scan``).  Decode over the ring and the one-step RG-LRU update stay
+plain torch, as the reference keeps them in XLA.
+
+Types follow JAX's promotion: :func:`mm` multiplies mixed-type operands in
+the wider type (f32 caches meet bf16 weights at decode), and elementwise ops
+promote as torch does for tensors of one kind, which is the same rule.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
+
+from .config import ModelConfig
+
+# make(shape, dtype) -> a new N(0, 0.02) parameter; init_params supplies it
+Dense = Callable[[tuple, torch.dtype], torch.Tensor]
+
+
+@dataclasses.dataclass
+class Ctx:
+    mode: str                          # "train" | "prefill" | "decode"
+    pos: torch.Tensor | None = None    # (B, T) absolute positions
+    cache: Any = None                  # per-layer cache dict (prefill/decode)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's type promotion: mixed operands (an f32 cache
+    read against bf16 weights) multiply in the wider type; like types keep
+    theirs (bf16 x bf16 -> bf16, accumulated in f32 by the matmul)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, T, H, hd), pos: (B, T) -> rotated (angles in f32, cast back)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=x.device) / half)
+    ang = pos[..., None].float() * freqs                  # (B, T, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------- attn
+def init_attention(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
+    d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    if cfg.qk_norm:
+        raise NotImplementedError("qk_norm is not ported (ROADMAP queue A, "
+                                  "slice 9: the other nine configs)")
+    return {"wq": dense((d, h * hd), dtype), "wk": dense((d, kv * hd), dtype),
+            "wv": dense((d, kv * hd), dtype), "wo": dense((h * hd, d), dtype)}
+
+
+def _attend_dense(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+    """q: (B,T,H,hd); k,v: (B,S,Kv,hd); mask: (B,T,S) or (T,S). GQA-grouped.
+
+    The plain path: decode over the ring cache."""
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    q = q.reshape(b, t, kv, g, hd)
+    logits = torch.einsum("btkgd,bskd->bkgts", q.float(),
+                          k.float()) * (cfg.hd ** -0.5)
+    if cfg.attn_softcap is not None:
+        logits = torch.tanh(logits / cfg.attn_softcap) * cfg.attn_softcap
+    m = mask if mask.dim() == 3 else mask[None]
+    logits = torch.where(m[:, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
+    return out.reshape(b, t, h * hd).to(v.dtype)
+
+
+def _attend_prefill(q, k, v, cfg: ModelConfig, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """The reference's ``_attend`` under the prefill mask (positions
+    0..T-1 for queries and keys alike) is ``flash_attention`` with
+    q_offset = 0: the kernel on the card, its plain twin on the CPU."""
+    b, t, h, hd = q.shape
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=window,
+                          softcap=cfg.attn_softcap, scale=cfg.hd ** -0.5)
+    return out.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
+                    causal: bool = True, window: Optional[int] = None):
+    """Self-attention with ring caches for prefill/decode."""
+    b, t, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = mm(x, p["wq"]).reshape(b, t, h, hd)
+    k = mm(x, p["wk"]).reshape(b, t, kv, hd)
+    v = mm(x, p["wv"]).reshape(b, t, kv, hd)
+    pos = ctx.pos if ctx.pos is not None else \
+        torch.arange(t, device=x.device)[None].expand(b, t)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+
+    if ctx.mode == "train" or ctx.cache is None or ctx.mode == "prefill":
+        # batch-uniform positions 0..T-1: the kernel's end-aligned mask
+        out = mm(_attend_prefill(q, k, v, cfg, causal, window), p["wo"])
+        if ctx.mode != "prefill" or ctx.cache is None:
+            return out, None
+        # fill the ring with the last min(T, L) tokens for subsequent decode
+        # (a ring cannot hold the full prefill when T > L; queries above
+        #  already attended the exact windowed mask)
+        cache = ctx.cache
+        L = cache["k"].shape[1]
+        tw = min(t, L)
+        slots = pos[:, t - tw:] % L
+        new_cache = {
+            "k": _ring_write(cache["k"], k[:, t - tw:], slots),
+            "v": _ring_write(cache["v"], v[:, t - tw:], slots),
+            "pos": _ring_write(cache["pos"], pos[:, t - tw:], slots),
+        }
+        return out, new_cache
+
+    # decode: ring cache (B, L, Kv, hd) + cache positions (B, L)
+    cache = ctx.cache
+    L = cache["k"].shape[1]
+    slots = pos % L                                          # (B, T)
+    ck = _ring_write(cache["k"], k, slots)
+    cv = _ring_write(cache["v"], v, slots)
+    cpos = _ring_write(cache["pos"], pos, slots)
+    new_cache = {"k": ck, "v": cv, "pos": cpos}
+    qp = pos[:, :, None]
+    kp = cpos[:, None, :]                                    # (B,1,L)
+    mask = kp >= 0
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mm(_attend_dense(q, ck, cv, mask, cfg), p["wo"]), new_cache
+
+
+def _ring_write(buf: torch.Tensor, vals: torch.Tensor, slots: torch.Tensor
+                ) -> torch.Tensor:
+    """buf: (B, L, ...), vals: (B, T, ...), slots: (B, T) -> a new buffer
+    with ``vals`` scattered to ``slots`` (cast to buf's type); ``buf`` is
+    left as it was, as the reference's functional update leaves it."""
+    out = buf.clone()
+    bi = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    out[bi, slots] = vals.to(buf.dtype)
+    return out
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, length: int,
+                         dtype: torch.dtype, device) -> dict:
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": torch.zeros((batch, length, kv, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, length, kv, hd), dtype=dtype,
+                             device=device),
+            "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                              device=device)}
+
+
+# ---------------------------------------------------------------------- ffn
+def init_mlp(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"wi": dense((d, f), dtype), "wg": dense((d, f), dtype),
+            "wo": dense((f, d), dtype)}
+
+
+def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return mm(F.silu(mm(x, p["wg"])) * mm(x, p["wi"]), p["wo"])
+
+
+# -------------------------------------------------------------------- rglru
+def init_rglru(cfg: ModelConfig, dense: Dense, dtype: torch.dtype,
+               device) -> dict:
+    d = cfg.d_model
+    w = int(cfg.rglru_expand * d)
+    return {"wx": dense((d, w), dtype),
+            "wy": dense((d, w), dtype),      # gate branch
+            "conv": dense((cfg.conv_width, w), dtype),
+            "a_log": torch.full((w,), 0.5, dtype=torch.float32,
+                                device=device),
+            "wgx": dense((w, w), dtype),     # input gate
+            "wga": dense((w, w), dtype),     # recurrence gate
+            "wo": dense((w, d), dtype)}
+
+
+def apply_rglru(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
+    """RecurrentGemma recurrent block: proj -> causal conv -> RG-LRU -> gate."""
+    t = x.shape[1]
+    u = mm(x, p["wx"])                                       # (B,T,W)
+    gate = F.gelu(mm(x, p["wy"]), approximate="tanh")        # jax.nn.gelu
+    cache = ctx.cache or {}
+    cw = cfg.conv_width
+    if ctx.mode == "decode" and "conv" in cache:
+        hist = torch.cat([cache["conv"], u], dim=1)          # (B, cw-1+T, W)
+    else:
+        hist = F.pad(u, (0, 0, cw - 1, 0))
+    conv = sum(hist[:, i: i + t] * p["conv"][i][None, None]
+               for i in range(cw))
+    ga = torch.sigmoid(mm(conv, p["wga"]))
+    gx = torch.sigmoid(mm(conv, p["wgx"]))
+    c = 8.0
+    log_a = -c * F.softplus(p["a_log"])[None, None] * ga.float()
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - a ** 2, min=1e-12))
+    un = (gx * conv).float() * mult
+    if ctx.mode == "decode" and "h" in cache:
+        h = a[:, 0] * cache["h"] + un[:, 0]
+        hs = h[:, None]
+    else:
+        hs, h = rglru_scan(un, a)
+    new_cache = {"conv": hist[:, -(cw - 1):] if cw > 1 else hist[:, :0],
+                 "h": h} if ctx.mode != "train" else None
+    y = mm(hs.to(x.dtype) * gate, p["wo"])
+    return y, new_cache
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device) -> dict:
+    w = int(cfg.rglru_expand * cfg.d_model)
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
+                                device=device),
+            "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}

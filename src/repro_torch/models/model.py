@@ -1,0 +1,239 @@
+"""The port's model: init / forward / prefill / decode (port of
+``repro.models.model``) for the block types ``attn``, ``local`` and
+``rglru``.
+
+Parameters are nested dicts of tensors whose paths follow the reference's:
+the reference stacks a unit's layers on a leading repeat axis
+(``params["stacks"]["s0"]["b1"]["rec"]["wx"]`` of shape (R, d, w)) and scans
+over it; the port keeps one dict per layer in a list
+(``params["stacks"]["s0"][r]["b1"]["rec"]["wx"]`` of shape (d, w)) and runs
+the layers in a Python loop on one device, with no remat and no activation
+sharding.  Caches have the same layout.  ``models/convert.py`` carries the
+reference's parameters over.
+
+Entry points take ``device=None``, which means the CUDA card and raises
+without one; the tests pass ``device="cpu"``.  Random parameters come from a
+``torch.Generator`` seeded from an int: they are not the reference's
+``jax.random`` draws.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.index.engine import resolve_device
+
+from . import blocks
+from .blocks import Ctx
+from .config import ModelConfig
+
+Params = Any
+
+PORTED_BLOCKS = ("attn", "local", "rglru")
+
+
+def _unported(btype: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"block type {btype!r} is not ported; the port runs {PORTED_BLOCKS} "
+        f"(ROADMAP queue A, slice 9: the other block types)")
+
+
+# ------------------------------------------------------------------ init
+def init_block(btype: str, cfg: ModelConfig, dense: blocks.Dense,
+               dtype: torch.dtype, device) -> dict:
+    d = cfg.d_model
+
+    def ln():
+        return torch.zeros((d,), dtype=dtype, device=device)
+
+    if btype in ("attn", "local"):
+        p = {"ln1": ln(), "attn": blocks.init_attention(cfg, dense, dtype),
+             "ln2": ln(), "mlp": blocks.init_mlp(cfg, dense, dtype)}
+    elif btype == "rglru":
+        p = {"ln1": ln(), "rec": blocks.init_rglru(cfg, dense, dtype, device),
+             "ln2": ln(), "mlp": blocks.init_mlp(cfg, dense, dtype)}
+    else:
+        raise _unported(btype)
+    if cfg.post_norm:
+        p["ln1p"] = ln()
+        p["ln2p"] = ln()
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
+                device=None) -> Params:
+    """Random parameters, N(0, 0.02) weights and zero norms as in the
+    reference, drawn on ``device`` from a generator seeded with ``seed``.
+    ``device="meta"`` gives shapes only (see :func:`param_count`)."""
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
+    if cfg.encoder_stacks or not cfg.tie_embeddings:
+        raise NotImplementedError(
+            "encoder stacks and untied embeddings are not ported (ROADMAP "
+            "queue A, slice 9: the other nine configs)")
+
+    def dense(shape, dt):
+        t = torch.empty(shape, dtype=dt, device=dev)
+        return t.normal_(0.0, 0.02, generator=gen)
+
+    params = {"embed": dense((cfg.vocab, cfg.d_model), dtype),
+              "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                        device=dev),
+              "stacks": {}}
+    for si, (unit, r) in enumerate(cfg.stacks):
+        params["stacks"][f"s{si}"] = [
+            {f"b{bi}": init_block(bt, cfg, dense, dtype, dev)
+             for bi, bt in enumerate(unit)} for _ in range(r)]
+    return params
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Exact parameter count, from shapes alone (no allocation)."""
+    return sum(t.numel() for t in _leaves(init_params(cfg, device="meta")))
+
+
+def param_bytes(params: Params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+# ------------------------------------------------------------------ blocks
+def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
+                ctx: Ctx):
+    scale = cfg.residual_scale if cfg.residual_scale is not None else 1.0
+    eps = cfg.norm_eps
+
+    def residual(x, h, post_key):
+        if cfg.post_norm and post_key in p:
+            h = blocks.rmsnorm(p[post_key], h, eps)
+        return x + scale * h
+
+    if btype in ("attn", "local"):
+        h = blocks.rmsnorm(p["ln1"], x, eps)
+        h, cache = blocks.apply_attention(
+            p["attn"], h, cfg, ctx, causal=True,
+            window=cfg.window if btype == "local" else None)
+        x = residual(x, h, "ln1p")
+        h = blocks.rmsnorm(p["ln2"], x, eps)
+        x = residual(x, blocks.apply_mlp(p["mlp"], h), "ln2p")
+        return x, cache
+    if btype == "rglru":
+        h = blocks.rmsnorm(p["ln1"], x, eps)
+        h, cache = blocks.apply_rglru(p["rec"], h, cfg, ctx)
+        x = x + scale * h
+        h = blocks.rmsnorm(p["ln2"], x, eps)
+        x = x + scale * blocks.apply_mlp(p["mlp"], h)
+        return x, cache
+    raise _unported(btype)
+
+
+def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
+                caches):
+    """Every layer in order, a Python loop (the reference scans each
+    stack); returns the hidden state and the new caches, same layout."""
+    new_caches = {}
+    for si, (unit, r) in enumerate(stacks):
+        layers = stack_params[f"s{si}"]
+        out = []
+        for li in range(r):
+            lc = None if caches is None else caches[f"s{si}"][li]
+            ncs = {}
+            for bi, bt in enumerate(unit):
+                ctx = Ctx(ctx_proto.mode, ctx_proto.pos,
+                          None if lc is None else lc[f"b{bi}"])
+                x, ncs[f"b{bi}"] = apply_block(bt, layers[li][f"b{bi}"], x,
+                                               cfg, ctx)
+            out.append(ncs)
+        new_caches[f"s{si}"] = out
+    return x, new_caches
+
+
+# ------------------------------------------------------------------ forward
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            mode: str = "train", pos: Optional[torch.Tensor] = None,
+            caches=None, return_hidden: bool = False):
+    """Returns (logits, new_caches).  tokens: (B, T) integer.
+
+    ``mode="train"`` is the cache-free forward; the port does not train yet
+    (no loss, no gradients: ROADMAP queue A, slice 9)."""
+    b, t = tokens.shape
+    x = params["embed"][tokens]
+    if cfg.emb_scale is not None:
+        x = x * torch.tensor(cfg.emb_scale, dtype=x.dtype, device=x.device)
+    if pos is None:
+        pos = torch.arange(t, dtype=torch.int32,
+                           device=tokens.device)[None].expand(b, t)
+    ctx = Ctx(mode, pos, None)
+    x, new_caches = _run_stacks(params["stacks"], cfg.stacks, x, cfg, ctx,
+                                caches)
+    x = blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    caches_out = new_caches if mode != "train" else None
+    if return_hidden:
+        return x, caches_out
+    return unembed(params, cfg, x), caches_out
+
+
+def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    logits = blocks.mm(x, params["embed"].T)
+    if cfg.logit_scale is not None:
+        logits = logits * cfg.logit_scale
+    if cfg.final_softcap is not None:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
+
+
+# ------------------------------------------------------------------ caches
+def init_block_cache(btype: str, cfg: ModelConfig, batch: int,
+                     cache_len: int, dtype, device) -> dict:
+    if btype == "attn":
+        return blocks.init_attention_cache(cfg, batch, cache_len, dtype,
+                                           device)
+    if btype == "local":
+        return blocks.init_attention_cache(cfg, batch,
+                                           min(cfg.window, cache_len), dtype,
+                                           device)
+    if btype == "rglru":
+        return blocks.init_rglru_cache(cfg, batch, dtype, device)
+    raise _unported(btype)
+
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                dtype=torch.bfloat16, device=None):
+    """Per-layer caches, in the parameters' layout."""
+    dev = resolve_device(device)
+    return {f"s{si}": [{f"b{bi}": init_block_cache(bt, cfg, batch, cache_len,
+                                                   dtype, dev)
+                        for bi, bt in enumerate(unit)} for _ in range(r)]
+            for si, (unit, r) in enumerate(cfg.stacks)}
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                pos: torch.Tensor, caches):
+    """One decode step.  tokens: (B, 1); pos: (B,) absolute positions."""
+    return forward(params, cfg, tokens, mode="decode", pos=pos[:, None],
+                   caches=caches)
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, caches,
+            last_only: bool = False):
+    """last_only=True returns only the final position's logits (the serving
+    path: a full (B, T, 256k-vocab) logits tensor is never needed)."""
+    hidden, new_caches = forward(params, cfg, tokens, mode="prefill",
+                                 caches=caches, return_hidden=True)
+    if last_only:
+        hidden = hidden[:, -1:]
+    return unembed(params, cfg, hidden), new_caches

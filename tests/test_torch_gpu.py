@@ -1,13 +1,15 @@
-"""The port's CUDA kernel on the card (marked ``gpu``; skips without one).
+"""The port's CUDA kernels on the card (marked ``gpu``; skip without one).
 
 These tests import neither JAX nor the JAX package, so they run on a
 machine that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-The kernel is held against its plain torch twin on the same inputs, and the
-``cuda`` engine against ``np.searchsorted``: ranks are integers and every
-compare is f32 on both sides, so the tolerance is 0.
+Each kernel is held against its plain torch twin on the same inputs.  The
+lookup kernel and the ``cuda`` engine (against ``np.searchsorted``) to
+tolerance 0: ranks are integers and every compare is f32 on both sides.
+The RG-LRU scan to tolerance 0 as well (see its test); flash attention to
+the reference's tolerances (stated at ``FLASH_TOL``).
 """
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from repro_torch.index import SegmentTable, device_index, make_engine, \
     make_plan
 from repro_torch.index.engine import predict_positions
 from repro_torch.kernels import fitting_lookup as fl
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru_scan as rs
 
 
 @pytest.fixture
@@ -73,3 +77,72 @@ def test_cuda_engine_defaults_to_the_card_and_launches(cuda_device):
                                     == q)
     np.testing.assert_array_equal(eng.lookup(q), np.where(hit, left, -1))
     assert fl.fitting_lookup_cuda.launches == before + 3
+
+
+# ------------------------------------------------------------ LM kernels
+
+# bf16 2e-2 and f32 2e-4: the reference's bounds for a blocked against a
+# dense softmax (tests/test_kernels_extra.py); the kernel and the twin both
+# accumulate in f32 but sum in another order.
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+
+
+def _qkv(dev, b, h, hkv, tq, s, hd, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, h, tq, hd), (b, hkv, s, hd), (b, hkv, s, hd))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kw,dtype", [
+    ((1, 16, 1, 4096, 4096, 256), {"window": 2048}, torch.bfloat16),
+    ((2, 8, 4, 300, 300, 128), {"softcap": 50.0}, torch.float32),
+    ((2, 4, 2, 100, 200, 64), {"causal": False}, torch.float32),
+    ((1, 4, 4, 256, 256, 32), {"window": 64, "softcap": 50.0},
+     torch.float32),
+    ((2, 8, 2, 1, 512, 16), {}, torch.bfloat16),
+    ((1, 2, 1, 130, 130, 64), {"window": 7}, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain_twin(cuda_device, shape, kw, dtype):
+    q, k, v = _qkv(cuda_device, *shape, dtype, seed=sum(shape))
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_takes_strided_views(cuda_device):
+    """The model hands (B, T, H, hd) projections over as (B, H, T, hd)
+    views: the kernel reads them in place."""
+    x = torch.randn(2, 96, 6, 64, device=cuda_device)
+    kv = torch.randn(2, 96, 2, 64, device=cuda_device)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    got = fa.flash_attention_cuda(q, k, k, window=16)
+    want = fa.flash_attention_torch(q.contiguous(), k.contiguous(),
+                                    k.contiguous(), window=16)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,w,with_h0", [(4, 4096, 4096, True),
+                                           (3, 37, 64, False),
+                                           (1, 1, 130, True)])
+def test_rglru_kernel_matches_plain_twin(cuda_device, b, t, w, with_h0):
+    """Each step rounds its product and its sum as the twin's separate
+    multiply and add do, so the two agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(b * t + w)
+    u = torch.randn(b, t, w, generator=g, device=cuda_device)
+    a = torch.rand(b, t, w, generator=g, device=cuda_device)
+    h0 = torch.randn(b, w, generator=g, device=cuda_device) if with_h0 \
+        else None
+    before = rs.rglru_scan_cuda.launches
+    got, got_last = rs.rglru_scan_cuda(u, a, h0)
+    torch.cuda.synchronize()
+    assert rs.rglru_scan_cuda.launches == before + 1
+    want, want_last = rs.rglru_scan_torch(u, a, h0)
+    assert torch.equal(got, want) and torch.equal(got_last, want_last)

@@ -8,8 +8,8 @@ module keeps the reference's public surface (``DeviceIndex``,
 primitives built on it (``bound``, ``range_count``).
 
 Two bounded-search strategies (both O(error) bounded):
-  * ``window``  -- gather the 2e+2 window and compare-reduce (what the CUDA
-                   kernel does, one warp per query);
+  * ``window``  -- gather the 2e+2 window and compare-reduce (what the
+                   reference's TPU kernel does);
   * ``bisect``  -- log2(2e+2) halving steps of single gathers.
 
 float32 keys: interpolation subtracts the segment start *before* rounding, so

@@ -7,6 +7,9 @@ Module map:
   query.py    -- the typed query plane: ``PointResult``/``RangeResult`` and
                  the ``QueryVerbs`` mixin deriving point / range / count /
                  predecessor / successor from the one ``search`` primitive
+  device.py   -- ``DeviceIndex`` (the table's f32/i32 device form),
+                 ``predict_positions`` and the duplicate snaps: the
+                 per-query math the engine and the kernels' twins share
   engine.py   -- ``LookupEngine`` registry: numpy / torch-window /
                  torch-bisect / cuda bounded-window search, the
                  ``DeviceIndex`` device form, and ``DispatchEngine``

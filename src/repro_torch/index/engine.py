@@ -5,7 +5,7 @@ Port of ``repro.index.engine``.  Each backend mirrors one of the reference:
     numpy         (numpy)       host vectorized bounded bisect, f64 keys
     torch-window  (xla-window)  gather the 2e+2 window and compare-reduce
     torch-bisect  (xla-bisect)  log2(2e+2) halving steps of single gathers
-    cuda          (pallas)      the hand-written CUDA window kernel
+    cuda          (pallas)      the hand-written CUDA fused search kernel
                                 (``repro_torch.kernels.fitting_lookup``)
     dispatch      (dispatch)    batch-size tiers over the above
 
@@ -24,10 +24,11 @@ are exact in f32 (integer keys < 2^24, the serving regime -- see
 ``rescale_keys``): ``numpy`` compares in f64, the device backends in f32.
 
 Every device path ends in a duplicate snap (``snap_leftmost`` /
-``snap_side``) that costs one host sync per batch: it reads which queries
-landed inside a duplicate run before running ``torch.searchsorted`` over the
-column for just those queries (the reference gates the same work with
-``lax.cond``).
+``snap_side``).  The torch backends pay one host sync per batch for it: it
+reads which queries landed inside a duplicate run before running
+``torch.searchsorted`` over the column for just those queries (the
+reference gates the same work with ``lax.cond``).  The ``cuda`` backend's
+fused kernel snaps on the device, with no sync.
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ import torch
 from repro_torch.analysis.contracts import hot_path
 from repro_torch.analysis.sanitizer import make_lock
 
+from .device import (DeviceIndex, predict_positions, snap_leftmost,
+                     snap_side)
 from .query import QueryVerbs, check_side
 from .table import SegmentTable, numpy_lookup, numpy_search
 
@@ -56,16 +59,6 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-class DeviceIndex(NamedTuple):
-    """f32/i32 device form of a SegmentTable, resident on one torch device."""
-    seg_start: torch.Tensor  # (S,) f32  first key of each segment
-    slope: torch.Tensor      # (S,) f32
-    base: torch.Tensor       # (S,) i32  global position of segment start
-    seg_end: torch.Tensor    # (S,) i32  one past the segment end
-    keys: torch.Tensor       # (N,) f32  the sorted key column
-    error: int
 
 
 def device_index(table: SegmentTable, device=None) -> DeviceIndex:
@@ -90,64 +83,6 @@ def device_index(table: SegmentTable, device=None) -> DeviceIndex:
 
 
 # --------------------------------------------------------------------- device
-def _snap(keys: torch.Tensor, queries: torch.Tensor, rank: torch.Tensor,
-          need: torch.Tensor, side: str) -> torch.Tensor:
-    """Replace ``rank`` by the full-column searchsorted rank where ``need``
-    is set.  The ``nonzero`` is the batch's one host sync; the search runs
-    over the flagged queries only."""
-    hits = need.nonzero().squeeze(1)
-    if hits.numel() == 0:
-        return rank
-    fixed = torch.searchsorted(keys, queries[hits], side=side, out_int32=True)
-    return rank.index_put((hits,), fixed.to(rank.dtype))
-
-
-def snap_leftmost(keys: torch.Tensor, queries: torch.Tensor,
-                  rank: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
-    """Snap duplicate hits to the leftmost occurrence (mirror of the
-    ``numpy_lookup`` fix): when a found rank's left neighbour still equals
-    the query, the duplicate run straddles a segment boundary and the window
-    search returned an in-segment rank.  A miss may carry a rank past the
-    column (a window wider than it counts the clamped last key again), so
-    the neighbour's index is clamped at both ends, as a JAX gather does."""
-    n = keys.shape[0]
-    need = hit & (rank > 0) & (keys[(rank - 1).clamp(0, n - 1)] == queries)
-    return _snap(keys, queries, rank, need, "left")
-
-
-def snap_side(keys: torch.Tensor, queries: torch.Tensor, rank: torch.Tensor,
-              side: str) -> torch.Tensor:
-    """Side-generalized duplicate snap for insertion-rank searches: a bounded
-    window parks inside a duplicate run that extends past it, which shows at
-    the landing position alone -- for ``side="left"`` the left neighbour
-    still equals the query, for ``side="right"`` the landing key itself."""
-    n = keys.shape[0]
-    if side == "left":
-        need = (rank > 0) & (keys[(rank - 1).clamp(min=0)] == queries)
-    else:
-        need = (rank < n) & (keys[rank.clamp(max=n - 1)] == queries)
-    return _snap(keys, queries, rank, need, side)
-
-
-def predict_positions(idx: DeviceIndex, queries: torch.Tensor) -> torch.Tensor:
-    """Interpolated (approximate) global positions; error <= idx.error by Eq. 1.
-
-    Route, interpolate in f32 (``torch.round`` rounds half to even, like
-    ``jnp.round``), clamp into the owning segment's position range so gap
-    queries cannot overshoot.  The rounded offset saturates at the int32
-    range and is added in int64, so a far out-of-domain query clamps to its
-    segment's end instead of wrapping."""
-    sid = torch.searchsorted(idx.seg_start, queries, right=True) - 1
-    sid = sid.clamp(0, idx.seg_start.shape[0] - 1)
-    local = (queries - idx.seg_start[sid]) * idx.slope[sid]
-    local = torch.nan_to_num(torch.round(local), nan=0.0).clamp(-2.0 ** 31,
-                                                                2.0 ** 31)
-    base = idx.base[sid]
-    pred = base.to(torch.int64) + local.to(torch.int64)
-    return torch.minimum(torch.maximum(pred, base), idx.seg_end[sid]).to(
-        torch.int32)
-
-
 def _window(idx: DeviceIndex, start: torch.Tensor) -> tuple[torch.Tensor,
                                                             torch.Tensor]:
     """Gather the 2e+2 keys from each window start: (offsets, values), with
@@ -239,37 +174,34 @@ def make_plan(n_keys: int, error: int) -> LookupPlan:
     return LookupPlan(kb=kb, window=window, n_blocks=n_pad // kb, n_pad=n_pad)
 
 
-def _kernel_window(idx: DeviceIndex, queries: torch.Tensor, side: str
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Route + interpolate + clamp (torch), then the window kernel: the
-    reference's window start ``clip(pred - e, 0, n_pad - W)``, kept exactly,
-    so every query is answered over the reference kernel's window."""
+def _fused(idx: DeviceIndex, queries: torch.Tensor, mode: str
+           ) -> torch.Tensor:
+    """The fused search (route, predict, window, snap) over the reference
+    kernel's window: ``clip(pred - e, 0, n_pad - W)``, kept exactly.  One
+    launch and no host sync for CUDA tensors; the plain composition for CPU
+    tensors."""
     # lazy: repro_torch.kernels imports this module for its thin wrappers
-    from repro_torch.kernels.fitting_lookup import fitting_lookup_window
+    from repro_torch.kernels.fitting_lookup import fitting_search
 
     plan = make_plan(int(idx.keys.shape[0]), int(idx.error))
-    pred = predict_positions(idx, queries)
-    qlo = (pred - idx.error).clamp(0, plan.n_pad - plan.window)
-    return fitting_lookup_window(idx.keys, queries, qlo, window=plan.window,
-                                 n_pad=plan.n_pad, side=side)
+    return fitting_search(idx.seg_start, idx.slope, idx.base, idx.seg_end,
+                          idx.keys, queries, error=int(idx.error),
+                          n_pad=plan.n_pad, mode=mode)
 
 
 def kernel_lookup(idx: DeviceIndex, queries: torch.Tensor) -> torch.Tensor:
-    """Batched point lookup via the window kernel (twin of ``pallas_lookup``).
-    Returns ranks, -1 where absent."""
-    rank, found = _kernel_window(idx, queries, "left")
-    res = torch.where(found, rank, -1)
-    return snap_leftmost(idx.keys, queries, res, res >= 0)
+    """Batched point lookup via the fused kernel (twin of ``pallas_lookup``).
+    Returns ranks (the leftmost of a duplicate run), -1 where absent."""
+    return _fused(idx, queries, "lookup")
 
 
 def kernel_search(idx: DeviceIndex, queries: torch.Tensor,
                   side: str = "left") -> torch.Tensor:
-    """Batched insertion-rank search via the window kernel (twin of
-    ``pallas_search``): the kernel counts with the side's comparison, and
-    :func:`snap_side` resolves duplicate runs extending past the window."""
+    """Batched insertion-rank search via the fused kernel (twin of
+    ``pallas_search``): the window counts with the side's comparison, and
+    the snap resolves duplicate runs extending past the window."""
     check_side(side)
-    rank, _ = _kernel_window(idx, queries, side)
-    return snap_side(idx.keys, queries, rank, side)
+    return _fused(idx, queries, f"search-{side}")
 
 
 # ------------------------------------------------------------------- registry
@@ -431,7 +363,7 @@ class DispatchEngine(QueryVerbs):
 
     The backends trade fixed cost against per-query cost: numpy wins for
     tiny probes (no device round trip), the torch bisect for medium batches,
-    and the CUDA window kernel for large fan-out.  Each ``lookup`` /
+    and the fused CUDA search kernel for large fan-out.  Each ``lookup`` /
     ``search`` batch goes to the tier its size puts it in:
 
         size <= small_max            -> numpy

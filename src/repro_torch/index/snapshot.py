@@ -13,10 +13,10 @@ publishes in one step.
 (snapshot, engine-cache) pair with a single reference assignment, so an
 in-flight ``lookup`` that already pinned the old pair keeps a fully consistent
 view (epoch semantics, no torn reads, no reader locks).  Every verb serves
-through the ``cuda`` backend (the CUDA window kernel on the card) unless the
-caller names another; per-backend engine options (``device`` among them)
-come from ``engine_opts``, so ``{"cuda": {"device": "cpu"}}`` runs the
-default backend on the CPU.
+through the ``cuda`` backend (the fused CUDA search kernel on the card)
+unless the caller names another; per-backend engine options (``device``
+among them) come from ``engine_opts``, so ``{"cuda": {"device": "cpu"}}``
+runs the default backend on the CPU.
 """
 from __future__ import annotations
 

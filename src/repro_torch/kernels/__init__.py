@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels of the port (CUDA C++ sources in ``csrc/``).
 
-fitting_lookup  -- the paper's hot path: the bounded-window rank search
-                   (``fitting_lookup_cuda``, its plain twin
-                   ``fitting_lookup_torch``, and ``fitting_lookup_window``,
-                   which picks between them by device)
+fitting_lookup  -- the paper's hot path: the fused route + predict + window
+                   + snap search (``fitting_search_cuda``, its plain twin
+                   ``fitting_search_torch``, and ``fitting_search``, which
+                   picks between them by device), and the window search
+                   alone (``fitting_lookup_cuda``, ``fitting_lookup_torch``,
+                   ``fitting_lookup_window``)
 flash_attention -- blocked online-softmax attention forward: causal, window,
                    softcap, GQA (``flash_attention_cuda``, its twin
                    ``flash_attention_torch``, and the module's
@@ -17,14 +19,16 @@ ref.py          -- the torch oracles ``lookup_ref``, ``attention_ref``,
                    ``rglru_ref``
 """
 from .fitting_lookup import (fitting_lookup_cuda, fitting_lookup_torch,
-                             fitting_lookup_window)
+                             fitting_lookup_window, fitting_search,
+                             fitting_search_cuda, fitting_search_torch)
 from .flash_attention import flash_attention_cuda, flash_attention_torch
 from .ops import LookupPlan, make_lookup_fn, make_plan
 from .ref import attention_ref, lookup_ref, rglru_ref
 from .rglru_scan import rglru_scan_cuda, rglru_scan_torch
 
 __all__ = ["LookupPlan", "attention_ref", "fitting_lookup_cuda",
-           "fitting_lookup_torch", "fitting_lookup_window",
+           "fitting_lookup_torch", "fitting_lookup_window", "fitting_search",
+           "fitting_search_cuda", "fitting_search_torch",
            "flash_attention_cuda", "flash_attention_torch", "lookup_ref",
            "make_lookup_fn", "make_plan", "rglru_ref", "rglru_scan_cuda",
            "rglru_scan_torch"]

@@ -11,9 +11,14 @@ is the prefill attention of every ``attn`` and ``local`` block
 ``csrc/flash_attention.cu``, states what bounds the kernel and what its
 design does about it.
 
-* :func:`flash_attention_cuda` launches the kernel on CUDA tensors and counts
-  its launches in ``flash_attention_cuda.launches``.  Any strides on the
-  batch, head and position axes; the head dim must be dense.
+* :func:`flash_attention_cuda` launches a kernel on CUDA tensors and counts
+  its launches in ``flash_attention_cuda.launches``.  Which kernel takes
+  which inputs (:func:`kernel_path`): bf16 at hd 64, 128 and 256 goes to
+  the tensor-core kernel (TMA + wgmma); bf16 at hd 16 and 32, and f32 at
+  every hd, to the CUDA-core kernel.  Any strides on the batch, head and
+  position axes, the head dim dense; the tensor-core kernel also needs
+  what TMA needs (16-byte aligned bases, strides that are multiples of 16
+  bytes) and raises on a view that breaks it.  Nothing falls back.
 * :func:`flash_attention_torch` is the same function as one masked softmax
   in f32 plain torch ops.
 * :func:`flash_attention` picks by device: the plain twin for CPU tensors
@@ -29,6 +34,7 @@ import torch
 from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)       # bf16 on the tensor cores
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _i64 = ctypes.c_int64
 _int = ctypes.c_int
@@ -41,6 +47,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     fn.argtypes = ([_int, _int, _ptr, _ptr, _ptr, _ptr] + [_i64] * 12
+                   + [_int] * 7 + [ctypes.c_float, ctypes.c_float, _ptr])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_attention_wgmma_launch
+    fn.argtypes = ([_int, _ptr, _ptr, _ptr, _ptr] + [_i64] * 12
                    + [_int] * 7 + [ctypes.c_float, ctypes.c_float, _ptr])
     fn.restype = ctypes.c_int
     return lib
@@ -74,6 +84,35 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError(f"softcap must be > 0, got {softcap}")
 
 
+def kernel_path(dtype: torch.dtype, hd: int) -> str:
+    """Which CUDA kernel serves inputs of this type and head dim:
+    ``"wgmma"`` (bf16 on the tensor cores) or ``"cuda-core"`` (f32 math)."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda-core"
+
+
+def _tma_strides(t: torch.Tensor) -> list[int]:
+    """The (batch, head, position) strides TMA is given for ``t``, after
+    checking its rules: a 16-byte aligned base and strides that are
+    multiples of 16 bytes.  A stride of an axis of size 1 is never followed,
+    so it is replaced by one that passes."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"the tensor-core kernel reads through TMA, which "
+                         f"needs a 16-byte aligned base; got address "
+                         f"{t.data_ptr():#x}")
+    out = []
+    for i in range(3):
+        st = t.stride(i) if t.shape[i] > 1 else t.shape[3]
+        if (st * t.element_size()) % 16:
+            raise ValueError(f"the tensor-core kernel reads through TMA, "
+                             f"which needs strides that are multiples of 16 "
+                             f"bytes; got stride {t.stride(i)} on axis {i} "
+                             f"of a {tuple(t.shape)} {t.dtype} view")
+        out.append(st)
+    return out
+
+
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           softcap: float | None = None,
@@ -105,39 +144,49 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
                          softcap: float | None = None,
                          scale: float | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronisation).
+    """Launch the CUDA kernel :func:`kernel_path` names on the current
+    stream (no synchronisation).
 
     Returns (B, H, Tq, hd) in q's type: a view of a (B, Tq, H, hd) buffer,
     so the model's ``transpose(1, 2)`` back to token-major is free.  Raises
     if the tensors are not on a CUDA device, hd is not one of
-    :data:`HEAD_DIMS`, the library cannot be built, or the launch reports an
-    error."""
+    :data:`HEAD_DIMS`, a view breaks TMA's rules on the tensor-core path,
+    the library cannot be built, or the launch reports an error."""
     _check(q, k, v, causal, window, softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
-                         f"{q.device}")
     b, h, tq, hd = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} has no kernel; it takes {HEAD_DIMS}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k and v must be dense along the head dim")
+    path = kernel_path(q.dtype, hd)
+    if path == "wgmma":
+        in_strides = [st for t in (q, k, v) for st in _tma_strides(t)]
+    else:
+        in_strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
+                         f"{q.device}")
     lib = _library()
     out = torch.empty((b, tq, h, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if b == 0 or tq == 0:
         return out
     scale = scale if scale is not None else hd ** -0.5
-    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+    strides = in_strides + [out.stride(i) for i in range(3)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), *strides, b, h, hkv, tq, s,
-            int(causal), window or 0, softcap or 0.0, scale, stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        tail = (*strides, b, h, hkv, tq, s, int(causal), window or 0,
+                softcap or 0.0, scale, stream)
+        if path == "wgmma":
+            err = lib.flash_attention_wgmma_launch(hd, *ptrs, *tail)
+        else:
+            err = lib.flash_attention_launch(_DTYPE_CODES[q.dtype], hd, *ptrs,
+                                             *tail)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention {path} kernel launch failed: "
+                           f"CUDA error {err}")
     flash_attention_cuda.launches += 1
     return out
 

@@ -1,8 +1,8 @@
 """Thin compatibility layer over the ``cuda`` backend (port of
 ``repro.kernels.ops``).
 
-``fitting_lookup``: torch prelude (router + interpolation + window clamp) ->
-CUDA window kernel -> duplicate snap; the orchestration lives once in
+``fitting_lookup``: the fused CUDA kernel (router + interpolation + window
+clamp + window search + duplicate snap, one launch) through
 ``repro_torch.index.engine.kernel_lookup``.  The reference's TPU knobs
 (``qcap``, ``interpret``, ``fallback``) have no counterpart: the Hopper
 kernel has no buckets that could overflow, and nothing falls back.
@@ -25,5 +25,5 @@ def make_lookup_fn(idx: DeviceIndex):
 
 
 def fitting_lookup(idx: DeviceIndex, queries: torch.Tensor) -> torch.Tensor:
-    """Batched point lookup via the window kernel: ranks, -1 where absent."""
+    """Batched point lookup via the fused kernel: ranks, -1 where absent."""
     return kernel_lookup(idx, queries)

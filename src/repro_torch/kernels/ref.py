@@ -4,6 +4,8 @@ Deliberately *independent* of the code under test: lookup ranks come from a
 full searchsorted over the key column, attention from one dense masked
 softmax, and the RG-LRU from a sequential loop over time, so a tiling,
 masking or scan bug in a kernel path shows up as a mismatch.
+``block_rel_err`` is the measure a flash kernel's output is held to beside
+the elementwise tolerance, per block of query rows, with its limits.
 """
 from __future__ import annotations
 
@@ -37,6 +39,32 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     logits = torch.where(mask[None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhts,bhsd->bhtd", probs, v.float()).to(q.dtype)
+
+
+# The most block_rel_err may be for a kernel against its f32 twin.  bf16:
+# the tensor-core kernel rounds the probabilities and the output to bf16,
+# a few 1e-3 in a block; a window edge off by one key or a dropped key tile
+# costs several times the limit in the blocks it touches.  f32: the same
+# sums in another order, near 1e-5.
+BLOCK_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def block_rel_err(got: torch.Tensor, want: torch.Tensor,
+                  rows: int = 64) -> float:
+    """Largest relative Frobenius error, ``||got - want|| / ||want||``,
+    over the blocks of ``rows`` query rows of one (batch, head) of a
+    (B, H, T, hd) attention output.  A fault confined to a few rows or keys
+    shows at full strength in its blocks, where a norm over the whole
+    tensor or an elementwise bound sized for the largest outputs would
+    dilute it."""
+    b, h, t, d = want.shape
+    pad = -t % rows
+    diff = F.pad(got.float() - want.float(), (0, 0, 0, pad))
+    ref = F.pad(want.float(), (0, 0, 0, pad))
+    blocks = (b, h, (t + pad) // rows, rows * d)
+    num = diff.reshape(blocks).norm(dim=-1)
+    den = ref.reshape(blocks).norm(dim=-1)
+    return float((num / den).max())
 
 
 def rglru_ref(x, a_log, gate_x, gate_a):

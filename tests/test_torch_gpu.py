@@ -6,8 +6,9 @@ machine that has only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain torch twin on the same inputs.  The
-lookup kernel and the ``cuda`` engine (against ``np.searchsorted``) to
-tolerance 0: ranks are integers and every compare is f32 on both sides.
+lookup kernels (the window search alone and the fused search) and the
+``cuda`` engine (against ``np.searchsorted``) to tolerance 0: ranks are
+integers and every compare is f32 on both sides.
 The RG-LRU scan to tolerance 0 as well (see its test); flash attention to
 the reference's tolerances (stated at ``FLASH_TOL``).
 """
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.datasets import iot_like
+from repro_torch.core.torch_index import rescale_keys
 from repro_torch.index import SegmentTable, device_index, make_engine, \
     make_plan
 from repro_torch.index.engine import predict_positions
@@ -68,7 +71,7 @@ def test_cuda_engine_defaults_to_the_card_and_launches(cuda_device):
                       "cuda")
     assert eng.device.type == "cuda" and eng.index.keys.is_cuda
     q = _queries(keys, np.random.default_rng(2), 1000)
-    before = fl.fitting_lookup_cuda.launches
+    before = fl.fitting_search_cuda.launches
     for side in ("left", "right"):
         np.testing.assert_array_equal(eng.search(q, side),
                                       np.searchsorted(keys, q, side))
@@ -76,7 +79,83 @@ def test_cuda_engine_defaults_to_the_card_and_launches(cuda_device):
     hit = (left < keys.shape[0]) & (keys[np.minimum(left, keys.shape[0] - 1)]
                                     == q)
     np.testing.assert_array_equal(eng.lookup(q), np.where(hit, left, -1))
-    assert fl.fitting_lookup_cuda.launches == before + 3
+    # one launch of the fused kernel for each of search left, right, lookup
+    assert fl.fitting_search_cuda.launches == before + 3
+
+
+def _smoke_keys(n):
+    """The smoke's data at a smaller n: iot_like, rescaled, floored."""
+    scaled, _, _ = rescale_keys(iot_like(n, seed=0))
+    return np.floor(scaled)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data", ["smoke", "dups"])
+@pytest.mark.parametrize("error", [0, 16, 64, 256])
+def test_fused_kernel_matches_plain_twin(cuda_device, data, error):
+    """Tolerance 0 in every mode, on the smoke's keys (2^18 of them, 2^16
+    queries, some far outside the domain) and on heavy duplicates with runs
+    longer than the window and runs across segment boundaries."""
+    if data == "smoke":
+        keys = _smoke_keys(2 ** 18)
+        rng = np.random.default_rng(error)
+        q = np.concatenate([keys[rng.integers(0, keys.shape[0], 2 ** 15)],
+                            rng.integers(-2 ** 10, int(keys[-1]) + 2 ** 10,
+                                         2 ** 15 - 2),
+                            [2.0 ** 30, -2.0 ** 30]])
+    else:
+        keys = np.sort(np.concatenate([_dup_keys(40_000, seed=error),
+                                       np.full(1500, 7.0)]))
+        q = _queries(keys, np.random.default_rng(error + 1), 4097)
+    table = SegmentTable.from_keys(keys, error, assume_sorted=True)
+    n_pad = make_plan(keys.shape[0], error).n_pad
+    cpu = device_index(table, "cpu")
+    gpu = device_index(table, cuda_device)
+    q32 = torch.from_numpy(q.astype(np.float32))
+    for mode in fl.MODES:
+        want = fl.fitting_search_torch(*cpu[:5], q32, error=error,
+                                       n_pad=n_pad, mode=mode)
+        before = fl.fitting_search_cuda.launches
+        got = fl.fitting_search_cuda(*gpu[:5], q32.to(cuda_device),
+                                     error=error, n_pad=n_pad, mode=mode)
+        torch.cuda.synchronize()
+        assert fl.fitting_search_cuda.launches == before + 1
+        assert torch.equal(got.cpu(), want), mode
+
+
+@pytest.mark.gpu
+def test_fused_kernel_stages_wide_tables_on_every_card_and_stream(
+        cuda_device):
+    """A segment table of 3,072 < S <= 4,096 entries is staged whole in
+    S * 16 > 48 KB of shared memory, which takes the kernel's opt-in and a
+    grid sized from the card it runs on: both are asked for each card.
+    Every card present, each on a stream of its own, tolerance 0."""
+    keys = _smoke_keys(2 ** 18)
+    error = 7
+    table = SegmentTable.from_keys(keys, error, assume_sorted=True)
+    assert 3072 < table.n_segments <= 4096
+    n_pad = make_plan(keys.shape[0], error).n_pad
+    rng = np.random.default_rng(3)
+    q = np.concatenate([keys[rng.integers(0, keys.shape[0], 2 ** 15)],
+                        rng.integers(-2 ** 10, int(keys[-1]) + 2 ** 10,
+                                     2 ** 15)])
+    q32 = torch.from_numpy(q.astype(np.float32))
+    cpu = device_index(table, "cpu")
+    for i in reversed(range(torch.cuda.device_count())):
+        dev = torch.device("cuda", i)
+        gpu = device_index(table, dev)
+        stream = torch.cuda.Stream(device=dev)
+        for mode in fl.MODES:
+            want = fl.fitting_search_torch(*cpu[:5], q32, error=error,
+                                           n_pad=n_pad, mode=mode)
+            qd = q32.to(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                got = fl.fitting_search_cuda(*gpu[:5], qd, error=error,
+                                             n_pad=n_pad, mode=mode)
+            stream.synchronize()
+            assert got.device == dev
+            assert torch.equal(got.cpu(), want), (i, mode)
 
 
 # ------------------------------------------------------------ LM kernels
@@ -112,6 +191,46 @@ def test_flash_kernel_matches_plain_twin(cuda_device, shape, kw, dtype):
     want = fa.flash_attention_torch(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 16, 1, 300, 300), {"window": 2048}),
+    ((2, 4, 2, 130, 130), {"window": 7}),
+    ((1, 4, 4, 256, 256), {"causal": False}),
+    ((2, 8, 4, 130, 300), {"softcap": 50.0}),
+    ((1, 16, 1, 100, 2300), {"window": 2048}),
+    ((2, 4, 1, 77, 300), {"causal": False, "window": 64}),
+])
+def test_flash_wgmma_path_matches_plain_twin(cuda_device, hd, shape, kw):
+    """The bf16 tensor-core kernel: GQA (Hkv 1 under H 16), Tq < S, ragged
+    T, causal or not, windows 7 to 2048, softcap."""
+    assert fa.kernel_path(torch.bfloat16, hd) == "wgmma"
+    q, k, v = _qkv(cuda_device, *shape, hd, torch.bfloat16,
+                   seed=sum(shape) + hd)
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = fa.flash_attention_torch(q, k, v, **kw)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_wgmma_path_takes_strided_views(cuda_device, hd):
+    """The model's (B, T, H, hd) projections as (B, H, T, hd) views, and a
+    slice along T, read in place through TMA."""
+    x = torch.randn(2, 200, 6, hd, device=cuda_device).to(torch.bfloat16)
+    kv = torch.randn(2, 200, 2, hd, device=cuda_device).to(torch.bfloat16)
+    q, k = x.transpose(1, 2)[:, :, 8:], kv.transpose(1, 2)
+    got = fa.flash_attention_cuda(q, k, k, window=48)
+    want = fa.flash_attention_torch(q.contiguous(), k.contiguous(),
+                                    k.contiguous(), window=48)
+    tol = FLASH_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 

@@ -22,7 +22,8 @@ from repro.kernels.ref import rglru_ref as ref_rglru_ref
 from repro.kernels.rglru_scan import rglru_scan_pallas
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru_scan as rs
-from repro_torch.kernels.ref import attention_ref, rglru_ref
+from repro_torch.kernels.ref import (BLOCK_REL_TOL, attention_ref,
+                                    block_rel_err, rglru_ref)
 
 
 def _qkv(b, h, hkv, tq, s, hd, seed):
@@ -203,3 +204,83 @@ def test_flash_cuda_wrapper_rejects_unsupported_head_dim(monkeypatch):
                for a in _qkv(1, 2, 1, 4, 4, 48, seed=4))
     with pytest.raises(ValueError, match="head dim 48"):
         fa.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,hd,path", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "cuda-core"),
+    (torch.bfloat16, 32, "cuda-core"), (torch.float32, 64, "cuda-core"),
+    (torch.float32, 256, "cuda-core"), (torch.float32, 16, "cuda-core")])
+def test_flash_kernel_path_by_dtype_and_head_dim(dtype, hd, path):
+    assert fa.kernel_path(dtype, hd) == path
+
+
+def _views(dtype, hd, bad):
+    """q, k, v as (B, H, T, hd) views of (B, T, H, hd) buffers, one of them
+    broken for TMA where ``bad`` says so."""
+    x = torch.zeros(1, 8, 3, hd + (4 if bad == "stride" else 0), dtype=dtype)
+    q = x[..., :hd].transpose(1, 2)
+    if bad == "base":
+        flat = torch.zeros(1 + 8 * 3 * hd, dtype=dtype)[1:]
+        q = flat.view(1, 8, 3, hd).transpose(1, 2)
+    kv = torch.zeros(1, 8, 1, hd, dtype=dtype).transpose(1, 2)
+    return q, kv, kv
+
+
+@pytest.mark.parametrize("bad,match", [("base", "16-byte aligned"),
+                                       ("stride", "multiples of 16 bytes")])
+def test_flash_wgmma_path_raises_on_views_tma_cannot_take(bad, match):
+    q, k, v = _views(torch.bfloat16, 64, bad)
+    before = fa.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_cuda(q, k, v)
+    # the same view in f32 goes to the CUDA-core kernel, which takes it
+    q, k, v = _views(torch.float32, 64, bad)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(q, k, v)
+    assert fa.flash_attention_cuda.launches == before
+
+
+def test_flash_wgmma_path_takes_aligned_views_and_ignores_unit_axes():
+    """A view TMA can take passes the checks (and reaches the device check
+    on the CPU); an axis of size 1 may carry any stride."""
+    q, k, v = _views(torch.bfloat16, 128, None)
+    q = torch.as_strided(q, q.shape, (7,) + q.stride()[1:])   # B = 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(q, k, v)
+
+
+def _masked_attention(q, k, v, mask, round_p):
+    """Masked softmax attention the way a tensor-core kernel rounds it
+    (``round_p``: the unnormalised probabilities to bf16 before P V), the
+    output in q's type."""
+    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float())
+    logits = torch.where(mask, logits * q.shape[-1] ** -0.5, -1e30)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    norm = p.sum(-1, keepdim=True)
+    if round_p:
+        p = p.to(torch.bfloat16).float()
+    return (torch.einsum("bhts,bhsd->bhtd", p, v.float()) / norm).to(q.dtype)
+
+
+@pytest.mark.parametrize("fault", [None, "window-edge", "dropped-tile"])
+def test_block_error_limit_separates_rounding_from_mask_faults(fault):
+    """The bf16 limit of ``block_rel_err`` admits the tensor-core kernel's
+    rounding of P and O and rejects a window edge off by one key, or one
+    64-key tile dropped from each block of query rows."""
+    t, window = 1024, 512
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 2, 2, t, t, 128, seed=9))
+    want = fa.flash_attention_torch(q, k, v, causal=True, window=window)
+    qpos = torch.arange(t)[:, None]
+    kpos = torch.arange(t)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    if fault == "window-edge":
+        mask = (kpos <= qpos) & (kpos > qpos - window - 1)
+    elif fault == "dropped-tile":
+        mask &= kpos // 64 != qpos // 64 - 3
+    err = block_rel_err(_masked_attention(q, k, v, mask, round_p=True), want)
+    if fault is None:
+        assert err < BLOCK_REL_TOL[torch.bfloat16]
+    else:
+        assert err > BLOCK_REL_TOL[torch.bfloat16]

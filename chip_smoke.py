@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the torch port on one CUDA card: the learned-index read path
-and RecurrentGemma-9B serving.
+"""Smoke test of the torch port on one CUDA card: the learned-index read path,
+its write path, planning and sharded serving, and RecurrentGemma-9B serving.
 
 Run from the repository root, with no arguments:
 
@@ -37,7 +37,29 @@ the port's sources are missing.  Phases, each of which raises on failure:
    torch-window, torch-bisect and dispatch, every answer checked equal to
    ``np.searchsorted`` on the f32 column.  The fused kernel's launch count
    is set to 0 just before this phase and read just after; it must be > 0.
-6. LM kernels vs plain: ``flash_attention`` at the local layer's prefill
+6. The write path, planning and sharded serving, on the same column, with
+   the fused kernel's launch count set to 0 before it and read after it
+   (> 0): ``calibrate_device`` times the dispatch tiers and fits the card's
+   ``GPUCostParams``; ``plan`` resolves a latency budget (the e = 64
+   candidate's own prediction, so feasible) with batches (1; 1,000; 2^20)
+   and 65,536 inserts a second under that profile, prints ``explain()``,
+   and ``open_index`` serves it on the card.  Then a 4-shard
+   ``ShardedIndexService`` (e 64, buffer 16, cuda backend): 65,536 inserts
+   (3/4 copies of existing keys, 1/4 uniform integers in [0, 2^23]) and a
+   publish; 16,384 inserts into one shard's range and a publish, which must
+   advance that shard's epoch alone and re-upload its device form alone;
+   a rebalance, which must act; four more publish cycles, after each of
+   which ``memory_allocated`` must stay within one generation of the
+   shards' device forms plus ``MEM_SLACK``.  Every verb at 2^20 queries
+   equals ``np.searchsorted`` on the merged column after each step.  Then
+   one ``IndexService`` on the dispatch backend with the cost model's
+   thresholds (the tier each of 1, 1,000 and 2^20 takes), 300 dispatch
+   batches of mixed sizes under a ``Monitor``, and one
+   ``Replanner.replan()``.  It prints inserts a second, publish walls,
+   ``search`` host walls (median of 5) at the three batch sizes, device
+   memory per cycle and the thresholds before and after, each with the
+   card line.
+7. LM kernels vs plain: ``flash_attention`` at the local layer's prefill
    (B 1, H 16, Hkv 1, T = S = 4096, hd 256, window 2048, bf16: the
    tensor-core kernel), then with softcap and GQA (hd 128, H 8, Hkv 4,
    T = S = 2048, f32) and non-causal (hd 64, f32), both on the CUDA-core
@@ -49,22 +71,24 @@ the port's sources are missing.  Phases, each of which raises on failure:
    ``kernels/ref.py`` ``block_rel_err`` within ``BLOCK_REL_TOL``),
    timed beside its bound and, for attention without softcap,
    ``scaled_dot_product_attention`` with the same boolean mask.
-7. Consistency: recurrentgemma-9b at full width, depth cut to one
+8. Consistency: recurrentgemma-9b at full width, depth cut to one
    (rglru, rglru, local) unit plus one rglru layer, f32 with TF32 off for
    matmul and cuDNN: B 2, prefill 2,304 tokens (past the 2,048 window) +
    16 teacher-forced decode steps == a cache-free forward, rtol = atol =
    3e-2.
-8. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
+9. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
    parameters, bf16, drawn from seed 0 on the card): the prefill step at
    B 4, T 4,096 (timed, tokens/s), then ``ContinuousBatcher`` (4 slots,
    cache 4,160) drains 8 requests with prompts of 256 to 3,072 tokens and
    16 new tokens each; every request gets its 16 tokens, all in the
    vocabulary, and the logits are finite.  The LM kernels' launch counts
    are set to 0 just before this phase and must be > 0 after it.
-9. A text line with the two redesigned kernels' earlier times, copied
+10. A text line with the two redesigned kernels' earlier times, copied
    from PERF.md and marked so, beside this run's; a ``{"kernels": [...]}``
    line (all three kernels, each with its design, every number from this
-   run), the card line again, and last ``{"ok": true, "device": {...}}``.
+   run; the fused search's launches are the read path's and the write
+   path's), the card line again, and last ``{"ok": true, "device":
+   {...}}``.
 """
 from __future__ import annotations
 
@@ -445,6 +469,274 @@ def read_path(torch, snapshots, keys):
                       f"{ms:.3f} ms host wall", flush=True)
     return timings
 
+# ------------------------------------------------------------ write path
+WRITE_ERROR, WRITE_SHARDS, WRITE_BUFFER = 64, 4, 16
+N_INSERTS, N_HOT, N_CYCLE, N_ONE = 65_536, 16_384, 1_024, 4_096
+PLAN_BATCHES = (1, 1000, 2 ** 20)
+INSERT_RATE = 65_536.0
+# memory_allocated may exceed the live generation of device forms by this
+# much after a publish cycle: below one shard's column (8 MB), so a shard
+# generation left behind shows.
+MEM_SLACK = 4 * 2 ** 20
+
+
+def make_inserts(keys: np.ndarray, size: int, rng, lo=0, hi=2 ** 23):
+    """3/4 copies of existing keys in [lo, hi) (duplicates run), 1/4
+    uniform integers in [lo, hi]: integers, exact in f32."""
+    pool = keys[(keys >= lo) & (keys < hi)]
+    copies = pool[rng.integers(0, pool.shape[0], size)]
+    uniform = rng.integers(lo, hi, size, endpoint=True).astype(np.float64)
+    return np.where(rng.random(size) < 0.75, copies, uniform)
+
+
+def device_forms(svc, dev):
+    """Each shard's device form of its installed snapshot (None if its
+    table was never placed on ``dev``)."""
+    return [h.current().table._device_cache.get(dev) for h in svc.handles]
+
+
+def check_reupload(svc, dev, before, published, what):
+    """After a publish and a read: exactly the published shards hold new
+    device forms; every clean shard keeps its tensors."""
+    after = device_forms(svc, dev)
+    fresh = [d for d, (a, b) in enumerate(zip(before, after)) if a is not b]
+    if fresh != sorted(published) or any(a is None for a in after):
+        raise AssertionError(f"{what}: re-uploaded shards {fresh}, "
+                             f"published {sorted(published)}")
+    return len(fresh)
+
+
+def search_walls(svc, keys, rng, backend=None):
+    """Median host wall (ms) of ``search(left)`` at each of PLAN_BATCHES,
+    host arrays in and out, over 5 calls after one warm-up."""
+    out = {}
+    for size in PLAN_BATCHES:
+        q = make_queries(keys, size, rng)
+        svc.search(q, "left", backend=backend)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            svc.search(q, "left", backend=backend)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[size] = float(np.median(walls))
+    return out
+
+
+def engine_walls(svc, keys, rng) -> float:
+    """Median host wall (ms) of the shards' cuda engine calls alone, each
+    on its share of Q_KERNEL queries routed beforehand: the part of a
+    sharded search that is not routing and stitching on the host."""
+    from repro_torch.index.table import route_keys
+    q = make_queries(keys, Q_KERNEL, rng)
+    sid = route_keys(svc.boundaries, q)
+    parts = [(h.engine("cuda"), q[sid == d])
+             for d, h in enumerate(svc.handles)]
+    walls = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        for eng, part in parts:
+            eng.search(part, "left")
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls[1:]))
+
+
+def write_path(torch, dev, keys, card):
+    """Phase 6: the write path, planning and sharded serving on the card
+    (see the module docstring)."""
+    import gc
+    from repro_torch.core.cost_model import calibrate_device
+    from repro_torch.index.fit import FitSpec, open_index, plan
+    from repro_torch.index.telemetry import Monitor, Replanner
+    from repro_torch.serve import IndexService, ShardedIndexService
+    rng = np.random.default_rng(SEED + 4)
+    tag = f"[{card}]"
+    rec = {}
+
+    def verbs(svc, merged, what, backend=None):
+        m32 = merged.astype(np.float32)
+        q = make_queries(merged, Q_KERNEL, rng)
+        check_verbs(svc, backend, merged, m32, q, rng)
+        print(f"write path, {what}: every verb at {Q_KERNEL} queries equals "
+              f"np.searchsorted on the merged column", flush=True)
+
+    # 1. plan under the calibrated profile, build, serve
+    t0 = time.perf_counter()
+    cpu_p, gpu_p = calibrate_device(keys, device=dev)
+    rec["calibrate_s"] = time.perf_counter() - t0
+    rec["gpu_params"] = vars(gpu_p)
+    rec["cpu_c_ns"] = cpu_p.c_ns
+    print(f"calibrate_device ({rec['calibrate_s']:.1f} s): {gpu_p}; host "
+          f"c_ns {cpu_p.c_ns:.4f} {tag}", flush=True)
+    base = {"batch_sizes": PLAN_BATCHES, "insert_rate": INSERT_RATE,
+            "hardware": "gpu", "cpu_params": cpu_p, "gpu_params": gpu_p}
+    probe = plan(keys, FitSpec(error=WRITE_ERROR, **base), assume_sorted=True)
+    # feasible by construction: the e = 64 candidate's own predicted latency
+    budget = next(c.latency_ns for c in probe.candidates
+                  if c.error == WRITE_ERROR)
+    planned = plan(keys, FitSpec(latency_budget_ns=budget, **base),
+                   assume_sorted=True)
+    print(planned.explain(), flush=True)
+    t0 = time.perf_counter()
+    svc = open_index(keys, planned, assume_sorted=True)
+    print(f"open_index: {type(svc).__name__}, {svc.n_shards} shards, backend "
+          f"{svc.default_backend} ({time.perf_counter() - t0:.1f} s)")
+    verbs(svc, keys, f"planned service ({planned.backend})")
+    rec["plan"] = {"error": planned.error, "n_shards": planned.n_shards,
+                   "backend": planned.backend, "budget_ns": budget,
+                   "small_max": planned.small_max,
+                   "large_min": planned.large_min}
+    del svc
+    gc.collect()
+
+    # 2. the sharded write path
+    mem_base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    svc = ShardedIndexService(keys, error=WRITE_ERROR, n_shards=WRITE_SHARDS,
+                              buffer_size=WRITE_BUFFER, skew_threshold=1.0,
+                              assume_sorted=True)
+    print(f"sharded service: {svc.n_shards} shards, backend "
+          f"{svc.default_backend}, built in {time.perf_counter() - t0:.1f} s")
+    svc.search(keys[:1])                       # every shard on the card
+    forms = device_forms(svc, dev)
+    ins = make_inserts(keys, N_INSERTS, rng)
+    t0 = time.perf_counter()
+    for k in ins:
+        svc.insert(float(k))
+    rec["inserts_per_s"] = N_INSERTS / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    published = svc.publish()
+    wall = (time.perf_counter() - t0) * 1e3
+    rec["publish_ms"] = wall
+    rec["publish_ms_per_dirty_shard"] = wall / max(len(published), 1)
+    merged = np.sort(np.concatenate([keys, ins]))
+    verbs(svc, merged, f"after {N_INSERTS} inserts")
+    rec["uploads_first_publish"] = check_reupload(svc, dev, forms, published,
+                                                  "first publish")
+    print(f"inserts: {rec['inserts_per_s']:.0f} a second; publish of "
+          f"{len(published)} dirty shards {wall:.1f} ms "
+          f"({rec['publish_ms_per_dirty_shard']:.1f} ms a shard); "
+          f"{rec['uploads_first_publish']} device_index conversions; epochs "
+          f"{svc.epochs()} {tag}", flush=True)
+
+    hot = int(np.argmax([h.current().n_keys for h in svc.handles]))
+    bounds = svc.boundaries
+    lo = int(np.ceil(bounds[hot]))
+    hi = int(bounds[hot + 1]) - 1 if hot + 1 < len(bounds) else 2 ** 23
+    epochs, forms = svc.epochs(), device_forms(svc, dev)
+    hot_keys = make_inserts(merged, N_HOT, rng, lo, hi)
+    for k in hot_keys:
+        svc.insert(float(k))
+    t0 = time.perf_counter()
+    published = svc.publish()
+    rec["hot_publish_ms"] = (time.perf_counter() - t0) * 1e3
+    merged = np.sort(np.concatenate([merged, hot_keys]))
+    verbs(svc, merged, f"after {N_HOT} inserts into shard {hot}")
+    want = [e + (d == hot) for d, e in enumerate(epochs)]
+    if sorted(published) != [hot] or svc.epochs() != want:
+        raise AssertionError(f"hot publish: published {sorted(published)}, "
+                             f"epochs {epochs} -> {svc.epochs()}")
+    rec["uploads_hot_publish"] = check_reupload(svc, dev, forms, published,
+                                                "hot publish")
+    print(f"hot shard {hot} [{lo}, {hi}]: publish {rec['hot_publish_ms']:.1f}"
+          f" ms, epochs {epochs} -> {svc.epochs()} (only the dirty shard), "
+          f"{rec['uploads_hot_publish']} device_index conversion {tag}",
+          flush=True)
+    t0 = time.perf_counter()
+    moved = svc.rebalance()
+    if moved is None:
+        raise AssertionError(f"rebalance did not act (imbalance "
+                             f"{svc.imbalance():.4f})")
+    rec["rebalance"] = {**moved, "ms": (time.perf_counter() - t0) * 1e3}
+    verbs(svc, merged, "after rebalance")
+    print(f"rebalance: {moved} in {rec['rebalance']['ms']:.1f} ms; "
+          f"boundaries {bounds.tolist()} -> {svc.boundaries.tolist()} {tag}",
+          flush=True)
+
+    mem = []
+    gen = 0
+    for c in range(4):
+        d = c % WRITE_SHARDS
+        b = svc.boundaries
+        lo = int(np.ceil(b[d]))
+        hi = int(b[d + 1]) - 1 if d + 1 < len(b) else 2 ** 23
+        forms = device_forms(svc, dev)
+        for k in make_inserts(merged, N_CYCLE, rng, lo, hi):
+            svc.insert(float(k))
+        published = svc.publish()
+        svc.search(make_queries(merged, Q_KERNEL, rng))
+        check_reupload(svc, dev, forms, published, f"cycle {c}")
+        del forms, published        # the retired generation's last holders
+        torch.cuda.synchronize()
+        gc.collect()
+        mem.append(torch.cuda.memory_allocated() - mem_base)
+        gen = sum(f.keys.numel() * 4 + f.seg_start.numel() * 16
+                  for f in device_forms(svc, dev))
+    rec["memory_bytes"] = mem
+    rec["generation_bytes"] = gen
+    print(f"memory_allocated above the phase's start after each of 4 publish "
+          f"cycles: {[m / 2 ** 20 for m in mem]} MiB; one generation of the "
+          f"shards' device forms {gen / 2 ** 20:.2f} MiB + slack "
+          f"{MEM_SLACK / 2 ** 20:.0f} MiB {tag}", flush=True)
+    if max(mem) > gen + MEM_SLACK:
+        raise AssertionError(f"device memory grew across publish cycles: "
+                             f"{mem} bytes against {gen} + {MEM_SLACK}")
+    rec["sharded_search_ms"] = search_walls(svc, keys, rng)
+    rec["sharded_engines_ms"] = engine_walls(svc, keys, rng)
+    print(f"search(left) of {Q_KERNEL} queries over {WRITE_SHARDS} shards: "
+          f"{rec['sharded_search_ms'][Q_KERNEL]:.3f} ms host wall, of which "
+          f"the {WRITE_SHARDS} engine calls on pre-routed queries take "
+          f"{rec['sharded_engines_ms']:.3f} ms; routing and stitching on "
+          f"the host the rest {tag}", flush=True)
+    del svc
+    gc.collect()
+
+    # 3. one shard, dispatch on the cost model's thresholds
+    mon = Monitor()
+    one = IndexService(keys, error=WRITE_ERROR, buffer_size=WRITE_BUFFER,
+                       backend="dispatch", monitor=mon, assume_sorted=True)
+    extra = make_inserts(keys, N_ONE, rng)
+    for k in extra:
+        one.insert(float(k))
+    one.publish()
+    merged = np.sort(np.concatenate([keys, extra]))
+    verbs(one, merged, "one shard, dispatch")
+    eng = one.handle.engine("dispatch")
+    tiers = {b: eng.tier_for(b) for b in PLAN_BATCHES}
+    rec["one_shard_search_ms"] = search_walls(one, keys, rng)
+    rec["one_shard_cuda_search_ms"] = search_walls(one, keys, rng, "cuda")
+    rec["dispatch"] = {"small_max": eng.small_max,
+                       "large_min": eng.large_min, "tiers": tiers}
+    print(f"dispatch thresholds from the cost model: small_max "
+          f"{eng.small_max}, large_min {eng.large_min}; tiers {tiers}")
+    print("search(left) host wall, median of 5, ms at batches "
+          f"{list(PLAN_BATCHES)}: {WRITE_SHARDS} shards cuda "
+          f"{rec['sharded_search_ms']}, one shard cuda "
+          f"{rec['one_shard_cuda_search_ms']}, one shard dispatch "
+          f"{rec['one_shard_search_ms']} {tag}", flush=True)
+
+    # 4. the replanner over measured dispatch traffic
+    sizes = rng.choice((1, 4, 16, 64, 256, 1024, 4096, 16_384, 65_536), 300)
+    for size in sizes:
+        one.search(make_queries(keys, int(size), rng))
+    rp = Replanner(one)
+    before = (eng.small_max, eng.large_min)
+    served = rp.replan()
+    if rp.last_win is None:
+        raise AssertionError("the replanner measured no tier curve")
+    after = (before if served is None
+             else (served.small_max, served.large_min))
+    rec["replan"] = {"before": before, "after": after,
+                     "applied": served is not None, "win": rp.last_win,
+                     "measured": rp.measured_curves()}
+    print(f"replanner over {len(sizes)} dispatch batches: thresholds "
+          f"{before} -> {after} (predicted win {rp.last_win:.4f}, "
+          f"{'applied' if served else 'below hysteresis, kept'}); measured "
+          f"curves {rec['replan']['measured']} {tag}", flush=True)
+    verbs(one, merged, "one shard after the replan")
+    del one
+    gc.collect()
+    return rec
+
 # ------------------------------------------------------------ LM serving
 ARCH = "recurrentgemma-9b"
 BF16_OPS = 989e12          # H100 SXM dense bf16/fp16 tensor-core op/s
@@ -470,18 +762,18 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 # reference's scan tolerance, the most a reordering could cost.
 RGLRU_SHAPE = (4, 4096, 4096)
 RGLRU_RTOL = 1e-5
-# Phase 7: full width, depth cut to one unit + one tail layer, f32.
+# Phase 8: full width, depth cut to one unit + one tail layer, f32.
 CONSIST_STACKS = ((("rglru", "rglru", "local"), 1), (("rglru",), 1))
 CONSIST_B, CONSIST_T_PRE, CONSIST_T_DEC = 2, 2304, 16
 CONSIST_TOL = 3e-2         # rtol = atol, tests/test_multistep_decode.py
-# Phase 8: full width and depth, bf16.
+# Phase 9: full width and depth, bf16.
 PREFILL_B, PREFILL_T = 4, 4096
 N_SLOTS, CACHE_LEN, N_REQUESTS, MAX_NEW = 4, 4160, 8, 16
 PROMPT_LENS = (256, 3072)
 
 
 def flash_vs_plain(torch, dev):
-    """Phase 6: the flash kernel against its twin and SDPA."""
+    """Phase 7: the flash kernel against its twin and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_torch,
@@ -549,7 +841,7 @@ def flash_vs_plain(torch, dev):
 
 
 def rglru_vs_plain(torch, dev):
-    """Phase 6: the RG-LRU scan kernel against its twin."""
+    """Phase 7: the RG-LRU scan kernel against its twin."""
     from repro_torch.kernels.rglru_scan import (rglru_scan_cuda,
                                                 rglru_scan_torch)
     b, t, w = RGLRU_SHAPE
@@ -586,7 +878,7 @@ def rglru_vs_plain(torch, dev):
 
 
 def lm_consistency(torch, dev):
-    """Phase 7: teacher-forced prefill + decode == a cache-free forward,
+    """Phase 8: teacher-forced prefill + decode == a cache-free forward,
     at full width in f32, depth cut to CONSIST_STACKS."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -686,7 +978,7 @@ def print_breakdown(label: str, parts: dict) -> None:
 
 
 def lm_serving(torch, dev):
-    """Phase 8: full width and depth in bf16: the prefill step, then the
+    """Phase 9: full width and depth in bf16: the prefill step, then the
     continuous batcher draining N_REQUESTS requests."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -870,6 +1162,16 @@ def main() -> int:
     if launches <= 0:
         raise AssertionError("the read path never launched fitting_search")
 
+    fitting_search_cuda.launches = 0
+    t0 = time.perf_counter()
+    writes = write_path(torch, dev, keys, card)
+    write_launches = fitting_search_cuda.launches
+    writes["s"] = time.perf_counter() - t0
+    print(f"write path: {write_launches} fused kernel launches "
+          f"({writes['s']:.1f} s) [{card}]", flush=True)
+    if write_launches <= 0:
+        raise AssertionError("the write path never launched fitting_search")
+
     flash_cases = flash_vs_plain(torch, dev)
     rglru_case = rglru_vs_plain(torch, dev)
     lm_consistency(torch, dev)
@@ -887,7 +1189,10 @@ def main() -> int:
         "design": "fused route + predict + window + snap in one launch, "
                   "a thread a query, the window bisected a 32-byte sector "
                   "at a time",
-        "launches": launches, "max_abs_err": max(
+        "launches": launches + write_launches,
+        "launches_by_path": {"read path": launches,
+                             "write path": write_launches},
+        "max_abs_err": max(
             c["max_abs_err"] for c in fused + cases),
         "equal": all(c["max_abs_err"] == 0 for c in fused) and all(
             c["found_mismatches"] == 0 for c in cases),
@@ -924,6 +1229,7 @@ def main() -> int:
                                       "bound_ms", "bound_by", "library_ms")},
         "headline": {k: rglru_case[k] for k in ("b", "t", "w")},
     }]
+    print(json.dumps({"write_path": writes}))
     print(json.dumps({"serving": serving}))
     print("earlier designs at the headline shapes, copied from PERF.md §6 "
           "(H100 80GB HBM3 at 700 W), not measured in this run: "

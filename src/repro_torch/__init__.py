@@ -15,6 +15,14 @@ The read path, end to end::
     handle.install(Snapshot.from_arrays(keys, error=64))
     ranks = handle.search(queries, "left")
 
+The write path, planned and sharded (Alg. 4 inserts, per-shard epochs)::
+
+    from repro_torch.serve import FitSpec, IndexService, open_index
+    svc = IndexService(keys, error=64, buffer_size=16)   # on the CUDA card
+    svc.insert(k); svc.publish(); svc.search(queries)
+    svc = open_index(keys, FitSpec(latency_budget_ns=90_000.0,
+                                   hardware="gpu", insert_rate=65_536.0))
+
 RecurrentGemma-9B serving (prefill on the flash-attention and RG-LRU
 kernels, greedy decode over ring caches)::
 

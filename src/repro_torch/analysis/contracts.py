@@ -1,7 +1,7 @@
 """Serving-stack contract declarations for the torch port.
 
-Port of the parts of ``repro.analysis.contracts`` that the port's read path
-uses: the ``hot_path`` marker and the global lock order the runtime
+Port of the parts of ``repro.analysis.contracts`` that the port's serving
+path uses: the ``hot_path`` marker and the global lock order the runtime
 sanitizer's watchdog checks.  Pure stdlib, so host-only modules can import it
 without pulling in torch.  The static checker (``python -m repro.analysis``)
 reads the port's sources by the marker's and the locks' names, which match
@@ -24,10 +24,14 @@ def hot_path(fn: F) -> F:
 
 # The global lock order, outermost first.  A thread holding lock i may only
 # acquire locks j > i.  Names are ``ClassName.attr``, as passed to
-# ``sanitizer.make_lock``; the port's read path holds only these two.
+# ``sanitizer.make_lock``, in the reference's relative order.
 LOCK_ORDER = (
+    "ShardedIndexService._write_lock",   # writer serialisation
     "ServingHandle._lock",               # lazy per-snapshot engine build
     "DispatchEngine._lock",              # lazy tier-engine build
+    "Monitor._make_lock",                # channel-ring creation
+    "JSONLBackend._io_lock",             # telemetry sink flush
+    "ShardedIndexService._counts_lock",  # verb counters (innermost)
 )
 
 LOCK_RANK = {name: i for i, name in enumerate(LOCK_ORDER)}

@@ -1,12 +1,16 @@
 """Opt-in runtime sanitizer for the port's serving path (``REPRO_SANITIZE=1``).
 
-Port of the parts of ``repro.analysis.sanitizer`` that the read path calls,
-with the same behaviour under the same environment variable:
+Port of the parts of ``repro.analysis.sanitizer`` that the serving path
+calls, with the same behaviour under the same environment variable:
 
 * **Freeze-on-publish** -- :func:`freeze` / :func:`published_array` set
   ``writeable=False`` on every array that escapes into a ``Snapshot`` /
   ``SegmentTable``, so a latent in-place write raises at the write site.
-  Freezing is unconditional; the flag controls only the watchdog below.
+  Freezing is unconditional; the flag controls the two checks below.
+* **Pin tracking** -- every sharded query verb runs in a :func:`pin_scope`
+  and reports the ``ShardSet`` version it pinned through
+  :func:`observe_pin`; a verb that observed two versions raises
+  :class:`PinViolation` at scope exit.
 * **Lock-order watchdog** -- :func:`make_lock` / :func:`make_rlock` return
   plain ``threading`` locks when the sanitizer is off, and order-checking
   wrappers when on.  The wrappers keep a per-thread stack of held locks and
@@ -22,6 +26,7 @@ from . import contracts
 
 __all__ = [
     "enabled", "set_enabled", "freeze", "published_array",
+    "pin_scope", "observe_pin", "PinViolation",
     "make_lock", "make_rlock", "LockOrderError", "lock_graph_edges",
 ]
 
@@ -76,6 +81,67 @@ def freeze(arr):
 def published_array(arr):
     """Alias of :func:`freeze` for publish-path call sites (reads as intent)."""
     return freeze(arr)
+
+
+# ---------------------------------------------------------------------------
+# PinTracker
+# ---------------------------------------------------------------------------
+class PinViolation(AssertionError):
+    """A query verb observed two distinct ShardSet versions end-to-end."""
+
+
+class _PinTracker(threading.local):
+    def __init__(self) -> None:
+        self.scopes: list[tuple[str, set]] = []
+
+
+_PINS = _PinTracker()
+
+
+class _PinScope:
+    __slots__ = ("verb",)
+
+    def __init__(self, verb: str) -> None:
+        self.verb = verb
+
+    def __enter__(self) -> "_PinScope":
+        _PINS.scopes.append((self.verb, set()))
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        verb, versions = _PINS.scopes.pop()
+        if exc_type is None and len(versions) > 1:
+            raise PinViolation(
+                f"query verb {verb!r} touched {len(versions)} ShardSet "
+                f"versions {sorted(versions)}; pin the shard set once per "
+                f"operation (bind a local, then use the local)")
+        return False
+
+
+class _NullScope:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SCOPE = _NullScope()
+
+
+def pin_scope(verb: str):
+    """Context for one sharded query verb; no-op unless sanitizing."""
+    if not _STATE.enabled:
+        return _NULL_SCOPE
+    return _PinScope(verb)
+
+
+def observe_pin(version) -> None:
+    """Record a ShardSet version seen by the innermost open verb scope."""
+    if _STATE.enabled and _PINS.scopes:
+        _PINS.scopes[-1][1].add(version)
 
 
 # ---------------------------------------------------------------------------

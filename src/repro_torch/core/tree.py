@@ -1,0 +1,489 @@
+"""FITing-Tree / A-Tree: the host-side index structure (Secs. 2, 4, 5).
+
+Layout (clustered index, Fig. 2):
+  * table data is partitioned into *variable-sized pages*, one per segment;
+  * per segment we keep (start_key, slope) -- 24B of metadata in the paper's
+    accounting -- organized in an array-packed router (the paper's inner B+ tree;
+    packed arrays stand in for pointer-chasing);
+  * each page carries a bounded sorted insert buffer (Sec. 5); the segmentation
+    error budget is transparently err_seg = error - buffer_size so the
+    user-visible bound still holds when elements sit in the buffer.
+
+Lookup (Alg. 3): router -> segment, interpolate, binary-search the +-err window
+of the page, then the buffer.  Insert (Alg. 4): append to the buffer; on
+overflow merge + re-run ShrinkingCone and splice the new segments in.
+
+A non-clustered index (Fig. 3) is the same structure over the *sorted key
+column* with a parallel payload array per page (pointers into the table).
+
+Port of ``repro.core.tree``: host numpy code, copied so the torch package
+never imports the JAX package.  Its pages, segments and answers are
+bit-identical to it.
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import math
+
+import numpy as np
+
+from repro_torch.index.table import (SegmentTable, numpy_lookup, numpy_search,
+                               route_keys)
+
+from .segmentation import Mode, Segments, shrinking_cone
+
+
+class PackedRouter:
+    """Array-packed static B+-tree over segment start keys.
+
+    Semantically equivalent to searchsorted over the leaf array (tests assert
+    this); exists to make the paper's log_b(S) tree-search term concrete:
+    ``height`` and ``size_bytes`` feed the Sec. 6 cost model.
+    """
+
+    def __init__(self, leaf_keys: np.ndarray, fanout: int = 16):
+        self.fanout = fanout
+        self.levels: list[np.ndarray] = [np.asarray(leaf_keys, np.float64)]
+        while self.levels[-1].shape[0] > fanout:
+            self.levels.append(self.levels[-1][::fanout])
+        self.levels.reverse()  # levels[0] = root
+
+    @property
+    def height(self) -> int:
+        return len(self.levels)
+
+    def size_bytes(self) -> int:
+        # 8B key + 8B pointer per entry, all levels (pessimistic, like Sec. 6.2)
+        return int(sum(lvl.shape[0] for lvl in self.levels) * 16)
+
+    def descend(self, keys: np.ndarray) -> np.ndarray:
+        """Batched level-by-level descent."""
+        keys = np.asarray(keys, np.float64)
+        node = np.zeros(keys.shape[0], dtype=np.int64)
+        b = self.fanout
+        for d, lvl in enumerate(self.levels):
+            lo = node * b
+            hi = np.minimum(lo + b, lvl.shape[0])
+            # branchless binary search inside each node slice
+            child = lo.copy()
+            span = int(np.max(hi - lo)) if lvl.shape[0] else 0
+            steps = max(1, math.ceil(math.log2(max(2, span))))
+            lo_i, hi_i = lo.copy(), hi.copy()
+            for _ in range(steps + 1):
+                mid = (lo_i + hi_i) // 2
+                mid_c = np.minimum(mid, lvl.shape[0] - 1)
+                go_right = (lvl[mid_c] <= keys) & (lo_i < hi_i)
+                lo_i = np.where(go_right, mid + 1, lo_i)
+                hi_i = np.where(go_right, hi_i, mid)
+            child = np.maximum(lo_i - 1, 0)
+            node = child
+        return node
+
+
+def _merge_sorted(page: np.ndarray, run: np.ndarray,
+                  pl_page: np.ndarray | None = None,
+                  pl_run: np.ndarray | None = None
+                  ) -> tuple[np.ndarray, np.ndarray | None]:
+    """Stable two-way merge of two sorted key arrays (+ parallel payloads).
+
+    ``page`` elements come first among equal keys (side="right"), matching
+    the Alg. 4 buffer-merge semantics."""
+    merged = np.empty(page.shape[0] + run.shape[0], np.float64)
+    pos = np.searchsorted(page, run, side="right") + np.arange(run.shape[0])
+    mask = np.zeros(merged.shape[0], bool)
+    mask[pos] = True
+    merged[mask] = run
+    merged[~mask] = page
+    pl_merged = None
+    if pl_page is not None:
+        pl_merged = np.empty(merged.shape[0], pl_page.dtype)
+        pl_merged[mask] = pl_run
+        pl_merged[~mask] = pl_page
+    return merged, pl_merged
+
+
+def _paginate(arr: np.ndarray, pl: np.ndarray | None, segs: Segments
+              ) -> tuple[list[np.ndarray], list[np.ndarray] | None]:
+    """Slice a merged sorted run into per-segment pages (+ payload pages)."""
+    bounds = np.concatenate([segs.base, [arr.shape[0]]]).astype(np.int64)
+    pages = [arr[bounds[i]:bounds[i + 1]] for i in range(segs.n_segments)]
+    pl_pages = (None if pl is None else
+                [pl[bounds[i]:bounds[i + 1]] for i in range(segs.n_segments)])
+    return pages, pl_pages
+
+
+def _empty_segments(error: int) -> Segments:
+    """One degenerate zero-count segment: keeps routing well-defined for an
+    empty tree (mirrors ``SegmentTable.empty``)."""
+    return Segments(start_key=np.zeros(1, np.float64),
+                    slope=np.zeros(1, np.float64),
+                    base=np.zeros(1, np.int64),
+                    count=np.zeros(1, np.int64), error=int(error))
+
+
+class FITingTree:
+    """The paper's index.  ``error`` is the user-visible max-error bound."""
+
+    def __init__(self, keys: np.ndarray, error: int, buffer_size: int = 0,
+                 mode: Mode = "paper", payload: np.ndarray | None = None,
+                 fanout: int = 16, assume_sorted: bool = False):
+        keys = np.asarray(keys, np.float64)
+        if not assume_sorted:
+            order = np.argsort(keys, kind="stable")
+            keys = keys[order]
+            if payload is not None:
+                payload = np.asarray(payload)[order]
+        if buffer_size >= error:
+            raise ValueError("buffer_size must be < error (Sec. 5)")
+        self.error = int(error)
+        self.buffer_size = int(buffer_size)
+        self.err_seg = int(error - buffer_size) if buffer_size else int(error)
+        self.mode: Mode = mode
+        self.fanout = fanout
+        self.clustered = payload is None
+
+        segs = (_empty_segments(self.err_seg) if keys.shape[0] == 0 else
+                shrinking_cone(keys, self.err_seg, mode=mode))
+        self._init_pages(keys, payload, segs)
+
+    # ------------------------------------------------------------------ build
+    def _init_pages(self, keys, payload, segs: Segments):
+        table = SegmentTable.from_segments(keys, segs, error=self.err_seg)
+        self.start_keys = table.start_key.copy()
+        self.slopes = table.slope.copy()
+        self.pages = [table.page(i) for i in range(table.n_segments)]
+        self.payloads = (None if payload is None else
+                         [payload[table.base[i]:table.seg_end[i]]
+                          for i in range(table.n_segments)])
+        self.buffers: list[list[float]] = [[] for _ in range(table.n_segments)]
+        self.buf_payloads: list[list] = [[] for _ in range(table.n_segments)]
+        self.router = PackedRouter(self.start_keys, self.fanout)
+        self._flat_cache = None
+        self._table_cache: SegmentTable | None = table
+
+    # ----------------------------------------------------------------- sizing
+    @property
+    def n_segments(self) -> int:
+        return len(self.pages)
+
+    @property
+    def n_keys(self) -> int:
+        return int(sum(p.shape[0] for p in self.pages) + sum(len(b) for b in self.buffers))
+
+    def index_size_bytes(self) -> int:
+        """Sec. 6.2 accounting: segment metadata + router (tree) size."""
+        return self.n_segments * 24 + self.router.size_bytes()
+
+    # ----------------------------------------------------------------- lookup
+    def _segment_of(self, key: float) -> int:
+        return int(route_keys(self.start_keys, key))
+
+    def _window(self, sid: int, key: float) -> tuple[int, int, int]:
+        page = self.pages[sid]
+        pred = (key - self.start_keys[sid]) * self.slopes[sid]
+        pred_i = int(round(pred))
+        lo = max(0, pred_i - self.err_seg)
+        hi = min(page.shape[0], pred_i + self.err_seg + 1)
+        return lo, hi, pred_i
+
+    def lookup(self, key: float):
+        """Alg. 3.  Returns (segment_id, offset, payload|None) or None if absent."""
+        sid = self._segment_of(key)
+        page = self.pages[sid]
+        lo, hi, _ = self._window(sid, key)
+        off = lo + int(np.searchsorted(page[lo:hi], key, side="left"))
+        if off < hi and off < page.shape[0] and page[off] == key:
+            val = None if self.payloads is None else self.payloads[sid][off]
+            return (sid, off, val)
+        buf = self.buffers[sid]
+        j = bisect.bisect_left(buf, key)
+        if j < len(buf) and buf[j] == key:
+            val = None if self.payloads is None else self.buf_payloads[sid][j]
+            return (sid, -(j + 1), val)
+        return None
+
+    def lookup_batch(self, keys: np.ndarray) -> np.ndarray:
+        """Vectorized membership probe over the *pages* (buffers excluded; the
+        benchmark path).  Delegates to the canonical numpy backend over the
+        page snapshot: interpolate then log2(2*err) halving steps, exactly as
+        the device engines do.  Returns the global rank of each found key, -1 if
+        absent from pages."""
+        return numpy_lookup(self.as_table(), keys)
+
+    def _flat_view(self):
+        if getattr(self, "_flat_cache", None) is None:
+            counts = np.asarray([p.shape[0] for p in self.pages], np.int64)
+            bases = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            self._flat_cache = (np.concatenate(self.pages), bases)
+        return self._flat_cache
+
+    def as_table(self, epoch: int = 0) -> SegmentTable:
+        """Immutable SegmentTable over the current pages (buffers excluded).
+
+        The table satisfies Eq. 1 with the segmentation budget err_seg, so any
+        ``repro_torch.index.engine`` backend can serve it.  Cached until the next
+        mutation; the returned snapshot never aliases mutable state."""
+        if getattr(self, "_table_cache", None) is None:
+            flat, bases = self._flat_view()
+            counts = np.asarray([p.shape[0] for p in self.pages], np.int64)
+            self._table_cache = SegmentTable(
+                start_key=self.start_keys.copy(), slope=self.slopes.copy(),
+                base=bases.astype(np.int64),
+                seg_end=(bases + counts).astype(np.int64),
+                keys=flat, error=self.err_seg)
+        t = self._table_cache
+        return t if t.epoch == epoch else dataclasses.replace(t, epoch=epoch)
+
+    def payload_column(self) -> np.ndarray | None:
+        """Payload column parallel to ``as_table().keys`` (pages only --
+        callers that need buffered payloads flush first, as the publisher
+        does).  None for a clustered index; always a fresh array, so a
+        snapshot holding it never aliases mutable tree state."""
+        if self.payloads is None:
+            return None
+        return np.concatenate(self.payloads) if self.payloads else \
+            np.empty(0)
+
+    def range_query(self, lo_key: float, hi_key: float) -> np.ndarray:
+        """Sec. 4.2 range scan: thin wrapper over the typed query plane.
+
+        The page half delegates to the plane's bounded rank search
+        (``repro_torch.index.table.numpy_search`` -- the ``[lo, hi]``-inclusive
+        contract of ``repro_torch.index.query``: leftmost rank at ``lo``, rightmost
+        at ``hi``), which also fixes the legacy scan's blind spot: it started
+        at ``lo_key``'s *routed* segment, silently dropping duplicates of
+        ``lo_key`` whose run began in an earlier segment.  Buffered inserts
+        (invisible to the page snapshot) merge on top, as before."""
+        if hi_key < lo_key:
+            return np.empty(0, np.float64)
+        table = self.as_table()
+        bounds = np.asarray([lo_key, hi_key], np.float64)
+        lo_rank = int(numpy_search(table, bounds[:1], "left")[0])
+        hi_rank = max(int(numpy_search(table, bounds[1:], "right")[0]), lo_rank)
+        out = [table.keys[lo_rank:hi_rank]]
+        for sid in self.dirty_segments():
+            buf = self.buffers[sid]
+            i = bisect.bisect_left(buf, lo_key)
+            j = bisect.bisect_right(buf, hi_key)
+            if i < j:
+                out.append(np.asarray(buf[i:j], np.float64))
+        return np.sort(np.concatenate(out))
+
+    # ----------------------------------------------------------------- insert
+    def insert(self, key: float, value=None) -> None:
+        """Alg. 4: buffer the key; merge + re-segment on overflow."""
+        if self.buffer_size == 0:
+            raise ValueError("tree built read-only (buffer_size=0)")
+        sid = self._segment_of(key)
+        buf = self.buffers[sid]
+        j = bisect.bisect_left(buf, key)
+        buf.insert(j, key)
+        if self.payloads is not None:
+            self.buf_payloads[sid].insert(j, value)
+        self._flat_cache = None
+        self._table_cache = None
+        if len(buf) >= self.buffer_size:
+            self._merge_segment(sid)
+
+    def dirty_segments(self) -> list[int]:
+        """Segments whose insert buffer holds keys not yet merged into pages."""
+        return [sid for sid, buf in enumerate(self.buffers) if buf]
+
+    def flush(self) -> int:
+        """Merge every non-empty insert buffer into its page (Alg. 4 lines
+        5-9 applied per dirty segment), re-segmenting only those runs.  The
+        publish path (repro_torch.index.snapshot); returns #segments re-fit.
+
+        All splices land in one pass (one metadata reconcat + one router
+        rebuild), so the cost is O(dirty work + S), not O(dirty * S)."""
+        dirty = set(self.dirty_segments())
+        if not dirty:
+            return 0
+        pages, payloads, buffers, buf_pls = [], [], [], []
+        start_keys, slopes = [], []
+        for sid in range(self.n_segments):
+            if sid in dirty:
+                new_pages, new_payloads, segs = self._refit_segment(sid)
+                pages += new_pages
+                buffers += [[] for _ in range(segs.n_segments)]
+                buf_pls += [[] for _ in range(segs.n_segments)]
+                if new_payloads is not None:
+                    payloads += new_payloads
+                start_keys.append(segs.start_key)
+                slopes.append(segs.slope)
+            else:
+                pages.append(self.pages[sid])
+                buffers.append(self.buffers[sid])
+                buf_pls.append(self.buf_payloads[sid])
+                if self.payloads is not None:
+                    payloads.append(self.payloads[sid])
+                start_keys.append(self.start_keys[sid:sid + 1])
+                slopes.append(self.slopes[sid:sid + 1])
+        self.pages = pages
+        self.buffers = buffers
+        self.buf_payloads = buf_pls
+        if self.payloads is not None:
+            self.payloads = payloads
+        self.start_keys = np.concatenate(start_keys)
+        self.slopes = np.concatenate(slopes)
+        self.router = PackedRouter(self.start_keys, self.fanout)
+        self._flat_cache = None
+        self._table_cache = None
+        return len(dirty)
+
+    def _refit_segment(self, sid: int):
+        """Alg. 4 lines 5-7: merge sid's buffer into its page and re-run
+        ShrinkingCone on the merged run.  Pure: returns (pages, payloads|None,
+        segs) for the k >= 1 replacement segments without mutating the tree."""
+        page = self.pages[sid]
+        buf = np.asarray(self.buffers[sid], np.float64)
+        pl_page = None if self.payloads is None else self.payloads[sid]
+        pl_buf = (None if pl_page is None else
+                  np.asarray(self.buf_payloads[sid], dtype=pl_page.dtype))
+        merged, pl_merged = _merge_sorted(page, buf, pl_page, pl_buf)
+        segs = shrinking_cone(merged, self.err_seg, mode=self.mode)
+        new_pages, new_payloads = _paginate(merged, pl_merged, segs)
+        return new_pages, new_payloads, segs
+
+    def _merge_segment(self, sid: int) -> None:
+        """Alg. 4 lines 5-9: replace one overflowed segment in place (the
+        insert hot path; flush() batches the same refit across segments)."""
+        new_pages, new_payloads, segs = self._refit_segment(sid)
+        k = segs.n_segments
+        self.pages[sid:sid + 1] = new_pages
+        self.buffers[sid:sid + 1] = [[] for _ in range(k)]
+        self.buf_payloads[sid:sid + 1] = [[] for _ in range(k)]
+        if self.payloads is not None:
+            self.payloads[sid:sid + 1] = new_payloads
+        self.start_keys = np.concatenate([
+            self.start_keys[:sid], segs.start_key, self.start_keys[sid + 1:]])
+        self.slopes = np.concatenate([
+            self.slopes[:sid], segs.slope, self.slopes[sid + 1:]])
+        self.router = PackedRouter(self.start_keys, self.fanout)
+        self._flat_cache = None
+        self._table_cache = None
+
+    # ----------------------------------------------- shard migration (splice)
+    def extract_range(self, lo_key: float, hi_key: float
+                      ) -> tuple[np.ndarray, np.ndarray | None]:
+        """Remove and return every key in ``[lo_key, hi_key)`` (+ payloads).
+
+        The donor half of shard rebalancing: buffers are flushed first so the
+        page view is complete, segments fully inside the range are handed
+        over wholesale, and a segment only partially covered is re-segmented
+        over its surviving keys (everything else keeps its fitted line, so
+        Eq. 1 still holds with err_seg).  Returns ``(keys, payloads)`` sorted
+        ascending; ``payloads`` is ``None`` for a clustered index.  Extracting
+        everything leaves a valid empty tree that ``splice_run`` / ``insert``
+        can refill."""
+        if hi_key < lo_key:        # inverted slices would duplicate keys
+            raise ValueError(f"inverted extract range: [{lo_key}, {hi_key})")
+        self.flush()
+        out_k: list[np.ndarray] = []
+        out_p: list[np.ndarray] = []
+        pages, payloads, start_keys, slopes = [], [], [], []
+        for sid in range(self.n_segments):
+            page = self.pages[sid]
+            a = int(np.searchsorted(page, lo_key, side="left"))
+            b = int(np.searchsorted(page, hi_key, side="left"))
+            pl = None if self.payloads is None else self.payloads[sid]
+            if a == b:                               # untouched: keep the fit
+                pages.append(page)
+                start_keys.append(self.start_keys[sid:sid + 1])
+                slopes.append(self.slopes[sid:sid + 1])
+                if pl is not None:
+                    payloads.append(pl)
+                continue
+            out_k.append(page[a:b].copy())
+            if pl is not None:
+                out_p.append(pl[a:b].copy())
+            rest = np.concatenate([page[:a], page[b:]])
+            if rest.shape[0] == 0:                   # fully extracted: drop
+                continue
+            rest_pl = None if pl is None else np.concatenate([pl[:a], pl[b:]])
+            segs = shrinking_cone(rest, self.err_seg, mode=self.mode)
+            pgs, pls = _paginate(rest, rest_pl, segs)
+            pages += pgs
+            start_keys.append(segs.start_key)
+            slopes.append(segs.slope)
+            if pls is not None:
+                payloads += pls
+        if not pages:                                # tree is now empty
+            pages = [np.empty(0, np.float64)]
+            start_keys = [np.zeros(1, np.float64)]
+            slopes = [np.zeros(1, np.float64)]
+            if self.payloads is not None:
+                payloads = [out_p[0][:0]]
+        self.pages = pages
+        if self.payloads is not None:
+            self.payloads = payloads
+        self.buffers = [[] for _ in pages]           # flush() emptied them
+        self.buf_payloads = [[] for _ in pages]
+        self.start_keys = np.concatenate(start_keys)
+        self.slopes = np.concatenate(slopes)
+        self.router = PackedRouter(self.start_keys, self.fanout)
+        self._flat_cache = None
+        self._table_cache = None
+        keys_out = (np.concatenate(out_k) if out_k else
+                    np.empty(0, np.float64))
+        pl_out = (None if self.payloads is None else
+                  np.concatenate(out_p) if out_p else
+                  self.payloads[0][:0])
+        return keys_out, pl_out
+
+    def splice_run(self, keys: np.ndarray,
+                   payload: np.ndarray | None = None) -> None:
+        """Merge a sorted key run (+ payloads) into the tree in bulk.
+
+        The receiving half of shard rebalancing: only the segments whose key
+        range overlaps the run are merged and re-segmented (Alg. 4 lines 5-9
+        applied to the spliced span); every other segment keeps its fitted
+        line.  Unlike ``insert`` this does not require an insert buffer, so
+        read-only trees can be rebalanced too."""
+        keys = np.asarray(keys, np.float64)
+        if self.clustered and payload is not None:
+            raise ValueError("tree built without payloads (clustered index); "
+                             "cannot splice a payload run")
+        if not self.clustered and payload is None:
+            raise ValueError("non-clustered tree: splice_run needs the "
+                             "payload run alongside the keys")
+        if keys.shape[0] == 0:
+            return
+        if payload is not None and len(payload) != keys.shape[0]:
+            raise ValueError("payload run length must match the key run")
+        self.flush()
+        if self.n_keys == 0:                         # refill an emptied tree
+            segs = shrinking_cone(keys, self.err_seg, mode=self.mode)
+            self._init_pages(keys.copy(), payload, segs)
+            return
+        s0 = self._segment_of(float(keys[0]))
+        s1 = self._segment_of(float(keys[-1]))
+        span = np.concatenate(self.pages[s0:s1 + 1])
+        pl_span = (None if self.payloads is None else
+                   np.concatenate(self.payloads[s0:s1 + 1]))
+        pl_run = (None if payload is None else
+                  np.asarray(payload, dtype=pl_span.dtype))
+        merged, pl_merged = _merge_sorted(span, keys, pl_span, pl_run)
+        segs = shrinking_cone(merged, self.err_seg, mode=self.mode)
+        k = segs.n_segments
+        pgs, pls = _paginate(merged, pl_merged, segs)
+        self.pages[s0:s1 + 1] = pgs
+        self.buffers[s0:s1 + 1] = [[] for _ in range(k)]
+        self.buf_payloads[s0:s1 + 1] = [[] for _ in range(k)]
+        if self.payloads is not None:
+            self.payloads[s0:s1 + 1] = pls
+        self.start_keys = np.concatenate([
+            self.start_keys[:s0], segs.start_key, self.start_keys[s1 + 1:]])
+        self.slopes = np.concatenate([
+            self.slopes[:s0], segs.slope, self.slopes[s1 + 1:]])
+        self.router = PackedRouter(self.start_keys, self.fanout)
+        self._flat_cache = None
+        self._table_cache = None
+
+    # ------------------------------------------------------------ invariants
+    def max_abs_error(self) -> float:
+        """Verify Eq. 1 over every page element (buffers are covered by the
+        err_seg + buffer_size <= error budget, Sec. 5).  Delegates to the
+        canonical check on the page snapshot."""
+        return self.as_table().max_abs_error()

@@ -14,10 +14,15 @@ Module map:
                  torch-bisect / cuda bounded-window search, the
                  ``DeviceIndex`` device form, and ``DispatchEngine``
   snapshot.py -- ``Snapshot`` + ``ServingHandle`` atomic swap into serving
+  sharded.py  -- ``ShardedIndexService``: N key-partitioned writers with
+                 per-shard epoch streams; ``pack_shard_tables``
+  fit.py      -- ``FitSpec`` -> ``plan()`` -> ``IndexPlan`` -> ``open_index``:
+                 the Sec. 6 cost model resolving SLOs into every knob above
+  telemetry.py - ``Monitor``, the typed ``ServiceMetrics`` tree, and
+                 ``Replanner`` (measure -> re-fit -> re-plan, hot-swapped)
 
-``table`` and ``query`` are imported eagerly (pure numpy); the engine and
-snapshot names resolve lazily (PEP 562) so host-only code never pulls in
-torch.
+``table`` and ``query`` are imported eagerly (pure numpy); the other names
+resolve lazily (PEP 562) so host-only code never pulls in torch.
 """
 from .query import (PointResult, QueryVerbs, RangeResult, check_range,
                     check_side, merge_sorted_sources)
@@ -33,13 +38,22 @@ _ENGINE_NAMES = {
     "torch_search",
 }
 _SNAPSHOT_NAMES = {"ServingHandle", "Snapshot", "SnapshotPublisher"}
+_SHARDED_NAMES = {"PackedShardTables", "ShardSet", "ShardStats",
+                  "ShardedIndexService", "pack_shard_tables"}
+_FIT_NAMES = {"FitSpec", "IndexPlan", "InfeasibleSpecError", "PlanCandidate",
+              "open_index", "plan"}
+_TELEMETRY_NAMES = {"DeviceMetrics", "JSONLBackend", "LsmMetrics",
+                    "MemoryBackend", "MetricsSnapshot", "Monitor",
+                    "PipelineMetrics", "Replanner", "ServiceMetrics",
+                    "ShardMetrics", "TierMetrics", "tier_metrics"}
 
 __all__ = [
     "PointResult", "QueryVerbs", "RangeResult", "SegmentTable",
     "build_shard_tables", "check_range", "check_side",
     "merge_sorted_sources", "numpy_lookup", "numpy_search", "route_keys",
     "shard_boundaries", "shard_cut_indices", "shard_partition",
-    *sorted(_ENGINE_NAMES), *sorted(_SNAPSHOT_NAMES),
+    *sorted(_ENGINE_NAMES), *sorted(_SNAPSHOT_NAMES), *sorted(_SHARDED_NAMES),
+    *sorted(_FIT_NAMES), *sorted(_TELEMETRY_NAMES),
 ]
 
 
@@ -50,4 +64,13 @@ def __getattr__(name):
     if name in _SNAPSHOT_NAMES:
         from . import snapshot
         return getattr(snapshot, name)
+    if name in _SHARDED_NAMES:
+        from . import sharded
+        return getattr(sharded, name)
+    if name in _FIT_NAMES:
+        from . import fit
+        return getattr(fit, name)
+    if name in _TELEMETRY_NAMES:
+        from . import telemetry
+        return getattr(telemetry, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -33,6 +33,7 @@ fused kernel snaps on the device, with no sync.
 from __future__ import annotations
 
 import functools
+import time
 from typing import Callable, Literal, NamedTuple, Protocol, runtime_checkable
 
 import numpy as np
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.analysis.contracts import hot_path
 from repro_torch.analysis.sanitizer import make_lock
+from repro_torch.core.cost_model import dispatch_thresholds
 
 from .device import (DeviceIndex, predict_positions, snap_leftmost,
                      snap_side)
@@ -374,19 +376,28 @@ class DispatchEngine(QueryVerbs):
     of this engine (i.e. of the snapshot).  Every tier returns identical
     ranks for exact-f32 workloads, so dispatch preserves semantics.
 
-    ``small_max``/``large_min`` are required: their defaults come from the
-    Sec. 6 cost model, which the port does not have yet.
+    ``small_max``/``large_min`` default to ``None``: the thresholds are then
+    the batch sizes where the Sec. 6 cost model's tier curves cross for this
+    table's error and segment count, under the card's default profile
+    (:func:`repro_torch.core.cost_model.dispatch_thresholds`).  Pass both to
+    pin them (e.g. from an ``IndexPlan``).
+
+    ``monitor`` (a ``repro_torch.index.telemetry.Monitor``) turns on per-tier
+    telemetry: every routed ``lookup``/``search`` records ``(batch_size,
+    wall_ns)`` on the ``tier.<small|medium|large>`` channel, the samples
+    ``fit_tier_curves`` re-fits the tier curves from.
     """
     uses_device = True
     TIERS = ("numpy", "torch-bisect", "cuda")   # small, medium, large
 
     def __init__(self, table: SegmentTable, *, small_max: int | None = None,
-                 large_min: int | None = None, device=None):
+                 large_min: int | None = None, device=None, monitor=None):
+        if small_max is None and large_min is None:
+            small_max, large_min = dispatch_thresholds(table.error,
+                                                       table.n_segments)
         if small_max is None or large_min is None:
-            raise ValueError(
-                "DispatchEngine needs explicit small_max and large_min: the "
-                "cost-model defaults (core/cost_model.py) come with the "
-                "port's planning slice (ROADMAP queue A, slice 3)")
+            raise ValueError("pass both small_max and large_min, or neither "
+                             "(None defers both to the cost model)")
         if not 0 <= small_max < large_min:
             raise ValueError(f"need 0 <= small_max < large_min, got "
                              f"{small_max=} {large_min=}")
@@ -394,15 +405,21 @@ class DispatchEngine(QueryVerbs):
         self.device = resolve_device(device)
         self.small_max = int(small_max)
         self.large_min = int(large_min)
+        self.monitor = monitor
         self._engines: dict[str, LookupEngine] = {}
         self._lock = make_lock("DispatchEngine._lock")
+
+    def tier_for(self, batch_size: int) -> str:
+        """The tier (``small``/``medium``/``large``) a batch routes to."""
+        if batch_size <= self.small_max:
+            return "small"
+        return "medium" if batch_size < self.large_min else "large"
 
     def backend_for(self, batch_size: int) -> str:
         """The tier backend a batch of ``batch_size`` queries dispatches to."""
         small, medium, large = self.TIERS
-        if batch_size <= self.small_max:
-            return small
-        return medium if batch_size < self.large_min else large
+        return {"small": small, "medium": medium,
+                "large": large}[self.tier_for(batch_size)]
 
     def engine_for(self, batch_size: int) -> LookupEngine:
         name = self.backend_for(batch_size)
@@ -417,12 +434,29 @@ class DispatchEngine(QueryVerbs):
 
     @hot_path
     def lookup(self, queries) -> np.ndarray:
-        return self.engine_for(int(np.size(queries))).lookup(queries)
+        n = int(np.size(queries))
+        eng = self.engine_for(n)
+        mon = self.monitor
+        if mon is None:
+            return eng.lookup(queries)
+        t0 = time.perf_counter_ns()
+        out = eng.lookup(queries)
+        # channel name matches repro_torch.index.telemetry.CH_TIER_PREFIX
+        mon.record("tier." + self.tier_for(n), n, time.perf_counter_ns() - t0)
+        return out
 
     @hot_path
     def search(self, queries, side: str = "left") -> np.ndarray:
         """The query plane's primitive, routed by batch size like ``lookup``."""
-        return self.engine_for(int(np.size(queries))).search(queries, side)
+        n = int(np.size(queries))
+        eng = self.engine_for(n)
+        mon = self.monitor
+        if mon is None:
+            return eng.search(queries, side)
+        t0 = time.perf_counter_ns()
+        out = eng.search(queries, side)
+        mon.record("tier." + self.tier_for(n), n, time.perf_counter_ns() - t0)
+        return out
 
     def prewarm(self, batch_sizes=None) -> None:
         """Opt-in eager tier construction: build each tier a batch size maps

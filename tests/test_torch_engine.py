@@ -153,9 +153,15 @@ def test_prewarm_builds_every_dispatch_tier_and_changes_no_answer():
 
 
 def test_dispatch_needs_explicit_thresholds():
+    """Thresholds are both given or both left to the cost model (the
+    card's default profile, as the reference derives its own)."""
+    from repro_torch.core.cost_model import dispatch_thresholds
     table = SegmentTable.from_keys(np.arange(100.0), 8)
-    with pytest.raises(ValueError, match="slice 3"):
-        make_engine(table, "dispatch", device="cpu")
+    eng = make_engine(table, "dispatch", device="cpu")
+    assert (eng.small_max, eng.large_min) == dispatch_thresholds(
+        table.error, table.n_segments)
+    with pytest.raises(ValueError, match="both small_max and large_min"):
+        make_engine(table, "dispatch", device="cpu", small_max=8)
     with pytest.raises(ValueError, match="small_max < large_min"):
         make_engine(table, "dispatch", device="cpu", small_max=8, large_min=8)
 

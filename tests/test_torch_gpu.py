@@ -10,7 +10,8 @@ lookup kernels (the window search alone and the fused search) and the
 ``cuda`` engine (against ``np.searchsorted``) to tolerance 0: ranks are
 integers and every compare is f32 on both sides.
 The RG-LRU scan to tolerance 0 as well (see its test); flash attention to
-the reference's tolerances (stated at ``FLASH_TOL``).
+the reference's tolerances (stated at ``FLASH_TOL``).  The sharded write
+path on the card to its own host ``numpy`` backend, to tolerance 0.
 """
 import numpy as np
 import pytest
@@ -265,3 +266,95 @@ def test_rglru_kernel_matches_plain_twin(cuda_device, b, t, w, with_h0):
     assert rs.rglru_scan_cuda.launches == before + 1
     want, want_last = rs.rglru_scan_torch(u, a, h0)
     assert torch.equal(got, want) and torch.equal(got_last, want_last)
+
+
+# --------------------------------------------------- write path on the card
+def _verbs(svc, q, backend):
+    lo, hi = q, q + 37
+    return (svc.search(q, "left", backend=backend),
+            svc.search(q, "right", backend=backend),
+            svc.lookup(q, backend=backend),
+            svc.point(q, backend=backend).rank,
+            svc.predecessor(q, backend=backend).rank,
+            svc.successor(q, backend=backend).rank,
+            svc.count(lo, hi, backend=backend),
+            svc.range(float(q[0]), float(q[0]) + 500, backend=backend).keys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "torch-bisect", "dispatch"])
+def test_sharded_service_on_the_card_matches_its_numpy_backend(
+        cuda_device, backend):
+    """Insert -> publish -> every verb: the card's backends give the host
+    numpy backend's answers exactly (integer keys, f32-exact)."""
+    from repro_torch.index import ShardedIndexService
+    keys = _dup_keys(60_000, seed=3)
+    svc = ShardedIndexService(keys, error=32, n_shards=4, buffer_size=8,
+                              assume_sorted=True)
+    assert svc.default_backend == "cuda"
+    rng = np.random.default_rng(4)
+    for k in rng.integers(0, 20_000, 3_000):
+        svc.insert(float(k))
+    svc.publish()
+    for size in (1, 700, 9_000):
+        q = _queries(keys, rng, size)[:size]
+        for got, want in zip(_verbs(svc, q, backend),
+                             _verbs(svc, q, "numpy")):
+            np.testing.assert_array_equal(got, want)
+    if backend != "dispatch":        # dispatch sent these batches to numpy
+        idx = svc.handles[0].current().table._device_cache
+        assert any(d.type == "cuda" for d in idx)
+
+
+@pytest.mark.gpu
+def test_sharded_publish_reuploads_only_dirty_shards(cuda_device):
+    """A publish replaces the device form of the dirty shard alone; clean
+    shards keep their tensors, and retired generations are freed."""
+    import gc
+
+    from repro_torch.index import ShardedIndexService
+    keys = _dup_keys(200_000, seed=6)
+    svc = ShardedIndexService(keys, error=64, n_shards=4, buffer_size=16,
+                              assume_sorted=True)
+    svc.search(keys[:8])
+    base = torch.cuda.memory_allocated()
+    for cycle in range(6):
+        d = cycle % 4
+        before = [h.current().table._device_cache[cuda_device]
+                  for h in svc.handles]
+        lo = svc.boundaries[d]
+        for k in np.arange(8) + lo:
+            svc.insert(float(k))
+        assert sorted(svc.publish()) == [d]
+        svc.search(keys[::1000])
+        after = [h.current().table._device_cache[cuda_device]
+                 for h in svc.handles]
+        assert [a is not b for a, b in zip(after, before)] == \
+            [s == d for s in range(4)]
+        del before, after           # the retired generation's last holders
+        gc.collect()
+        torch.cuda.synchronize()
+        # the replaced shard's old tensors are gone: only a few inserted
+        # keys' worth of growth remains
+        assert torch.cuda.memory_allocated() - base < 64 * 1024
+
+
+@pytest.mark.gpu
+def test_index_service_dispatch_and_calibration_on_the_card(cuda_device):
+    """IndexService serves on the card by default; dispatch takes the cost
+    model's thresholds; calibrate_device measures positive params."""
+    from repro_torch.core.cost_model import calibrate_device
+    from repro_torch.serve import IndexService
+    keys = _dup_keys(40_000, seed=8)
+    svc = IndexService(keys, error=32, buffer_size=8, assume_sorted=True)
+    assert svc.default_backend == "cuda"
+    q = _queries(keys, np.random.default_rng(9), 3_000)
+    for side in ("left", "right"):
+        np.testing.assert_array_equal(svc.search(q, side),
+                                      np.searchsorted(keys, q, side))
+        np.testing.assert_array_equal(svc.search(q, side, "dispatch"),
+                                      np.searchsorted(keys, q, side))
+    eng = svc.handle.engine("dispatch")
+    assert 0 <= eng.small_max < eng.large_min
+    cpu, gpu = calibrate_device(keys, device=cuda_device)
+    assert cpu.c_ns > 0 and gpu.setup_ns > 0 and gpu.hbm_gbps > 0

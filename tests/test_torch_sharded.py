@@ -1,0 +1,293 @@
+"""The port's sharded serving (``repro_torch.index.sharded``) and
+``IndexService`` against the JAX package's.
+
+Both services get the same keys, inserts and calls (made from seeds with
+numpy; integer keys, so every compare is exact in f32).  After insert ->
+publish, every verb on each of the port's backends -- numpy, torch-bisect,
+cuda (here its plain twin on the CPU) and dispatch -- equals the reference
+service's answer and ``np.searchsorted`` on the merged column, to
+tolerance 0; one small case holds the reference's ``pallas`` backend (in
+interpret mode) against the port's ``cuda`` twin.  Rebalance boundaries,
+epochs, ``apply_plan`` and the ``metrics()`` tree are equal too.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from repro.index import IndexPlan as RefPlan
+from repro.index import ShardedIndexService as RefSharded
+from repro.index import pack_shard_tables as ref_pack
+from repro.serve import IndexService as RefService
+from repro_torch.analysis import sanitizer
+from repro_torch.index import IndexPlan, pack_shard_tables
+from repro_torch.serve import IndexService, ShardedIndexService
+
+CPU = {"device": "cpu"}
+ON_CPU = {"cuda": CPU, "torch-bisect": CPU, "torch-window": CPU,
+          "dispatch": {**CPU, "small_max": 4, "large_min": 300}}
+BACKENDS = ("numpy", "torch-bisect", "cuda", "dispatch")
+
+
+def _dup_heavy_keys(n, seed=0, max_run=6, lim=2 ** 20):
+    """tests/test_rebalance.py's keys: integer runs of length <= max_run."""
+    rng = np.random.default_rng(seed)
+    uniq = np.sort(rng.choice(lim, size=n // 2, replace=False))
+    reps = rng.integers(1, max_run + 1, size=uniq.shape[0])
+    return np.repeat(uniq, reps)[:n].astype(np.float64)
+
+
+def _pair(keys, **kw):
+    ours = ShardedIndexService(keys, engine_opts=ON_CPU, assume_sorted=True,
+                               **kw)
+    ref = RefSharded(keys, assume_sorted=True,
+                     **{**kw, "backend": kw.get("backend", "numpy")})
+    return ours, ref
+
+
+def _insert(svcs, keys):
+    for k in keys:
+        for s in svcs:
+            s.insert(float(k))
+
+
+def _verbs(svc, q, backend):
+    """Every verb of the query plane, as plain arrays."""
+    pt = svc.point(q, backend=backend)
+    pr = svc.predecessor(q, backend=backend)
+    sc = svc.successor(q, backend=backend)
+    out = [svc.search(q, "left", backend=backend),
+           svc.search(q, "right", backend=backend),
+           svc.lookup(q, backend=backend), pt.rank, pt.found, pr.rank,
+           pr.found, sc.rank, sc.found,
+           svc.count(q, q + 40, backend=backend)]
+    for lo, hi in ((q[0], q[0] + 3000), (q[-1], q[-1] - 1), (-5.0, 2.0 ** 21)):
+        r = svc.range(float(lo), float(hi), backend=backend)
+        out += [np.asarray([r.lo_rank, r.hi_rank]), r.keys]
+    return out
+
+
+def _oracle(merged, q):
+    left = np.searchsorted(merged, q, "left")
+    right = np.searchsorted(merged, q, "right")
+    n = merged.shape[0]
+    found = (left < n) & (merged[np.minimum(left, n - 1)] == q)
+    return left, right, np.where(found, left, -1)
+
+
+def _queries(keys, rng, size):
+    return np.concatenate([keys[rng.integers(0, keys.shape[0], size)],
+                           np.floor(rng.uniform(-3, 2 ** 20 + 3, size // 3))])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_every_verb_equals_the_reference_after_insert_and_publish(backend):
+    keys = _dup_heavy_keys(6000, seed=5)
+    ours, ref = _pair(keys, error=32, n_shards=4, buffer_size=8)
+    rng = np.random.default_rng(6)
+    new = np.concatenate([keys[rng.integers(0, keys.shape[0], 500)],
+                          rng.integers(0, 2 ** 20, 300).astype(np.float64)])
+    _insert((ours, ref), new)
+    assert sorted(ours.publish()) == sorted(ref.publish())
+    merged = np.sort(np.concatenate([keys, new]))
+    for size in (1, 7, 400):
+        q = _queries(merged, rng, size)
+        for got, want in zip(_verbs(ours, q, backend), _verbs(ref, q, None)):
+            np.testing.assert_array_equal(got, want)
+        left, right, hit = _oracle(merged, q)
+        np.testing.assert_array_equal(ours.search(q, "left", backend), left)
+        np.testing.assert_array_equal(ours.search(q, "right", backend),
+                                      right)
+        np.testing.assert_array_equal(ours.lookup(q, backend), hit)
+    assert ours.epochs() == ref.epochs()
+
+
+def test_reference_pallas_backend_equals_the_cuda_twin():
+    """The reference's Pallas kernel (interpret mode) against the port's
+    cuda backend (its plain twin on the CPU): the rank primitive on both
+    sides and the point lookup, across two shards."""
+    keys = _dup_heavy_keys(1500, seed=7)
+    ours, ref = _pair(keys, error=16, n_shards=2, buffer_size=4)
+    rng = np.random.default_rng(8)
+    _insert((ours, ref), rng.integers(0, 2 ** 20, 60).astype(np.float64))
+    ours.publish(), ref.publish()
+    q = _queries(keys, rng, 48)
+
+    def answers(svc, backend):
+        pt = svc.point(q, backend=backend)
+        return [svc.search(q, "left", backend), svc.search(q, "right", backend),
+                svc.lookup(q, backend), pt.rank, pt.found]
+
+    for got, want in zip(answers(ours, "cuda"), answers(ref, "pallas")):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_publish_touches_only_dirty_shards_like_the_reference():
+    keys = _dup_heavy_keys(6000, seed=42)
+    ours, ref = _pair(keys, error=64, n_shards=3, buffer_size=16)
+    np.testing.assert_array_equal(ours.boundaries, ref.boundaries)
+    mid = np.arange(8) + ours.boundaries[1] + 0.5
+    _insert((ours, ref), np.floor(mid))
+    before = [h.current() for h in ours.handles]
+    assert list(ours.publish()) == list(ref.publish()) == [1]
+    assert ours.epochs() == ref.epochs() == [1, 2, 1]
+    assert ours.handles[0].current() is before[0]
+    assert ours.handles[2].current() is before[2]
+    assert ours.publish() == {} and ref.publish() == {}
+    assert sorted(ours.publish(shards=[0, 2], force=True)) == \
+        sorted(ref.publish(shards=[0, 2], force=True))
+    assert ours.epochs() == ref.epochs() == [2, 2, 2]
+
+
+def test_rebalance_equals_the_reference():
+    """Skewed inserts, then rebalance: the same recut boundaries, moved
+    keys, epochs, ShardSet version and answers; payloads travel along."""
+    rng = np.random.default_rng(21)
+    base = np.sort(rng.choice(2 ** 20, size=4000, replace=False)
+                   ).astype(np.float64)
+    pl = (base * 3).astype(np.int64)
+    ours = ShardedIndexService(base, error=64, n_shards=4, buffer_size=16,
+                               payload=pl, skew_threshold=1.5,
+                               engine_opts=ON_CPU, assume_sorted=True)
+    ref = RefSharded(base, error=64, n_shards=4, buffer_size=16, payload=pl,
+                     skew_threshold=1.5, backend="numpy",
+                     assume_sorted=True)
+    hot = np.setdiff1d(np.arange(0, int(ours.boundaries[1]), 3,
+                                 dtype=np.float64), base)[:1500]
+    for k in hot:
+        ours.insert(float(k), int(k) * 3)
+        ref.insert(float(k), int(k) * 3)
+    ours.publish(), ref.publish()
+    assert ours.imbalance() == ref.imbalance() > 1.5
+    np.testing.assert_array_equal(ours.shard_loads(), ref.shard_loads())
+    got, want = ours.rebalance(), ref.rebalance()
+    assert got == want and got["moved_keys"] > 0
+    np.testing.assert_array_equal(ours.boundaries, ref.boundaries)
+    assert ours.epochs() == ref.epochs()
+    assert ours.shard_set.version == ref.shard_set.version == 2
+    assert ours.rebalance() is None and ref.rebalance() is None
+    q = np.concatenate([hot[::11], base[::101]])
+    for backend in BACKENDS:
+        for a, b in zip(_verbs(ours, q, backend), _verbs(ref, q, None)):
+            np.testing.assert_array_equal(a, b)
+        r = ours.range(float(hot[3]), float(hot[900]), backend=backend)
+        np.testing.assert_array_equal(r.payload, r.keys.astype(np.int64) * 3)
+
+
+def test_auto_publish_and_auto_rebalance_equal_the_reference():
+    rng = np.random.default_rng(13)
+    base = np.sort(rng.choice(2 ** 20, size=4000, replace=False)
+                   ).astype(np.float64)
+    kw = dict(error=64, n_shards=4, buffer_size=16, skew_threshold=1.3,
+              auto_rebalance=True, publish_every=512)
+    ours, ref = _pair(base, **kw)
+    hot = np.setdiff1d(np.arange(0, 2 ** 18, 7, dtype=np.float64),
+                       base)[:2500]
+    _insert((ours, ref), hot)
+    ours.publish(), ref.publish()
+    m, r = ours.metrics(), ref.metrics()
+    assert m.rebalances == r.rebalances >= 1
+    assert dataclasses.asdict(m) == dataclasses.asdict(r)
+
+
+def test_apply_plan_equals_the_reference():
+    """A thresholds-only swap keeps the snapshots; a structural one
+    (error, shard count) re-partitions -- both exactly as the reference."""
+    keys = _dup_heavy_keys(8000, seed=23)
+    ours, ref = _pair(keys, error=64, n_shards=4, buffer_size=16,
+                      backend="dispatch")
+    _insert((ours, ref), np.arange(100, 5000, 37, dtype=np.float64))
+    snaps = [h.current() for h in ours.handles]
+    light = ours.apply_plan(ours.plan.replace(small_max=8, large_min=64))
+    ref_light = ref.apply_plan(ref.plan.replace(small_max=8, large_min=64))
+    assert [h.current() for h in ours.handles] == snaps
+    assert ours.handles[0].engine("dispatch").large_min == 64
+    for plan, ref_plan in ((light, ref_light),
+                           (ours.apply_plan(ours.plan.replace(
+                               error=32, n_shards=3, buffer_size=8)),
+                            ref.apply_plan(ref.plan.replace(
+                                error=32, n_shards=3, buffer_size=8)))):
+        assert (plan.error, plan.n_shards, plan.buffer_size, plan.revision,
+                plan.small_max, plan.large_min) == \
+            (ref_plan.error, ref_plan.n_shards, ref_plan.buffer_size,
+             ref_plan.revision, ref_plan.small_max, ref_plan.large_min)
+        np.testing.assert_array_equal(ours.boundaries, ref.boundaries)
+        assert ours.epochs() == ref.epochs()
+        assert ours.shard_set.version == ref.shard_set.version
+        q = _queries(keys, np.random.default_rng(plan.revision), 200)
+        for backend in BACKENDS:
+            for a, b in zip(_verbs(ours, q, backend),
+                            _verbs(ref, q, "numpy")):
+                np.testing.assert_array_equal(a, b)
+    assert dataclasses.asdict(ours.metrics()) == \
+        dataclasses.asdict(ref.metrics())
+
+
+def test_index_service_equals_the_reference():
+    keys = _dup_heavy_keys(3000, seed=8)
+    ours = IndexService(keys, error=64, buffer_size=16, engine_opts=ON_CPU,
+                        assume_sorted=True)
+    ref = RefService(keys, error=64, buffer_size=16, backend="numpy",
+                     assume_sorted=True)
+    assert ours.default_backend == "cuda" and ours.plan.backend == "cuda"
+    assert ours.publish() is ours.handle.current()          # no-op: clean
+    new = np.arange(1, 2 ** 20, 4099, dtype=np.float64)
+    _insert((ours, ref), new)
+    assert ours.pending_inserts == ref.pending_inserts == new.size
+    assert ours.publish().epoch == ref.publish().epoch == ours.epoch == 2
+    q = _queries(np.sort(np.concatenate([keys, new])),
+                 np.random.default_rng(9), 300)
+    for backend in BACKENDS:
+        for a, b in zip(_verbs(ours, q, backend), _verbs(ref, q, None)):
+            np.testing.assert_array_equal(a, b)
+    assert dataclasses.asdict(ours.metrics()) == \
+        dataclasses.asdict(ref.metrics())
+    one = IndexService.from_plan(keys, IndexPlan(error=64, n_shards=4,
+                                                 buffer_size=16),
+                                 engine_opts=ON_CPU, assume_sorted=True)
+    ref_one = RefService.from_plan(keys, RefPlan(error=64, n_shards=4,
+                                                 buffer_size=16),
+                                   assume_sorted=True)
+    assert one.plan.n_shards == ref_one.plan.n_shards == 1
+
+
+def test_services_default_to_the_card():
+    """Raw-knob services serve on the CUDA card: without one (here) the
+    default backend raises instead of running anywhere else."""
+    keys = _dup_heavy_keys(2000, seed=1)
+    for svc in (ShardedIndexService(keys, error=32, assume_sorted=True),
+                IndexService(keys, error=32, assume_sorted=True)):
+        assert svc.default_backend == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            svc.search(keys[:4])
+        np.testing.assert_array_equal(svc.search(keys[:4], "left", "numpy"),
+                                      np.searchsorted(keys, keys[:4]))
+
+
+def test_pack_shard_tables_equals_the_reference():
+    keys = _dup_heavy_keys(5000, seed=3)
+    ours, ref = _pair(keys, error=16, n_shards=4)
+    got = pack_shard_tables([h.current().table for h in ours.handles])
+    want = ref_pack([h.current().table for h in ref.handles])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        got.seg_start[0, 0] = 1.0            # published: frozen
+
+
+def test_a_verb_that_sees_two_shard_sets_raises_under_the_sanitizer():
+    keys = _dup_heavy_keys(2000, seed=4)
+    svc = ShardedIndexService(keys, error=32, n_shards=2, buffer_size=4,
+                              engine_opts=ON_CPU, assume_sorted=True)
+    prev = sanitizer.set_enabled(True)
+    try:
+        with sanitizer.pin_scope("lookup"):
+            svc.lookup(keys[:8], "numpy")         # pins version 1 once
+        with pytest.raises(sanitizer.PinViolation, match="versions"):
+            with sanitizer.pin_scope("torn-verb"):
+                svc._pin_shard_set()
+                svc.rebalance(force=True)         # version bump mid-verb
+                svc._pin_shard_set()              # sees the new set
+        sanitizer.observe_pin(3)                  # outside a scope: no-op
+    finally:
+        sanitizer.set_enabled(prev)

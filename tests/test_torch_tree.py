@@ -1,0 +1,193 @@
+"""The port's FITingTree (``repro_torch.core.tree``) against the JAX
+package's, and the port's SnapshotPublisher over it.
+
+Both trees are host numpy code: on the same keys, inserts and calls they must
+hold the same segments (start keys, slopes), pages, buffers and payloads and
+give the same answers, to tolerance 0.  Inputs are those of
+``tests/test_tree.py`` (uniform floats, ``iot_like``, ``step_data``) with
+fixed seeds.
+"""
+import numpy as np
+import pytest
+
+from repro.core.datasets import iot_like, step_data
+from repro.core.tree import FITingTree as RefTree
+from repro.core.tree import PackedRouter as RefRouter
+from repro_torch.core.tree import FITingTree, PackedRouter
+from repro_torch.index import ServingHandle, SnapshotPublisher
+
+
+def _uniform(n=5000, seed=0):
+    return np.sort(np.random.default_rng(seed).uniform(0, 1e7, size=n))
+
+
+DATA = {
+    "uniform": lambda: _uniform(),
+    "iot_like": lambda: iot_like(20_000, seed=1),
+    "step_data": lambda: step_data(n=20_000, step=100),
+}
+
+
+def _assert_same(ours, ref):
+    np.testing.assert_array_equal(ours.start_keys, ref.start_keys)
+    np.testing.assert_array_equal(ours.slopes, ref.slopes)
+    assert len(ours.pages) == len(ref.pages)
+    for a, b in zip(ours.pages, ref.pages):
+        np.testing.assert_array_equal(a, b)
+    assert ours.buffers == ref.buffers
+    assert ours.buf_payloads == ref.buf_payloads
+    if ref.payloads is None:
+        assert ours.payloads is None
+    else:
+        for a, b in zip(ours.payloads, ref.payloads):
+            np.testing.assert_array_equal(a, b)
+    assert (ours.n_keys, ours.n_segments, ours.err_seg) == \
+        (ref.n_keys, ref.n_segments, ref.err_seg)
+    assert ours.index_size_bytes() == ref.index_size_bytes()
+    assert ours.max_abs_error() == ref.max_abs_error()
+    t, r = ours.as_table(epoch=3), ref.as_table(epoch=3)
+    for f in ("start_key", "slope", "base", "seg_end", "keys"):
+        np.testing.assert_array_equal(getattr(t, f), getattr(r, f))
+    assert (t.error, t.epoch) == (r.error, r.epoch)
+
+
+def _pair(keys, **kw):
+    return FITingTree(keys, **kw), RefTree(keys, **kw)
+
+
+@pytest.mark.parametrize("error,buffer_size", [(16, 0), (64, 16)])
+@pytest.mark.parametrize("name", sorted(DATA))
+def test_build_gives_the_reference_tree(name, error, buffer_size):
+    ours, ref = _pair(DATA[name](), error=error, buffer_size=buffer_size)
+    _assert_same(ours, ref)
+
+
+@pytest.mark.parametrize("name", sorted(DATA))
+def test_inserts_and_flush_give_the_reference_tree(name):
+    """Alg. 4: the same inserts overflow the same buffers, re-segment the
+    same runs; flush re-fits the same dirty segments."""
+    keys = DATA[name]()
+    ours, ref = _pair(keys, error=64, buffer_size=16)
+    rng = np.random.default_rng(2)
+    new = np.concatenate([rng.uniform(keys[0], keys[-1], 1500),
+                          keys[rng.integers(0, keys.shape[0], 500)]])
+    for i, k in enumerate(new):
+        ours.insert(float(k))
+        ref.insert(float(k))
+        if i % 500 == 499:
+            _assert_same(ours, ref)
+    assert ours.dirty_segments() == ref.dirty_segments()
+    assert ours.flush() == ref.flush()
+    _assert_same(ours, ref)
+    assert ours.flush() == ref.flush() == 0
+
+
+def test_insert_burst_splits_the_same_segments():
+    keys = np.arange(1000, dtype=np.float64)
+    ours, ref = _pair(keys, error=64, buffer_size=8)
+    for i in range(64):
+        ours.insert(500.0 + i * 1e-4)
+        ref.insert(500.0 + i * 1e-4)
+    _assert_same(ours, ref)
+
+
+@pytest.mark.parametrize("name", sorted(DATA))
+def test_lookups_and_range_queries_equal(name):
+    keys = DATA[name]()
+    ours, ref = _pair(keys, error=32, buffer_size=8)
+    rng = np.random.default_rng(3)
+    for k in rng.uniform(keys[0], keys[-1], 300):
+        ours.insert(float(k))
+        ref.insert(float(k))
+    q = np.concatenate([keys[::37], rng.uniform(keys[0], keys[-1], 200)])
+    np.testing.assert_array_equal(ours.lookup_batch(q), ref.lookup_batch(q))
+    assert [ours.lookup(float(k)) for k in q[::7]] == \
+        [ref.lookup(float(k)) for k in q[::7]]
+    for lo, hi in ((keys[100], keys[1500]), (keys[0], keys[-1]),
+                   (keys[50], keys[40]), (keys[-1] + 1, keys[-1] + 2)):
+        np.testing.assert_array_equal(ours.range_query(lo, hi),
+                                      ref.range_query(lo, hi))
+
+
+def test_extract_range_and_splice_run_equal_with_payloads():
+    """The rebalance migration path: same keys and payloads out, same
+    segments left behind, same result after splicing them into another
+    tree; extracting everything leaves the same empty tree."""
+    keys = np.floor(iot_like(8000, seed=4) * 1e3)
+    pl = np.arange(keys.shape[0]) * 10
+    ours, ref = _pair(keys, error=32, buffer_size=8, payload=pl)
+    for k in keys[::53] + 0.5:
+        ours.insert(float(k), -1)
+        ref.insert(float(k), -1)
+    lo, hi = keys[2000], keys[5000]
+    got, want = ours.extract_range(lo, hi), ref.extract_range(lo, hi)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    _assert_same(ours, ref)
+    other = keys[::3] + 0.25
+    dst, dst_ref = _pair(other, error=32, payload=np.zeros(other.shape[0]))
+    dst.splice_run(got[0], got[1])
+    dst_ref.splice_run(want[0], want[1])
+    _assert_same(dst, dst_ref)
+    got, want = (ours.extract_range(-np.inf, np.inf),
+                 ref.extract_range(-np.inf, np.inf))
+    np.testing.assert_array_equal(got[0], want[0])
+    _assert_same(ours, ref)
+    ours.splice_run(got[0], got[1])
+    ref.splice_run(want[0], want[1])
+    _assert_same(ours, ref)
+
+
+def test_packed_router_descends_like_the_reference():
+    keys = _uniform(50_000)
+    ours, ref = _pair(keys, error=16)
+    q = np.sort(np.random.default_rng(3).uniform(0, 1e7, size=500))
+    np.testing.assert_array_equal(ours.router.descend(q),
+                                  ref.router.descend(q))
+    r, rr = (PackedRouter(np.arange(16 ** 3, dtype=np.float64)),
+             RefRouter(np.arange(16 ** 3, dtype=np.float64)))
+    assert (r.height, r.size_bytes()) == (rr.height, rr.size_bytes())
+
+
+def test_publisher_round_trip_over_the_ported_tree():
+    """insert -> publish -> serve (tests/test_index_core.py's round trip):
+    the published table is the reference publisher's, every backend of the
+    port answers np.searchsorted, and the retired epoch keeps serving."""
+    from repro.index import SnapshotPublisher as RefPublisher
+    rng = np.random.default_rng(2)
+    keys = np.sort(rng.choice(2 ** 23, size=4000,
+                              replace=False)).astype(np.float64)
+    fresh = np.setdiff1d(rng.choice(2 ** 23, size=2000, replace=False)
+                         .astype(np.float64), keys)
+    new = fresh[:600]
+    ours, ref = _pair(keys, error=64, buffer_size=16)
+    pub, ref_pub = SnapshotPublisher(ours), RefPublisher(ref)
+    cpu = {"device": "cpu"}
+    handle = ServingHandle(engine_opts={"cuda": cpu, "torch-bisect": cpu,
+                                        "torch-window": cpu})
+    handle.install(pub.publish())
+    ref_pub.publish()
+    old = handle.current()
+    for k in new:
+        ours.insert(float(k))
+        ref.insert(float(k))
+    assert pub.dirty_segments() == ref_pub.dirty_segments()
+    q = np.concatenate([new[::5], keys[::97], fresh[600:700]])
+    assert np.all(handle.lookup(new[::5]) == -1)          # not yet visible
+    snap, ref_snap = pub.publish(), ref_pub.publish()
+    assert (snap.epoch, snap.n_refit) == (ref_snap.epoch, ref_snap.n_refit)
+    np.testing.assert_array_equal(snap.table.keys, ref_snap.table.keys)
+    np.testing.assert_array_equal(snap.table.start_key,
+                                  ref_snap.table.start_key)
+    assert not pub.dirty_segments()
+    handle.install(snap)
+    union = np.sort(np.concatenate([keys, new]))
+    left = np.searchsorted(union, q)
+    hit = union[np.minimum(left, union.shape[0] - 1)] == q
+    for backend in ("numpy", "torch-window", "torch-bisect", "cuda"):
+        np.testing.assert_array_equal(handle.lookup(q, backend),
+                                      np.where(hit, left, -1))
+    assert handle.epoch == 2
+    old_handle = ServingHandle(engine_opts={"cuda": cpu})
+    old_handle.install(old)
+    assert np.all(old_handle.lookup(new[:20]) == -1)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: the learned-index read path,
-its write path, planning and sharded serving, and RecurrentGemma-9B serving.
+its write path, planning and sharded serving, the LSM write plane and the
+async front door, and RecurrentGemma-9B serving.
 
 Run from the repository root, with no arguments:
 
@@ -59,7 +60,36 @@ the port's sources are missing.  Phases, each of which raises on failure:
    ``search`` host walls (median of 5) at the three batch sizes, device
    memory per cycle and the thresholds before and after, each with the
    card line.
-7. LM kernels vs plain: ``flash_attention`` at the local layer's prefill
+7. The LSM write plane and the async front door, on the same column, with
+   the fused kernel's launch count set to 0 before each half and read after
+   it (> 0).  The LSM: ``LsmIndexService`` (e 64, cuda, memtable 4,096,
+   fanout 4) holds the 2^23 keys as one bulk run at level 6; 63 memtable
+   fills of inserts (3/4 copies of existing keys, 1/4 uniform integers in
+   [0, 2^23]), each followed by ``publish()`` (spill + one compaction
+   step), then 4,096 deletes of existing keys, 4,096 upserts, and
+   ``compact()`` until idle.  After each step search (both sides) and
+   lookup at 2^20 queries, and point, predecessor, successor, count and
+   range at 16 of them, equal ``np.searchsorted`` on the live multiset;
+   ``memory_allocated`` stays within one generation of the live runs'
+   device forms plus ``MEM_SLACK`` after the inserts and the compactions.
+   It prints inserts a second, spills and compactions with their walls
+   (the ``lsm.spill`` / ``lsm.compaction`` channels), runs per level, read
+   amplification, and ``search`` host walls at 1, 1,000 and 2^20 beside
+   the run count.  The front door: ``AsyncIndexService`` over a one-shard
+   ``IndexService`` (e 64, dispatch on the cost model's thresholds, flush
+   threshold at its ``large_min``, deadline 2 ms, prewarmed, a
+   ``Monitor``): 16 caller threads, each making 512 requests of 1 to 64
+   queries (lookup and search on both sides, up to 16 in flight), every
+   answer checked; it prints queries a second, ``pipeline.sojourn`` p50
+   and p99, flushes by cause, the mean fused batch, and the same traffic
+   calling the service directly (plain, not a target).  Then
+   ``open_pipeline`` on a write-heavy ``FitSpec`` (e 64, 65,536 inserts a
+   second, batches of 2^20: an ``LsmIndexService`` on cuda, memtable
+   16,384): 16 fills of inserts, the first 12 compacted in the
+   foreground, then 8 reader threads run while the plan's cadence thread
+   compacts; every answer equals the oracle and at least one compaction
+   lands under the readers.
+8. LM kernels vs plain: ``flash_attention`` at the local layer's prefill
    (B 1, H 16, Hkv 1, T = S = 4096, hd 256, window 2048, bf16: the
    tensor-core kernel), then with softcap and GQA (hd 128, H 8, Hkv 4,
    T = S = 2048, f32) and non-causal (hd 64, f32), both on the CUDA-core
@@ -71,24 +101,24 @@ the port's sources are missing.  Phases, each of which raises on failure:
    ``kernels/ref.py`` ``block_rel_err`` within ``BLOCK_REL_TOL``),
    timed beside its bound and, for attention without softcap,
    ``scaled_dot_product_attention`` with the same boolean mask.
-8. Consistency: recurrentgemma-9b at full width, depth cut to one
+9. Consistency: recurrentgemma-9b at full width, depth cut to one
    (rglru, rglru, local) unit plus one rglru layer, f32 with TF32 off for
    matmul and cuDNN: B 2, prefill 2,304 tokens (past the 2,048 window) +
    16 teacher-forced decode steps == a cache-free forward, rtol = atol =
    3e-2.
-9. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
+10. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
    parameters, bf16, drawn from seed 0 on the card): the prefill step at
    B 4, T 4,096 (timed, tokens/s), then ``ContinuousBatcher`` (4 slots,
    cache 4,160) drains 8 requests with prompts of 256 to 3,072 tokens and
    16 new tokens each; every request gets its 16 tokens, all in the
    vocabulary, and the logits are finite.  The LM kernels' launch counts
    are set to 0 just before this phase and must be > 0 after it.
-10. A text line with the two redesigned kernels' earlier times, copied
+11. A text line with the two redesigned kernels' earlier times, copied
    from PERF.md and marked so, beside this run's; a ``{"kernels": [...]}``
    line (all three kernels, each with its design, every number from this
-   run; the fused search's launches are the read path's and the write
-   path's), the card line again, and last ``{"ok": true, "device":
-   {...}}``.
+   run; the fused search's launches are the read path's, the write
+   path's, the LSM's and the pipeline's), the card line again, and last
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -495,6 +525,12 @@ def device_forms(svc, dev):
     return [h.current().table._device_cache.get(dev) for h in svc.handles]
 
 
+def forms_bytes(forms) -> int:
+    """Bytes of device forms (keys and four segment fields; None skipped)."""
+    return sum(f.keys.numel() * 4 + f.seg_start.numel() * 16
+               for f in forms if f is not None)
+
+
 def check_reupload(svc, dev, before, published, what):
     """After a publish and a read: exactly the published shards hold new
     device forms; every clean shard keeps its tensors."""
@@ -669,8 +705,7 @@ def write_path(torch, dev, keys, card):
         torch.cuda.synchronize()
         gc.collect()
         mem.append(torch.cuda.memory_allocated() - mem_base)
-        gen = sum(f.keys.numel() * 4 + f.seg_start.numel() * 16
-                  for f in device_forms(svc, dev))
+        gen = forms_bytes(device_forms(svc, dev))
     rec["memory_bytes"] = mem
     rec["generation_bytes"] = gen
     print(f"memory_allocated above the phase's start after each of 4 publish "
@@ -737,6 +772,457 @@ def write_path(torch, dev, keys, card):
     gc.collect()
     return rec
 
+# ------------------------------------------------- LSM and the front door
+LSM_ERROR, LSM_MEMTABLE, LSM_FANOUT = 64, 4096, 4
+LSM_FILLS, LSM_DELETES, LSM_UPSERTS = 63, 4096, 4096
+LSM_SCALARS = 16            # probes of the scalar verbs after each step
+PIPE_CALLERS, PIPE_REQUESTS, PIPE_MAX_Q = 16, 512, 64
+PIPE_WINDOW = 16            # requests each caller keeps in flight
+PIPE_WAIT_US = 2000.0       # the coalescing deadline of the pipeline half
+OPEN_READERS = 8
+OPEN_SPEC = {"error": 64, "write_heavy": True, "insert_rate": 65_536.0,
+             "batch_sizes": (2 ** 20,), "hardware": "gpu"}
+
+
+def live_forms(svc, dev) -> int:
+    """Bytes of the LSM's live runs' device forms."""
+    return forms_bytes(r.snapshot.table._device_cache.get(dev)
+                       for r in svc.level_set.runs)
+
+
+def check_lsm(svc, live, rng, what):
+    """The vector verbs at Q_KERNEL queries and the scalar verbs at
+    LSM_SCALARS of them against np.searchsorted on the live multiset."""
+    q = make_queries(live, Q_KERNEL, rng)
+    n = live.shape[0]
+    left = np.searchsorted(live, q, "left")
+    right = np.searchsorted(live, q, "right")
+    for name, got, want in (("search left", svc.search(q, "left"), left),
+                            ("search right", svc.search(q, "right"), right),
+                            ("lookup", svc.lookup(q), left)):
+        if not np.array_equal(got, want):
+            bad = np.flatnonzero(got != want)
+            raise AssertionError(f"lsm {what} {name}: {bad.size} mismatches "
+                                 f"of {want.size}, first at {bad[:5]}")
+    if svc.n_live_keys() != n:
+        raise AssertionError(f"lsm {what}: {svc.n_live_keys()} live keys, "
+                             f"oracle {n}")
+    for i in range(LSM_SCALARS):
+        x = float(q[i])
+        lo, hi = int(left[i]), int(right[i])
+        c_hi = int(np.searchsorted(live, x + 4096, "right"))
+        got = tuple((int(p.rank), bool(p.found)) for p in (
+            svc.point(x), svc.predecessor(x), svc.successor(x))) + (
+            svc.count(x, x + 4096),)
+        r = svc.range(x, x + 4096)
+        want = ((lo if hi > lo else -1, hi > lo), (hi - 1, hi > 0),
+                (lo, lo < n), max(c_hi - lo, 0))
+        if got != want or (r.lo_rank, r.hi_rank) != (lo, max(c_hi, lo)) or \
+                not np.array_equal(r.keys, live[lo:c_hi]):
+            raise AssertionError(f"lsm {what} scalar verbs at {x}: {got} "
+                                 f"want {want}")
+    print(f"lsm, {what}: search, lookup at {Q_KERNEL} queries and point, "
+          f"predecessor, successor, count, range at {LSM_SCALARS} equal "
+          f"np.searchsorted on {n} live keys; runs per level "
+          f"{svc.level_set.runs_per_level()}", flush=True)
+
+
+def lsm_memory(torch, svc, dev, base, what, card) -> dict:
+    """memory_allocated above ``base`` against the live runs' forms."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated() - base
+    gen = live_forms(svc, dev)
+    print(f"lsm memory {what}: {mem / 2 ** 20:.3f} MiB allocated against one "
+          f"generation of the {svc.level_set.n_runs} live runs' device forms "
+          f"{gen / 2 ** 20:.3f} MiB + slack {MEM_SLACK / 2 ** 20:.0f} MiB "
+          f"[{card}]", flush=True)
+    if mem > gen + MEM_SLACK:
+        raise AssertionError(f"lsm {what}: {mem} bytes allocated against "
+                             f"{gen} + {MEM_SLACK}: a replaced run's device "
+                             f"form was kept")
+    return {"bytes": mem, "generation_bytes": gen}
+
+
+def channel_walls(mon, name: str) -> dict:
+    """Count, total and median / max wall (ms) of an lsm.* channel, whose
+    last column is the wall in ns."""
+    rows = mon.channel(name)
+    if not rows.size:
+        return {"n": 0}
+    ms = rows[:, -1] / 1e6
+    return {"n": int(rows.shape[0]), "total_ms": float(ms.sum()),
+            "median_ms": float(np.median(ms)), "max_ms": float(ms.max())}
+
+
+def lsm_breakdown(svc, live, rng) -> dict:
+    """Where one search(left) of Q_KERNEL queries goes (host wall, median
+    of 5 after one warm-up): the whole fan-in, each live run's engine call
+    on the whole batch (host arrays in and out, as the fan-in makes them),
+    and the runs' shadow corrections (host searchsorted into the newer
+    runs' tombstones); the rest is the memtable and the sums."""
+    q = make_queries(live, Q_KERNEL, rng)
+    runs = svc.level_set.runs
+    engines = [r.handle.engine(svc.default_backend) for r in runs]
+
+    def median_wall(fn):
+        fn()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(walls))
+
+    out = {"runs": len(runs),
+           "shadow_keys": [int(r.shadow_keys.size) for r in runs],
+           "search_ms": median_wall(lambda: svc.search(q, "left")),
+           "engines_ms": median_wall(
+               lambda: [e.search(q, "left") for e in engines]),
+           "shadows_ms": median_wall(
+               lambda: [r.shadow_cum[np.searchsorted(r.shadow_keys, q)]
+                        for r in runs if r.shadow_keys.size])}
+    out["rest_ms"] = out["search_ms"] - out["engines_ms"] - out["shadows_ms"]
+    return out
+
+
+def lsm_phase(torch, dev, keys, card):
+    """Phase 7a: the LSM write plane on the card (module docstring)."""
+    import gc
+    from repro_torch.index import LsmIndexService
+    from repro_torch.index.telemetry import CH_COMPACT, CH_SPILL, Monitor
+    rng = np.random.default_rng(SEED + 6)
+    tag = f"[{card}]"
+    rec = {}
+    mon = Monitor(capacity=16_384)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    svc = LsmIndexService(keys, error=LSM_ERROR, backend="cuda",
+                          memtable_capacity=LSM_MEMTABLE,
+                          level_fanout=LSM_FANOUT, monitor=mon,
+                          assume_sorted=True)
+    rec["build_s"] = time.perf_counter() - t0
+    if svc.level_set.run_levels() != (6,):
+        raise AssertionError(f"the bulk run sits at levels "
+                             f"{svc.level_set.run_levels()}, not level 6")
+    print(f"lsm: {N_KEYS} keys in one bulk run at level 6, e {LSM_ERROR}, "
+          f"memtable {LSM_MEMTABLE}, fanout {LSM_FANOUT}, backend "
+          f"{svc.default_backend} ({rec['build_s']:.1f} s)", flush=True)
+
+    ins = make_inserts(keys, LSM_FILLS * LSM_MEMTABLE, rng)
+    t0 = time.perf_counter()
+    for i in range(LSM_FILLS):
+        svc.insert_many(ins[i * LSM_MEMTABLE:(i + 1) * LSM_MEMTABLE])
+        svc.publish()                      # spill + one compaction step
+    wall = time.perf_counter() - t0
+    rec["inserts_per_s"] = ins.shape[0] / wall
+    rec["ingest_s"] = wall
+    live = np.sort(np.concatenate([keys, ins]))
+    rec["runs_after_ingest"] = svc.level_set.runs_per_level()
+    rec["search_ms_after_ingest"] = search_walls(svc, live, rng)
+    rec["runs_at_walls_after_ingest"] = svc.level_set.n_runs
+    rec["breakdown_after_ingest"] = lsm_breakdown(svc, live, rng)
+    check_lsm(svc, live, rng, f"after {ins.shape[0]} inserts")
+    rec["memory_after_ingest"] = lsm_memory(torch, svc, dev, base,
+                                            "after the inserts", card)
+    print(f"lsm ingest: {ins.shape[0]} inserts in {LSM_FILLS} fills, each "
+          f"followed by publish(): {rec['inserts_per_s']:.0f} inserts a "
+          f"second ({wall:.2f} s, spills and compactions included) {tag}",
+          flush=True)
+
+    dels = rng.choice(np.unique(live), LSM_DELETES, replace=False)
+    for k in dels:
+        svc.delete(float(k))
+    live = live[~np.isin(live, dels)]
+    check_lsm(svc, live, rng, f"after {LSM_DELETES} deletes")
+    ups = np.where(rng.random(LSM_UPSERTS) < 0.75,
+                   live[rng.integers(0, live.shape[0], LSM_UPSERTS)],
+                   rng.integers(0, 2 ** 23, LSM_UPSERTS, endpoint=True)
+                   .astype(np.float64))
+    for k in ups:
+        svc.upsert(float(k))
+    live = np.sort(np.concatenate([live[~np.isin(live, ups)],
+                                   np.unique(ups)]))
+    check_lsm(svc, live, rng, f"after {LSM_UPSERTS} upserts")
+
+    svc.spill()
+    t0 = time.perf_counter()
+    merged = 0
+    while (step := svc.compact(max_steps=4)):
+        merged += step
+    rec["final_compaction"] = {"runs_merged": merged,
+                               "ms": (time.perf_counter() - t0) * 1e3}
+    check_lsm(svc, live, rng, "compacted")
+    rec["memory_after_compaction"] = lsm_memory(torch, svc, dev, base,
+                                                "after the compactions", card)
+    m = svc.metrics().lsm
+    rec.update(spills=m.spills, compactions=m.compactions,
+               runs_per_level=m.run_counts, keys_per_level=m.run_keys,
+               read_amplification=m.read_amplification,
+               spill_walls=channel_walls(mon, CH_SPILL),
+               compaction_walls=channel_walls(mon, CH_COMPACT))
+    rec["search_ms"] = search_walls(svc, live, rng)
+    rec["runs_at_walls"] = svc.level_set.n_runs
+    rec["breakdown"] = lsm_breakdown(svc, live, rng)
+    print(f"lsm: {m.spills} spills (lsm.spill: {rec['spill_walls']}), "
+          f"{m.compactions} compactions (lsm.compaction: "
+          f"{rec['compaction_walls']}); runs per level {m.run_counts}, keys "
+          f"per level {m.run_keys}; read amplification (sampled fan-in) "
+          f"{m.read_amplification:.2f} {tag}", flush=True)
+    print(f"lsm search(left) host wall, median of 5, ms at batches "
+          f"{list(PLAN_BATCHES)}: {rec['runs_at_walls_after_ingest']} runs "
+          f"after the inserts {rec['search_ms_after_ingest']}, "
+          f"{rec['runs_at_walls']} runs compacted {rec['search_ms']} {tag}",
+          flush=True)
+    for what, b in (("after the inserts", rec["breakdown_after_ingest"]),
+                    ("compacted", rec["breakdown"])):
+        print(f"lsm breakdown of search(left) at {Q_KERNEL}, {what}, "
+              f"{b['runs']} runs: {b['search_ms']:.3f} ms host wall; the "
+              f"{b['runs']} engine calls {b['engines_ms']:.3f} ms; the "
+              f"shadow corrections {b['shadows_ms']:.3f} ms (shadow keys "
+              f"per run {b['shadow_keys']}); the rest {b['rest_ms']:.3f} ms "
+              f"{tag}", flush=True)
+    del svc
+    gc.collect()
+    return rec
+
+
+def make_traffic(keys, rng):
+    """PIPE_CALLERS lists of PIPE_REQUESTS (verb, queries, answer): 1 to
+    PIPE_MAX_Q queries of the smoke's mix, lookup or search on either side,
+    answers from np.searchsorted."""
+    n = keys.shape[0]
+    traffic = []
+    for _ in range(PIPE_CALLERS):
+        reqs = []
+        for _ in range(PIPE_REQUESTS):
+            q = make_queries(keys, int(rng.integers(1, PIPE_MAX_Q + 1)), rng)
+            verb = ("lookup", "left", "right")[int(rng.integers(3))]
+            left = np.searchsorted(keys, q, "left")
+            if verb == "lookup":
+                hit = (left < n) & (keys[np.minimum(left, n - 1)] == q)
+                want = np.where(hit, left, -1)
+            else:
+                want = np.searchsorted(keys, q, verb)
+            reqs.append((verb, q, want))
+        traffic.append(reqs)
+    return traffic
+
+
+def run_callers(traffic, call):
+    """One thread per caller list; ``call(verb, q)`` returns the answer or
+    a Future.  Returns (wall s, failures)."""
+    import threading
+    from collections import deque
+    failures = []
+    barrier = threading.Barrier(len(traffic))
+
+    def caller(reqs):
+        pending = deque()
+
+        def settle():
+            got, want = pending.popleft()
+            got = got.result(120.0) if hasattr(got, "result") else got
+            if not np.array_equal(got, want):
+                failures.append((got, want))
+
+        try:
+            barrier.wait(120.0)
+            for verb, q, want in reqs:
+                pending.append((call(verb, q), want))
+                if len(pending) >= PIPE_WINDOW:
+                    settle()
+            while pending:
+                settle()
+        except Exception as exc:    # reported below, the phase fails
+            failures.append(exc)
+
+    threads = [threading.Thread(target=caller, args=(r,)) for r in traffic]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600.0)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a caller thread did not finish in 600 s")
+    return wall, failures
+
+
+def pipeline_phase(torch, dev, keys, card):
+    """Phase 7b: the async front door on the card (module docstring)."""
+    import gc
+    import threading
+    from repro_torch.index.fit import FitSpec
+    from repro_torch.index.telemetry import CH_SOJOURN, CH_TIER_PREFIX, \
+        Monitor
+    from repro_torch.kernels.fitting_lookup import fitting_search_cuda
+    from repro_torch.serve import AsyncIndexService, IndexService, \
+        open_pipeline
+    rng = np.random.default_rng(SEED + 7)
+    tag = f"[{card}]"
+    rec = {}
+    traffic = make_traffic(keys, rng)
+    n_q = sum(r[1].shape[0] for reqs in traffic for r in reqs)
+
+    # 1. coalescing over a one-shard dispatch service
+    mon = Monitor(capacity=4 * PIPE_CALLERS * PIPE_REQUESTS)
+    one = IndexService(keys, error=WRITE_ERROR, backend="dispatch",
+                       monitor=mon, assume_sorted=True)
+    eng = one.handle.engine("dispatch")
+    t0 = time.perf_counter()
+    pipe = AsyncIndexService(one, flush_threshold=eng.large_min,
+                             max_wait_us=PIPE_WAIT_US, prewarm=True)
+    rec["prewarm_s"] = time.perf_counter() - t0
+    rec["prewarm_launches"] = fitting_search_cuda.launches
+
+    def submit(verb, q):
+        if verb == "lookup":
+            return pipe.lookup_async(q, timeout=120.0)
+        return pipe.search_async(q, verb, timeout=120.0)
+
+    with pipe:
+        wall, failures = run_callers(traffic, submit)
+        pm = pipe.metrics().pipeline
+    if failures:
+        raise AssertionError(f"pipeline: {len(failures)} wrong or failed "
+                             f"answers, first {failures[0]!r:.300}")
+    rec["traffic_launches"] = fitting_search_cuda.launches - \
+        rec["prewarm_launches"]
+    soj = mon.channel(CH_SOJOURN)[:, 0] / 1e6
+    tiers = {}
+    for tier in ("small", "medium", "large"):
+        rows = mon.channel(CH_TIER_PREFIX + tier)
+        if rows.size:
+            tiers[tier] = {"calls": int(rows.shape[0]),
+                           "median_batch": float(np.median(rows[:, 0])),
+                           "median_ms": float(np.median(rows[:, 1])) / 1e6}
+    rec["fused_calls_by_tier"] = tiers
+    rec.update(queries=n_q, requests=PIPE_CALLERS * PIPE_REQUESTS,
+               queries_per_s=n_q / wall, wall_s=wall,
+               sojourn_ms={"n": int(soj.size),
+                           "p50": float(np.percentile(soj, 50)),
+                           "p99": float(np.percentile(soj, 99))},
+               flushes={"threshold": pm.threshold_flushes,
+                        "deadline": pm.deadline_flushes,
+                        "drain": pm.drain_flushes,
+                        "inline": pm.inline_batches,
+                        "fused_calls": pm.flushes},
+               mean_fused_batch=pm.coalesced_queries / max(pm.flushes, 1),
+               max_fused_batch=pm.max_fused_batch,
+               thresholds={"small_max": eng.small_max,
+                           "large_min": eng.large_min})
+
+    def direct(verb, q):
+        if verb == "lookup":
+            return one.lookup(q)
+        return one.search(q, verb)
+
+    d_wall, failures = run_callers(traffic, direct)
+    if failures:
+        raise AssertionError(f"direct calls: {len(failures)} wrong answers")
+    rec["direct_queries_per_s"] = n_q / d_wall
+    print(f"pipeline: {PIPE_CALLERS} callers x {PIPE_REQUESTS} requests of 1 "
+          f"to {PIPE_MAX_Q} queries ({n_q} queries, up to {PIPE_WINDOW} in "
+          f"flight each), every answer equal; flush threshold "
+          f"{eng.large_min} (dispatch: numpy <= {eng.small_max}), deadline "
+          f"{PIPE_WAIT_US:.0f} us: {rec['queries_per_s']:.0f} queries a "
+          f"second; sojourn p50 {rec['sojourn_ms']['p50']:.3f} ms, p99 "
+          f"{rec['sojourn_ms']['p99']:.3f} ms; flushes {rec['flushes']}, mean "
+          f"fused batch {rec['mean_fused_batch']:.1f} (max "
+          f"{pm.max_fused_batch}); fused calls by dispatch tier "
+          f"{rec['fused_calls_by_tier']}; fused launches: prewarm "
+          f"{rec['prewarm_launches']}, traffic {rec['traffic_launches']}; "
+          f"the same traffic calling the service directly (plain, not a "
+          f"target) {rec['direct_queries_per_s']:.0f} queries a second "
+          f"{tag}", flush=True)
+    del pipe, one, eng
+    gc.collect()
+
+    # 2. open_pipeline on a write-heavy spec: the cadence compacts under
+    # concurrent readers
+    t0 = time.perf_counter()
+    pipe = open_pipeline(keys, FitSpec(**OPEN_SPEC), assume_sorted=True,
+                         monitor=Monitor())
+    svc = pipe.service
+    rec["open_s"] = time.perf_counter() - t0
+    cap = svc.memtable_capacity
+    with pipe:
+        ins = make_inserts(keys, 16 * cap, rng)
+        for i in range(3):         # three L1 runs, merged in the foreground
+            svc.insert_many(ins[4 * i * cap:4 * (i + 1) * cap])
+            svc.publish()
+        svc.insert_many(ins[12 * cap:])  # four more fills, the last unspilled
+        live = np.sort(np.concatenate([keys, ins]))
+        stop = threading.Event()
+        answers, failures = [], []
+
+        def reader(seed):
+            r = np.random.default_rng(seed)
+            try:
+                while not stop.is_set():
+                    q = make_queries(live, int(r.integers(1, PIPE_MAX_Q + 1)),
+                                     r)
+                    verb = ("lookup", "left", "right")[int(r.integers(3))]
+                    # the LSM's lookup is its leftmost live rank
+                    got = (pipe.lookup(q, 120.0) if verb == "lookup"
+                           else pipe.search(q, verb, 120.0))
+                    side = "right" if verb == "right" else "left"
+                    if not np.array_equal(got, np.searchsorted(live, q,
+                                                               side)):
+                        failures.append(q)
+                    answers.append(q.shape[0])
+            except Exception as exc:    # reported below, the phase fails
+                failures.append(exc)
+
+        c0 = svc.metrics().lsm.compactions
+        readers = [threading.Thread(target=reader, args=(SEED + 100 + i,))
+                   for i in range(OPEN_READERS)]
+        t0 = time.perf_counter()
+        for t in readers:
+            t.start()
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and \
+                svc.metrics().lsm.compactions < c0 + 2:
+            time.sleep(0.05)
+        stop.set()
+        for t in readers:
+            t.join(120.0)
+        read_s = time.perf_counter() - t0
+        if any(t.is_alive() for t in readers):
+            raise AssertionError("an open_pipeline reader did not finish")
+        m = pipe.metrics()
+    landed = m.lsm.compactions - c0
+    if failures:
+        raise AssertionError(f"open_pipeline readers: {len(failures)} wrong "
+                             f"or failed answers, first "
+                             f"{failures[0]!r:.300}")
+    if landed < 1:
+        raise AssertionError("no compaction landed while the readers ran")
+    rec["open_pipeline"] = {
+        "backend": svc.default_backend, "memtable": cap,
+        "fanout": svc.level_fanout,
+        "publish_interval_s": pipe.publish_interval_s,
+        "flush_threshold": pipe.flush_threshold, "inserts": ins.shape[0],
+        "compactions_under_readers": landed,
+        "cadence_runs_merged": m.pipeline.compactions,
+        "maintenance_ticks": m.pipeline.maintenance_ticks,
+        "reads": len(answers), "read_queries": int(sum(answers)),
+        "read_s": read_s, "runs_per_level": m.lsm.run_counts}
+    print(f"open_pipeline (write-heavy spec {OPEN_SPEC}): LsmIndexService on "
+          f"{svc.default_backend}, memtable {cap}, fanout "
+          f"{svc.level_fanout}, cadence {pipe.publish_interval_s} s; "
+          f"{ins.shape[0]} inserts, then {OPEN_READERS} readers made "
+          f"{len(answers)} requests in {read_s:.2f} s, every answer equal, "
+          f"while {landed} compactions landed (the cadence merged "
+          f"{m.pipeline.compactions} runs in {m.pipeline.maintenance_ticks} "
+          f"ticks); runs per "
+          f"level {m.lsm.run_counts} {tag}", flush=True)
+    del pipe, svc
+    gc.collect()
+    return rec
+
 # ------------------------------------------------------------ LM serving
 ARCH = "recurrentgemma-9b"
 BF16_OPS = 989e12          # H100 SXM dense bf16/fp16 tensor-core op/s
@@ -762,18 +1248,18 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
 # reference's scan tolerance, the most a reordering could cost.
 RGLRU_SHAPE = (4, 4096, 4096)
 RGLRU_RTOL = 1e-5
-# Phase 8: full width, depth cut to one unit + one tail layer, f32.
+# Phase 9: full width, depth cut to one unit + one tail layer, f32.
 CONSIST_STACKS = ((("rglru", "rglru", "local"), 1), (("rglru",), 1))
 CONSIST_B, CONSIST_T_PRE, CONSIST_T_DEC = 2, 2304, 16
 CONSIST_TOL = 3e-2         # rtol = atol, tests/test_multistep_decode.py
-# Phase 9: full width and depth, bf16.
+# Phase 10: full width and depth, bf16.
 PREFILL_B, PREFILL_T = 4, 4096
 N_SLOTS, CACHE_LEN, N_REQUESTS, MAX_NEW = 4, 4160, 8, 16
 PROMPT_LENS = (256, 3072)
 
 
 def flash_vs_plain(torch, dev):
-    """Phase 7: the flash kernel against its twin and SDPA."""
+    """Phase 8: the flash kernel against its twin and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_torch,
@@ -841,7 +1327,7 @@ def flash_vs_plain(torch, dev):
 
 
 def rglru_vs_plain(torch, dev):
-    """Phase 7: the RG-LRU scan kernel against its twin."""
+    """Phase 8: the RG-LRU scan kernel against its twin."""
     from repro_torch.kernels.rglru_scan import (rglru_scan_cuda,
                                                 rglru_scan_torch)
     b, t, w = RGLRU_SHAPE
@@ -878,7 +1364,7 @@ def rglru_vs_plain(torch, dev):
 
 
 def lm_consistency(torch, dev):
-    """Phase 8: teacher-forced prefill + decode == a cache-free forward,
+    """Phase 9: teacher-forced prefill + decode == a cache-free forward,
     at full width in f32, depth cut to CONSIST_STACKS."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -978,7 +1464,7 @@ def print_breakdown(label: str, parts: dict) -> None:
 
 
 def lm_serving(torch, dev):
-    """Phase 9: full width and depth in bf16: the prefill step, then the
+    """Phase 10: full width and depth in bf16: the prefill step, then the
     continuous batcher draining N_REQUESTS requests."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1172,6 +1658,25 @@ def main() -> int:
     if write_launches <= 0:
         raise AssertionError("the write path never launched fitting_search")
 
+    fitting_search_cuda.launches = 0
+    t0 = time.perf_counter()
+    lsm = lsm_phase(torch, dev, keys, card)
+    lsm_launches = fitting_search_cuda.launches
+    lsm["s"] = time.perf_counter() - t0
+    print(f"lsm: {lsm_launches} fused kernel launches ({lsm['s']:.1f} s) "
+          f"[{card}]", flush=True)
+    if lsm_launches <= 0:
+        raise AssertionError("the LSM never launched fitting_search")
+    fitting_search_cuda.launches = 0
+    t0 = time.perf_counter()
+    pipeline = pipeline_phase(torch, dev, keys, card)
+    pipe_launches = fitting_search_cuda.launches
+    pipeline["s"] = time.perf_counter() - t0
+    print(f"pipeline: {pipe_launches} fused kernel launches "
+          f"({pipeline['s']:.1f} s) [{card}]", flush=True)
+    if pipe_launches <= 0:
+        raise AssertionError("the pipeline never launched fitting_search")
+
     flash_cases = flash_vs_plain(torch, dev)
     rglru_case = rglru_vs_plain(torch, dev)
     lm_consistency(torch, dev)
@@ -1189,9 +1694,11 @@ def main() -> int:
         "design": "fused route + predict + window + snap in one launch, "
                   "a thread a query, the window bisected a 32-byte sector "
                   "at a time",
-        "launches": launches + write_launches,
+        "launches": launches + write_launches + lsm_launches
+        + pipe_launches,
         "launches_by_path": {"read path": launches,
-                             "write path": write_launches},
+                             "write path": write_launches,
+                             "lsm": lsm_launches, "pipeline": pipe_launches},
         "max_abs_err": max(
             c["max_abs_err"] for c in fused + cases),
         "equal": all(c["max_abs_err"] == 0 for c in fused) and all(
@@ -1230,6 +1737,7 @@ def main() -> int:
         "headline": {k: rglru_case[k] for k in ("b", "t", "w")},
     }]
     print(json.dumps({"write_path": writes}))
+    print(json.dumps({"lsm": lsm, "pipeline": pipeline}))
     print(json.dumps({"serving": serving}))
     print("earlier designs at the headline shapes, copied from PERF.md §6 "
           "(H100 80GB HBM3 at 700 W), not measured in this run: "

@@ -26,12 +26,19 @@ def hot_path(fn: F) -> F:
 # acquire locks j > i.  Names are ``ClassName.attr``, as passed to
 # ``sanitizer.make_lock``, in the reference's relative order.
 LOCK_ORDER = (
+    "Compactor._lock",                   # one merge in flight (outermost:
+                                         # the merge swaps manifests under
+                                         # the LSM write lock)
     "ShardedIndexService._write_lock",   # writer serialisation
+    "LsmIndexService._write_lock",       # LSM writer / manifest swap
+    "AsyncIndexService._lock",           # pipeline queue state
+    "Memtable._lock",                    # memtable mutate / view build
     "ServingHandle._lock",               # lazy per-snapshot engine build
     "DispatchEngine._lock",              # lazy tier-engine build
     "Monitor._make_lock",                # channel-ring creation
     "JSONLBackend._io_lock",             # telemetry sink flush
-    "ShardedIndexService._counts_lock",  # verb counters (innermost)
+    "ShardedIndexService._counts_lock",  # verb counters
+    "LsmIndexService._counts_lock",      # LSM verb counters (innermost)
 )
 
 LOCK_RANK = {name: i for i, name in enumerate(LOCK_ORDER)}

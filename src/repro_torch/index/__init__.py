@@ -18,6 +18,10 @@ Module map:
                  per-shard epoch streams; ``pack_shard_tables``
   fit.py      -- ``FitSpec`` -> ``plan()`` -> ``IndexPlan`` -> ``open_index``:
                  the Sec. 6 cost model resolving SLOs into every knob above
+  lsm.py      -- ``LsmIndexService``: memtable -> learned runs -> size-tiered
+                 ``Compactor``, one atomic ``LevelSet`` manifest, fan-in reads
+  pipeline.py -- ``AsyncIndexService`` / ``open_pipeline``: the coalescing
+                 front door and the publish / compaction cadence
   telemetry.py - ``Monitor``, the typed ``ServiceMetrics`` tree, and
                  ``Replanner`` (measure -> re-fit -> re-plan, hot-swapped)
 
@@ -42,6 +46,10 @@ _SHARDED_NAMES = {"PackedShardTables", "ShardSet", "ShardStats",
                   "ShardedIndexService", "pack_shard_tables"}
 _FIT_NAMES = {"FitSpec", "IndexPlan", "InfeasibleSpecError", "PlanCandidate",
               "open_index", "plan"}
+_LSM_NAMES = {"Compactor", "LevelSet", "LsmIndexService", "MemView",
+              "Memtable", "MemtableFullError", "Run"}
+_PIPELINE_NAMES = {"AsyncIndexService", "PipelineClosed",
+                   "PipelineOverloaded", "open_pipeline"}
 _TELEMETRY_NAMES = {"DeviceMetrics", "JSONLBackend", "LsmMetrics",
                     "MemoryBackend", "MetricsSnapshot", "Monitor",
                     "PipelineMetrics", "Replanner", "ServiceMetrics",
@@ -53,7 +61,8 @@ __all__ = [
     "merge_sorted_sources", "numpy_lookup", "numpy_search", "route_keys",
     "shard_boundaries", "shard_cut_indices", "shard_partition",
     *sorted(_ENGINE_NAMES), *sorted(_SNAPSHOT_NAMES), *sorted(_SHARDED_NAMES),
-    *sorted(_FIT_NAMES), *sorted(_TELEMETRY_NAMES),
+    *sorted(_FIT_NAMES), *sorted(_LSM_NAMES), *sorted(_PIPELINE_NAMES),
+    *sorted(_TELEMETRY_NAMES),
 ]
 
 
@@ -70,6 +79,12 @@ def __getattr__(name):
     if name in _FIT_NAMES:
         from . import fit
         return getattr(fit, name)
+    if name in _LSM_NAMES:
+        from . import lsm
+        return getattr(lsm, name)
+    if name in _PIPELINE_NAMES:
+        from . import pipeline
+        return getattr(pipeline, name)
     if name in _TELEMETRY_NAMES:
         from . import telemetry
         return getattr(telemetry, name)

@@ -42,8 +42,8 @@ port: the reference's ``pallas`` is ``cuda`` and ``xla-bisect`` is
 ``torch-bisect``; ``FitSpec.from_json`` / ``IndexPlan.from_json`` map them when
 they read the reference's JSON.  Raw-knob plans default to the ``cuda``
 backend, so services serve on the card unless told otherwise.  Of the plans
-``open_index`` builds, the LSM write plane and the device plane are not
-ported yet and raise ``NotImplementedError``.
+``open_index`` builds, the device plane is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -72,11 +72,6 @@ DEFAULT_CANDIDATE_ERRORS: tuple[int, ...] = (
 _SHARD_TARGET_KEYS = 2_000_000       # per-shard publish stays tens of ms
 _SHARD_TARGET_INSERTS_PER_S = 50_000  # one writer absorbs this much traffic
 _MAX_PLANNED_SHARDS = 64
-
-# The async pipeline's defaults (``repro.index.pipeline``), which a plan
-# records as its flush knobs.
-DEFAULT_MAX_WAIT_US = 200.0        # trickle traffic flushes 5000x/s
-DEFAULT_QUEUE_DEPTH_FLUSHES = 8    # queue_depth = 8 flushes of headroom
 
 # The reference's backend names -> the port's (JSON read from ``repro``).
 _PORT_BACKENDS = {"pallas": "cuda", "xla-bisect": "torch-bisect",
@@ -125,7 +120,7 @@ class FitSpec:
       (independent per-shard epoch streams absorb write traffic) and the
       auto-publish cadence.
     * ``write_heavy`` -- tri-state write-mode override.  ``True`` plans the
-      LSM tiered write path (``repro.index.lsm``, not ported: memtable ->
+      LSM tiered write path (``repro_torch.index.lsm``: memtable ->
       learned runs -> background compaction) regardless of the buffer math;
       ``False`` pins the paper's in-place Alg. 4 buffer path (and an error=1
       plan under inserts stays a loud failure); ``None`` (default) lets the planner
@@ -344,14 +339,13 @@ class IndexPlan:
     publish_every: int | None = None
     # write mode: "inplace" is the paper's Alg. 4 per-tree delta buffer;
     # "lsm" routes writes through the tiered memtable -> learned-run ->
-    # compaction plane (repro.index.lsm; not ported), sized by the two
+    # compaction plane (repro_torch.index.lsm), sized by the two
     # knobs below.
     write_mode: str = "inplace"
     memtable_capacity: int | None = None
     level_fanout: int | None = None
-    # async-pipeline knobs (repro.index.pipeline.AsyncIndexService; not
-    # ported): fuse
-    # queued queries once flush_threshold of them are waiting (the planner
+    # async-pipeline knobs (repro_torch.index.pipeline.AsyncIndexService):
+    # fuse queued queries once flush_threshold of them are waiting (the planner
     # sets it to the large-tier dispatch crossing, so fused batches ride the
     # fast tier), flush a partial batch after max_wait_us, and bound the
     # request queue at queue_depth queries.  None = derive at pipeline build.
@@ -838,7 +832,8 @@ def plan(keys, spec: FitSpec, *, assume_sorted: bool = False) -> IndexPlan:
         publish_every = int(min(max(spec.insert_rate, 64), 65_536))
     # async-pipeline knobs: fuse once a flush earns the large (fused) tier,
     # bound the wait for a partial batch, and give the queue a few flushes of
-    # headroom (see repro.index.pipeline for the serving semantics)
+    # headroom (see repro_torch.index.pipeline for the serving semantics)
+    from .pipeline import DEFAULT_MAX_WAIT_US, DEFAULT_QUEUE_DEPTH_FLUSHES
     flush_threshold = int(large_min)
     max_wait_us = DEFAULT_MAX_WAIT_US
     queue_depth = DEFAULT_QUEUE_DEPTH_FLUSHES * flush_threshold
@@ -867,12 +862,12 @@ def open_index(keys, spec_or_plan: "FitSpec | IndexPlan", *,
                payload: np.ndarray | None = None, **service_kwargs):
     """The single SLO-driven entry point: plan (if needed) and build.
 
-    Returns an ``IndexService`` for a one-shard plan, else a
-    ``ShardedIndexService`` -- both ready for the full insert -> publish ->
-    lookup cycle with no raw knob supplied by the caller, serving on the
-    backend the plan chose (on the CUDA card for the device backends).  A
-    ``backend="device"`` plan and a ``write_mode="lsm"`` plan raise
-    ``NotImplementedError``: those services are not ported yet.  Extra
+    Returns an ``LsmIndexService`` for a ``write_mode="lsm"`` plan, an
+    ``IndexService`` for a one-shard plan, else a ``ShardedIndexService`` --
+    all ready for the full insert -> publish -> lookup cycle with no raw
+    knob supplied by the caller, serving on the backend the plan chose (on
+    the CUDA card for the device backends).  A ``backend="device"`` plan
+    raises ``NotImplementedError``: that service is not ported yet.  Extra
     ``service_kwargs`` (e.g. ``skew_threshold``, ``auto_rebalance``,
     ``mode``) pass through to the service constructor.
     """
@@ -900,9 +895,9 @@ def open_index(keys, spec_or_plan: "FitSpec | IndexPlan", *,
             "a device plan serves from the device-sharded plane, which the "
             "port does not have yet (ROADMAP queue A, slice 7)")
     if resolved.write_mode == "lsm":
-        raise NotImplementedError(
-            "an lsm plan serves from the LSM write plane, which the port "
-            "does not have yet (ROADMAP queue A, slice 6)")
+        from .lsm import LsmIndexService
+        return LsmIndexService.from_plan(keys, resolved, payload=payload,
+                                         **service_kwargs)
     if resolved.n_shards > 1:
         from .sharded import ShardedIndexService
         return ShardedIndexService.from_plan(keys, resolved, payload=payload,

@@ -25,13 +25,16 @@ and what its design does about it):
   :func:`fitting_lookup_window` picks by device.
 
 Each CUDA entry counts its launches (``fitting_search_cuda.launches``,
-``fitting_lookup_cuda.launches``).  The twins serve CPU tensors only: for a
+``fitting_lookup_cuda.launches``), under a lock, since serving threads
+launch concurrently; a caller reads a count or sets it to 0.  The twins
+serve CPU tensors only: for a
 CUDA tensor the dispatchers launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -42,6 +45,13 @@ from . import _build
 
 _i64 = ctypes.c_int64
 _ptr = ctypes.c_void_p
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(fn) -> None:
+    """Add one to ``fn.launches``: a read-modify-write, so under a lock."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 @functools.cache
@@ -125,7 +135,7 @@ def fitting_lookup_cuda(keys: torch.Tensor, queries: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fitting_lookup kernel launch failed: CUDA error "
                            f"{err}")
-    fitting_lookup_cuda.launches += 1
+    _count_launch(fitting_lookup_cuda)
     return rank, found
 
 
@@ -227,7 +237,7 @@ def fitting_search_cuda(seg_start: torch.Tensor, slope: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fitting_search kernel launch failed: CUDA error "
                            f"{err}")
-    fitting_search_cuda.launches += 1
+    _count_launch(fitting_search_cuda)
     return out
 
 

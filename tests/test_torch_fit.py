@@ -5,8 +5,9 @@ plan, field by field and to tolerance 0: the port's backend names map to the
 reference's (``cuda`` = ``pallas``, ``torch-bisect`` = ``xla-bisect``) and its
 device profile is given the reference TPU profile's numbers (as test input;
 ``hardware="gpu"`` stands for ``"tpu"``).  The port's ``open_index`` builds
-its own services (on the CPU here), raises for the planes not ported yet, and
-the reference's JSON loads.
+its own services (on the CPU here; an lsm plan its ``LsmIndexService``),
+raises for the device plane, which is not ported yet, and the reference's
+JSON loads.
 """
 import dataclasses
 import json
@@ -18,7 +19,7 @@ from repro.core.cost_model import TPUCostParams
 from repro.core.datasets import lognormal_keys, uniform_keys
 from repro.index import fit as ref
 from repro_torch.core.cost_model import GPUCostParams
-from repro_torch.index import fit
+from repro_torch.index import LsmIndexService, fit
 from repro_torch.serve import IndexService, ShardedIndexService
 
 CANDS = (8, 32, 128, 512, 2048)
@@ -167,12 +168,38 @@ def test_open_index_builds_the_ported_services():
 
 
 def test_lsm_and_device_plans_raise_not_implemented():
-    keys = uniform_keys(5_000, seed=13)
-    lsm = fit.plan(keys, fit.FitSpec(error=64, write_heavy=True,
-                                     candidate_errors=CANDS))
-    assert lsm.write_mode == "lsm"
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        fit.open_index(keys, lsm)
+    """An lsm plan now opens the port's ``LsmIndexService``, equal to the
+    reference's on the same plan (its manifest and every write's answers);
+    only a device plan still raises."""
+    rng = np.random.default_rng(13)
+    keys = np.sort(rng.choice(2 ** 22, size=5_000,
+                              replace=False)).astype(np.float64)
+    spec = dict(error=64, write_heavy=True, candidate_errors=CANDS,
+                insert_rate=6_000.0)
+    lsm = fit.plan(keys, fit.FitSpec(**spec))
+    ref_lsm = ref.plan(keys, ref.FitSpec(**spec))
+    assert lsm.write_mode == ref_lsm.write_mode == "lsm"
+    ours = fit.open_index(keys, lsm, engine_opts=ON_CPU)
+    theirs = ref.open_index(keys, ref_lsm)
+    assert isinstance(ours, LsmIndexService) and ours.plan is lsm
+    assert (ours.memtable_capacity, ours.level_fanout, ours.error) == \
+        (theirs.memtable_capacity, theirs.level_fanout, theirs.error) == \
+        (1500, 4, 64)
+    assert ours.default_backend == theirs.default_backend == "dispatch"
+    new = np.floor(rng.uniform(0, keys[-1], 4 * 1500 + 7))
+    for svc in (ours, theirs):
+        svc.insert_many(new)
+        svc.delete(float(new[3]))
+        svc.publish()
+    assert ours.level_set.runs_per_level() == \
+        theirs.level_set.runs_per_level()
+    live = np.sort(np.concatenate([keys, new[new != new[3]]]))
+    q = np.concatenate([keys[::53], new[::11], [-1.0, keys[-1] + 1]])
+    for side in ("left", "right"):
+        np.testing.assert_array_equal(ours.search(q, side),
+                                      theirs.search(q, side))
+        np.testing.assert_array_equal(ours.search(q, side),
+                                      np.searchsorted(live, q, side))
     dev = fit.plan(keys, fit.FitSpec(error=64, device_count=2,
                                      candidate_errors=CANDS))
     assert dev.backend == "device"

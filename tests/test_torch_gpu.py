@@ -11,7 +11,9 @@ lookup kernels (the window search alone and the fused search) and the
 integers and every compare is f32 on both sides.
 The RG-LRU scan to tolerance 0 as well (see its test); flash attention to
 the reference's tolerances (stated at ``FLASH_TOL``).  The sharded write
-path on the card to its own host ``numpy`` backend, to tolerance 0.
+path and the LSM on the card to their own host ``numpy`` backend (and the
+LSM to ``np.searchsorted`` on its live multiset), to tolerance 0; the async
+front door to ``np.searchsorted``, launching the fused kernel.
 """
 import numpy as np
 import pytest
@@ -358,3 +360,85 @@ def test_index_service_dispatch_and_calibration_on_the_card(cuda_device):
     assert 0 <= eng.small_max < eng.large_min
     cpu, gpu = calibrate_device(keys, device=cuda_device)
     assert cpu.c_ns > 0 and gpu.setup_ns > 0 and gpu.hbm_gbps > 0
+
+
+# ------------------------------------------ LSM and the front door on the card
+@pytest.mark.gpu
+def test_lsm_on_the_card_matches_its_numpy_backend_and_the_oracle(
+        cuda_device):
+    """Spills, deletes, upserts and a compaction on the cuda backend: every
+    run's device form lives on the card, each verb gives the host numpy
+    backend's answer and ``np.searchsorted`` on the live multiset, and each
+    run costs one fused launch per search."""
+    from repro_torch.index import LsmIndexService
+    keys = _dup_keys(60_000, seed=10)
+    svc = LsmIndexService(keys, error=32, memtable_capacity=512,
+                          level_fanout=4, assume_sorted=True)
+    assert svc.default_backend == "cuda"
+    rng = np.random.default_rng(11)
+    ins = rng.integers(0, 20_000, 9 * 512).astype(np.float64)
+    svc.insert_many(ins)
+    dels = np.unique(keys[::997])
+    for k in dels:
+        svc.delete(float(k))
+    ups = keys[5::1999]
+    for k in ups:
+        svc.upsert(float(k))
+    svc.spill()
+    assert svc.compact(max_steps=8) >= 4
+    live = np.concatenate([keys, ins])
+    live = np.sort(np.concatenate([live[~np.isin(live, np.concatenate(
+        [dels, ups]))], np.unique(ups)]))
+    assert svc.n_live_keys() == live.size
+    for run in svc.level_set.runs:
+        assert cuda_device in run.snapshot.table._device_cache
+    q = _queries(live, rng, 5_000)
+    for side in ("left", "right"):
+        before = fl.fitting_search_cuda.launches
+        got = svc.search(q, side)
+        assert fl.fitting_search_cuda.launches - before == sum(
+            r.n_keys > 0 for r in svc.level_set.runs)
+        np.testing.assert_array_equal(got, svc.search(q, side, "numpy"))
+        np.testing.assert_array_equal(got, np.searchsorted(live, q, side))
+    for x in q[:40]:
+        x = float(x)
+        for verb in ("point", "predecessor", "successor"):
+            assert getattr(svc, verb)(x) == getattr(svc, verb)(x, "numpy")
+        assert svc.count(x, x + 50) == svc.count(x, x + 50, "numpy")
+        np.testing.assert_array_equal(svc.range(x, x + 50).keys,
+                                      svc.range(x, x + 50, "numpy").keys)
+
+
+@pytest.mark.gpu
+def test_pipeline_on_the_card_launches_the_fused_kernel(cuda_device):
+    """Concurrent callers through ``AsyncIndexService`` over a cuda
+    ``IndexService``: answers equal ``np.searchsorted`` and the flushes
+    launch the fused kernel."""
+    import threading
+
+    from repro_torch.serve import AsyncIndexService, IndexService
+    keys = _dup_keys(100_000, seed=12)
+    svc = IndexService(keys, error=64, assume_sorted=True)
+    failures = []
+    fl.fitting_search_cuda.launches = 0
+    with AsyncIndexService(svc, flush_threshold=256,
+                           max_wait_us=500.0) as pipe:
+        def caller(seed):
+            r = np.random.default_rng(seed)
+            for _ in range(64):
+                q = _queries(keys, r, 40)[:int(r.integers(1, 40))]
+                side = ("left", "right")[int(r.integers(2))]
+                got = pipe.search(q, side, timeout=60.0)
+                if not np.array_equal(got, np.searchsorted(keys, q, side)):
+                    failures.append(seed)
+
+        threads = [threading.Thread(target=caller, args=(s,))
+                   for s in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+        assert not any(t.is_alive() for t in threads)
+        flushes = pipe.metrics().pipeline.flushes
+    assert not failures
+    assert flushes > 0 and fl.fitting_search_cuda.launches > 0

@@ -95,12 +95,22 @@ the port's sources are missing.  Phases, each of which raises on failure:
    T = S = 2048, f32) and non-causal (hd 64, f32), both on the CUDA-core
    kernel, one decode query against S = 4096 (bf16), the local prefill at
    hd 128 and non-causal at hd 64 in bf16 (tensor cores); the RG-LRU
-   scan at B 4, T = W = 4096 f32 with h0.  Each against its plain twin
-   (tolerances at ``FLASH_TOL`` / ``RGLRU_RTOL``, with their reasons;
-   flash also by the relative error of each 64-row query block,
-   ``kernels/ref.py`` ``block_rel_err`` within ``BLOCK_REL_TOL``),
-   timed beside its bound and, for attention without softcap,
-   ``scaled_dot_product_attention`` with the same boolean mask.
+   scan at ``RGLRU_CASES``: B 4, T = W = 4096 with h0 (the headline), the
+   batcher's prefill B 1, T 3,072, W 4,096 with h0, a ragged T (2, 1000,
+   96), a ragged T and W (2, 1000, 100: a partial channel tile) and an
+   unaligned (1, 37, 130), each naming the path
+   (``scan_path``) it took.  Each against its plain twin (flash to
+   ``FLASH_TOL``, with its reasons, and by the relative error of each
+   64-row query block, ``kernels/ref.py`` ``block_rel_err`` within
+   ``BLOCK_REL_TOL``; the scan exactly, max abs err 0), timed beside its
+   bound and, for attention without softcap,
+   ``scaled_dot_product_attention`` with the same boolean mask; the
+   scan also in bursts of 20 back-to-back launches (its launch path
+   hidden) with the wrapper's host wall beside, one call under the
+   profiler split into the kernel's own time and the rest (the host span,
+   its start to the launch call and to the kernel's start), and beside
+   the unaligned kernel (the first design) on the same input through the
+   private ``_rglru_scan_launch``.
 9. Consistency: recurrentgemma-9b at full width, depth cut to one
    (rglru, rglru, local) unit plus one rglru layer, f32 with TF32 off for
    matmul and cuDNN: B 2, prefill 2,304 tokens (past the 2,048 window) +
@@ -112,8 +122,10 @@ the port's sources are missing.  Phases, each of which raises on failure:
    cache 4,160) drains 8 requests with prompts of 256 to 3,072 tokens and
    16 new tokens each; every request gets its 16 tokens, all in the
    vocabulary, and the logits are finite.  The LM kernels' launch counts
-   are set to 0 just before this phase and must be > 0 after it.
-11. A text line with the two redesigned kernels' earlier times, copied
+   are set to 0 just before this phase and must be > 0 after it; every
+   scan launch of the phase must take the ``tma`` path (its counts by
+   path are printed after the prefill and at the end).
+11. A text line with the three redesigned kernels' earlier times, copied
    from PERF.md and marked so, beside this run's; a ``{"kernels": [...]}``
    line (all three kernels, each with its design, every number from this
    run; the fused search's launches are the read path's, the write
@@ -145,7 +157,9 @@ REPS = 25
 # their own beside this run's, never in the kernels line.
 EARLIER_MS = {"fitting_lookup": (0.3266, "window kernel alone, one warp a "
                                          "query"),
-              "flash_attention": (5.7646, "CUDA-core f32 kernel")}
+              "flash_attention": (5.7646, "CUDA-core f32 kernel"),
+              "rglru_scan": (0.5021, "one thread a channel, 16 steps' "
+                                     "loads ahead")}
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 non-tensor op/s
 HBM_BPS = 3.35e12
@@ -179,6 +193,41 @@ def median_ms(torch, fn, *, flush=None, warmup: int = 3, reps: int = REPS):
     return float(np.median(times))
 
 
+def burst_ms(torch, fn, burst: int = 20, reps: int = REPS) -> float:
+    """Median device time in ms of one call of ``fn`` when ``burst`` calls
+    run back to back between two CUDA events.  Where the host's launch path
+    is shorter than the kernel, it overlaps the kernels before it and this
+    is the kernel's own time plus the gap between two launches; where it is
+    longer (``host_us`` says), this is the launch path's rate."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(burst):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / burst)
+    return float(np.median(times))
+
+
+def host_us(torch, fn, reps: int = REPS) -> float:
+    """Median host wall in us of one call of ``fn`` (no synchronisation:
+    the launch path alone), after a synchronised warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(walls))
+
+
 def device_ms(torch, fn, kernel: str, reps: int = 10) -> float | None:
     """Mean device time in ms of the kernels whose name holds ``kernel``
     over ``reps`` calls of ``fn``, from ``torch.profiler``: the kernel's own
@@ -202,8 +251,82 @@ def device_ms(torch, fn, kernel: str, reps: int = 10) -> float | None:
     return None
 
 
+def one_call_profile(torch, fn, kernel: str, reps: int = 10,
+                     lead_ms: float = 50.0) -> dict:
+    """One call of ``fn`` at a time, as ``median_ms`` times it (a start
+    event, the call, an end event, a wait), under ``torch.profiler`` on the
+    host and the card.  Late in a long process the profiler has recorded
+    only a few of a short session's kernels, so the session first runs
+    calls unmeasured for ``lead_ms``.  Each measured call is a
+    ``record_function`` range, which the profiler also places on the card
+    around the call's kernels; a call counts where that range and a kernel
+    whose name holds ``kernel`` inside it were recorded (``recorded`` of
+    ``reps``).  Medians over those calls of: the CUDA events' ms; the
+    kernel's own ms; the ms from the start event to the end event that the
+    kernel does not cover; the host span of ``fn`` in us; and the us from
+    the span's start to its first ``cudaLaunchKernel`` and to the kernel's
+    start (these two compare host and card timestamps).  The profiler's
+    host tracing lengthens the host span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    torch.cuda.synchronize()
+    event_ms = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while (time.perf_counter() - t0) * 1e3 < lead_ms:
+            fn()
+            torch.cuda.synchronize()
+        for i in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with record_function(f"one_call_{i}"):
+                fn()
+            end.record()
+            end.synchronize()
+            event_ms.append(start.elapsed_time(end))
+    events = prof.events()
+    spans, ranges = {}, {}
+    for ev in events:
+        if ev.name.startswith("one_call_"):
+            side = spans if ev.device_type == DeviceType.CPU else ranges
+            side[int(ev.name.rsplit("_", 1)[1])] = ev.time_range
+    launches = sorted(ev.time_range.start for ev in events
+                      if ev.device_type == DeviceType.CPU
+                      and ev.name == "cudaLaunchKernel")
+    kernels = sorted((ev.time_range.start, ev.time_range.end)
+                     for ev in events if ev.device_type == DeviceType.CUDA
+                     and kernel in ev.name)
+    rows = []
+    for i in range(reps):
+        span, rng = spans.get(i), ranges.get(i)
+        if span is None or rng is None:
+            continue
+        ks = [k for k in kernels if rng.start <= k[0] <= rng.end]
+        if not ks:
+            continue
+        k0, k1 = ks[0]
+        ls = [t for t in launches if span.start <= t < span.end]
+        rows.append((event_ms[i], (k1 - k0) / 1e3,
+                     event_ms[i] - (k1 - k0) / 1e3, span.end - span.start,
+                     ls[0] - span.start if ls else None, k0 - span.start))
+    out = {"reps": reps, "recorded": len(rows)}
+    for j, key in enumerate(("event_ms", "kernel_ms", "outside_kernel_ms",
+                             "host_span_us", "to_launch_us",
+                             "to_kernel_us")):
+        vals = [r[j] for r in rows if r[j] is not None]
+        out[key] = float(np.median(vals)) if vals else None
+    return out
+
+
 def fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def fmt_us(us: float | None) -> str:
+    return "not measured" if us is None else f"{us:.1f}"
 
 
 def make_keys() -> np.ndarray:
@@ -1243,11 +1366,22 @@ FLASH_CASES = (
 # The reference's own bounds for a blocked against a dense softmax
 # (tests/test_kernels_extra.py): both accumulate in f32, in another order.
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-4}
-# The scan: each step rounds its product and its sum as the twin's separate
-# multiply and add do, so they should agree exactly; 1e-5 relative is the
-# reference's scan tolerance, the most a reordering could cost.
-RGLRU_SHAPE = (4, 4096, 4096)
-RGLRU_RTOL = 1e-5
+# The scan: (name, B, T, W, h0).  Both paths round each step's product and
+# sum as the twin's separate multiply and add do, in time order, so each
+# case must equal the twin exactly (max abs err 0).
+RGLRU_CASES = (
+    ("headline", 4, 4096, 4096, True),
+    ("batcher prefill", 1, 3072, 4096, True),   # admission is at batch 1
+    ("ragged", 2, 1000, 96, False),             # T not a tile multiple
+    ("ragged width", 2, 1000, 100, True),       # nor W: a partial box
+    ("unaligned", 1, 37, 130, True),            # W % 4 != 0: no TMA
+)
+RGLRU_DESIGN = ("tma path: one producer warp keeps TMA loads of (64 x 32) "
+                "a and u tiles in a 3-stage shared-memory ring, one consumer "
+                "warp copies a tile to registers and steps its 32 channels "
+                "in time order with h in a register, h tiles TMA-stored from "
+                "shared memory; unaligned path (W % 4 != 0, unaligned base, "
+                "T = 0): one thread a channel, 16 steps' loads ahead")
 # Phase 9: full width, depth cut to one unit + one tail layer, f32.
 CONSIST_STACKS = ((("rglru", "rglru", "local"), 1), (("rglru",), 1))
 CONSIST_B, CONSIST_T_PRE, CONSIST_T_DEC = 2, 2304, 16
@@ -1327,40 +1461,75 @@ def flash_vs_plain(torch, dev):
 
 
 def rglru_vs_plain(torch, dev):
-    """Phase 8: the RG-LRU scan kernel against its twin."""
-    from repro_torch.kernels.rglru_scan import (rglru_scan_cuda,
-                                                rglru_scan_torch)
-    b, t, w = RGLRU_SHAPE
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    u = torch.randn((b, t, w), generator=g, device=dev)
-    a = torch.rand((b, t, w), generator=g, device=dev)
-    h0 = torch.randn((b, w), generator=g, device=dev)
-    got, got_last = rglru_scan_cuda(u, a, h0)
-    want, want_last = rglru_scan_torch(u, a, h0)
-    torch.cuda.synchronize()
-    err = max(float((got - want).abs().max()),
-              float((got_last - want_last).abs().max()))
-    rel = err / max(float(want.abs().max()), 1e-30)
-    if rel > RGLRU_RTOL or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"rglru: kernel != plain twin (max abs err "
-                             f"{err}, relative {rel})")
-    nbytes = (3 * b * t * w + 2 * b * w) * 4
-    ops = 2 * b * t * w
-    byte_ms, op_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
-    ms = median_ms(torch, lambda: rglru_scan_cuda(u, a, h0))
-    plain_ms = median_ms(torch, lambda: rglru_scan_torch(u, a, h0), reps=5,
-                         warmup=1)
-    case = {"b": b, "t": t, "w": w, "h0": True, "max_abs_err": err,
-            "relative_err": rel, "exact": err == 0.0, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "bytes": nbytes}
-    print(f"rglru B={b} T={t} W={w} f32 with h0: max abs err {err:.3g} "
-          f"({'bit-exact' if err == 0 else f'relative {rel:.3g}'}); kernel "
-          f"{ms:.4f} ms, plain (loop over T) {plain_ms:.2f} ms, library "
-          f"none, bound {case['bound_ms']:.4f} ms", flush=True)
-    return case
+    """Phase 8: the RG-LRU scan kernels against the twin at RGLRU_CASES,
+    each beside the unaligned kernel (the first design) on the same input."""
+    from repro_torch.kernels.rglru_scan import (_rglru_scan_launch,
+                                                rglru_scan_cuda,
+                                                rglru_scan_torch, scan_path)
+    cases = []
+    for i, (name, b, t, w, with_h0) in enumerate(RGLRU_CASES):
+        g = torch.Generator(device=dev).manual_seed(SEED + 5 + i)
+        u = torch.randn((b, t, w), generator=g, device=dev)
+        a = torch.rand((b, t, w), generator=g, device=dev)
+        h0 = torch.randn((b, w), generator=g, device=dev) if with_h0 \
+            else None
+        path = scan_path(u, a)
+        got, got_last = rglru_scan_cuda(u, a, h0)
+        want, want_last = rglru_scan_torch(u, a, h0)
+        torch.cuda.synchronize()
+        err = max(float((got - want).abs().max()),
+                  float((got_last - want_last).abs().max()))
+        if err != 0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"rglru {name}: kernel ({path}) != plain "
+                                 f"twin (max abs err {err})")
+        nbytes = (3 * b * t * w + (2 if with_h0 else 1) * b * w) * 4
+        ops = 2 * b * t * w
+        byte_ms, op_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+        def new(u=u, a=a, h0=h0):
+            return rglru_scan_cuda(u, a, h0)
+
+        def old(u=u, a=a, h0=h0):
+            return _rglru_scan_launch(u, a, h0, "unaligned")
+
+        ms, old_ms = median_ms(torch, new), median_ms(torch, old)
+        b_ms, old_b_ms = burst_ms(torch, new), burst_ms(torch, old)
+        launch_us = host_us(torch, new)
+        prof = one_call_profile(torch, new, "rglru_scan")
+        plain_ms = median_ms(torch, lambda: rglru_scan_torch(u, a, h0),
+                             reps=5, warmup=1)
+        bound = max(byte_ms, op_ms)
+        case = {"case": name, "b": b, "t": t, "w": w, "h0": with_h0,
+                "path": path, "max_abs_err": err, "exact": True, "ms": ms,
+                "burst_ms": b_ms, "host_us": launch_us,
+                "unaligned_ms": old_ms, "unaligned_burst_ms": old_b_ms,
+                "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "share": bound / ms, "burst_share": bound / b_ms,
+                "bytes": nbytes, "one_call_profile": prof}
+        cases.append(case)
+        print(f"rglru {name} B={b} T={t} W={w} f32 "
+              f"{'with' if with_h0 else 'no'} h0: path {path}, max abs err "
+              f"0 (bit-exact); kernel {ms:.4f} ms one call ({b_ms:.4f} ms "
+              f"a call in bursts of 20; launch path {launch_us:.1f} us "
+              f"host wall), unaligned kernel (first design) {old_ms:.4f} ms "
+              f"({old_b_ms:.4f} in bursts), plain (loop over T) "
+              f"{plain_ms:.2f} ms, library none, bound {bound:.4f} ms "
+              f"({case['bound_by']}), {case['share']:.1%} of bound "
+              f"({case['burst_share']:.1%} in bursts)", flush=True)
+        if prof["recorded"]:
+            print(f"rglru {name} one call under the profiler "
+                  f"({prof['recorded']} of {prof['reps']} calls recorded): "
+                  f"events {prof['event_ms']:.4f} ms = kernel "
+                  f"{prof['kernel_ms']:.4f} ms + "
+                  f"{prof['outside_kernel_ms'] * 1e3:.1f} us outside it; "
+                  f"host span {prof['host_span_us']:.1f} us, from its "
+                  f"start to cudaLaunchKernel "
+                  f"{fmt_us(prof['to_launch_us'])} us and to the kernel's "
+                  f"start {prof['to_kernel_us']:.1f} us", flush=True)
+        else:
+            print(f"rglru {name} one call under the profiler: no call's "
+                  f"kernel recorded, not measured", flush=True)
+    return cases
 
 
 def lm_consistency(torch, dev):
@@ -1431,7 +1600,7 @@ def device_breakdown(torch, fn) -> dict:
         us = ev.time_range.elapsed_us()
         if "flash_fwd" in name:
             kinds["flash_attention"] += us
-        elif "rglru_scan_kernel" in name:
+        elif "rglru_scan" in name:          # either path's kernel
             kinds["rglru_scan"] += us
         elif any(k in name.lower() for k in ("gemm", "xmma", "cutlass",
                                              "nvjet")):
@@ -1484,6 +1653,8 @@ def lm_serving(torch, dev):
 
     flash_attention_cuda.launches = 0
     rglru_scan_cuda.launches = 0
+    by_path = rglru_scan_cuda.launches_by_path
+    by_path.update(dict.fromkeys(by_path, 0))
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_T), generator=g,
                          device=dev, dtype=torch.int32)
@@ -1513,6 +1684,10 @@ def lm_serving(torch, dev):
         params, toks, init_caches(cfg, PREFILL_B, PREFILL_T, device=dev)))
     print_breakdown(f"prefill step B={PREFILL_B} T={PREFILL_T}",
                     prefill_parts)
+    print(f"prefill: rglru_scan launches by path {by_path}", flush=True)
+    if by_path["unaligned"] or not by_path["tma"]:
+        raise AssertionError(f"the full-depth prefill's scans did not all "
+                             f"take the tma path: {by_path}")
 
     rng = np.random.default_rng(SEED + 13)
     batcher = ContinuousBatcher(cfg, params, n_slots=N_SLOTS,
@@ -1558,16 +1733,20 @@ def lm_serving(torch, dev):
         params, cfg, tokens, pos, batcher.caches))
     print_breakdown(f"decode step B={N_SLOTS}", decode_parts)
     launches = {"flash_attention": flash_attention_cuda.launches,
-                "rglru_scan": rglru_scan_cuda.launches}
+                "rglru_scan": rglru_scan_cuda.launches,
+                "rglru_scan_by_path": dict(by_path)}
     print(f"batcher: {N_REQUESTS} requests (prompts "
           f"{sorted(len(r.prompt) for r in reqs)}), {N_SLOTS} slots, cache "
           f"{CACHE_LEN}: drained in {ticks} ticks, {n_tok} tokens, "
           f"{wall:.2f} s; median decode tick {np.median(decode_ticks) * 1e3:.1f} "
           f"ms ({len(decode_ticks)} ticks without admission); launches "
           f"{launches}", flush=True)
-    if min(launches.values()) <= 0:
+    if min(launches["flash_attention"], launches["rglru_scan"]) <= 0:
         raise AssertionError(f"serving did not launch every LM kernel: "
                              f"{launches}")
+    if by_path["unaligned"]:
+        raise AssertionError(f"a serving scan took the unaligned path: "
+                             f"{by_path}")
     del params, batcher
     return launches, {"prefill_breakdown": prefill_parts,
                       "decode_breakdown": decode_parts,
@@ -1678,7 +1857,7 @@ def main() -> int:
         raise AssertionError("the pipeline never launched fitting_search")
 
     flash_cases = flash_vs_plain(torch, dev)
-    rglru_case = rglru_vs_plain(torch, dev)
+    rglru_cases = rglru_vs_plain(torch, dev)
     lm_consistency(torch, dev)
     torch.cuda.empty_cache()
     lm_launches, serving = lm_serving(torch, dev)
@@ -1730,11 +1909,23 @@ def main() -> int:
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:37",
-        "design": "one thread a (batch, channel), 16 steps' loads ahead",
-        "launches": lm_launches["rglru_scan"], "equal": True,
-        **{k: rglru_case[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")},
-        "headline": {k: rglru_case[k] for k in ("b", "t", "w")},
+        "design": RGLRU_DESIGN,
+        "launches": lm_launches["rglru_scan"],
+        "launches_by_path": lm_launches["rglru_scan_by_path"],
+        "max_abs_err": max(c["max_abs_err"] for c in rglru_cases),
+        "equal": True,
+        **{k: rglru_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "burst_ms", "unaligned_ms",
+                                          "share")},
+        "headline": {k: rglru_cases[0][k] for k in ("b", "t", "w", "path")},
+        "cases": [{k: c[k] for k in ("case", "b", "t", "w", "h0", "path",
+                                     "max_abs_err", "ms", "burst_ms",
+                                     "host_us", "unaligned_ms",
+                                     "unaligned_burst_ms", "plain_ms",
+                                     "bound_ms", "share", "burst_share",
+                                     "one_call_profile")}
+                  for c in rglru_cases],
     }]
     print(json.dumps({"write_path": writes}))
     print(json.dumps({"lsm": lsm, "pipeline": pipeline}))
@@ -1744,7 +1935,8 @@ def main() -> int:
           + "; ".join(f"{name} {ms} ms ({what}), {new:.4f} ms in this run"
                       for (name, (ms, what)), new in zip(
                           EARLIER_MS.items(),
-                          (entry["ms"], lm_entries[0]["ms"]))))
+                          (entry["ms"], lm_entries[0]["ms"],
+                           lm_entries[1]["ms"]))))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": [entry, *lm_entries]}))

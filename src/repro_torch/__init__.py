@@ -6,7 +6,10 @@ substrate ``models/``, ``configs/``, ``serve/``) and imports neither ``jax``
 nor anything of ``repro``.  Its kernels are hand-written CUDA C++ for Hopper
 (``csrc/``: ``fitting_lookup``, ``flash_attention``, ``rglru_scan``), built
 with ``nvcc`` at first use.  Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``.  The subpackages resolve on first access
+(PEP 562), so importing a host-only module (``core.tree``,
+``core.cost_model``, ``index.table``, ``index.query``, ``index.telemetry``)
+loads no ``torch``.
 
 The read path, end to end::
 
@@ -35,7 +38,13 @@ kernels, greedy decode over ring caches)::
     batcher.submit(Request(0, prompt, max_new=16))
     batcher.run_until_drained()
 """
-from . import analysis, configs, core, index, kernels, models, serve
+import importlib
 
 __all__ = ["analysis", "configs", "core", "index", "kernels", "models",
            "serve"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,7 +13,9 @@ flash_attention -- blocked online-softmax attention forward: causal, window,
                    prefill attention
 rglru_scan      -- the RG-LRU linear recurrence over time (``rglru_scan_cuda``,
                    its twin ``rglru_scan_torch``, and the module's
-                   ``rglru_scan``); the LM's prefill scan
+                   ``rglru_scan``); the LM's prefill scan.  Two kernels,
+                   picked by ``scan_path``: a TMA-fed ring where TMA can
+                   read the inputs, one thread a channel elsewhere
 ops.py          -- the device-index-level wrapper ``ops.fitting_lookup``
 ref.py          -- the torch oracles ``lookup_ref``, ``attention_ref``,
                    ``rglru_ref``

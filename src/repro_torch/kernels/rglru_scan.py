@@ -12,8 +12,13 @@ is the prefill scan of every ``rglru`` block (``models/blocks.apply_rglru``).
 The source, ``csrc/rglru_scan.cu``, states what bounds the kernel and what
 its design does about it.
 
-* :func:`rglru_scan_cuda` launches the kernel on CUDA tensors and counts its
-  launches in ``rglru_scan_cuda.launches``.
+* :func:`rglru_scan_cuda` launches a kernel on CUDA tensors and counts its
+  launches in ``rglru_scan_cuda.launches`` and, by path, in
+  ``rglru_scan_cuda.launches_by_path``.  Which kernel takes which inputs
+  (:func:`scan_path`): ``"tma"`` (a ring of tiles fed by TMA) where TMA can
+  read u and a (W % 4 == 0, 16-byte aligned bases, T > 0), else
+  ``"unaligned"`` (a thread a channel, any W and base).  Both round as the
+  twin does.  Nothing falls back: a build or launch error raises.
 * :func:`rglru_scan_torch` is the same recurrence as a loop over time in
   plain torch ops; its products and sums round as the kernel's do, so the
   two agree bit for bit.
@@ -24,22 +29,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from . import _build
 
+PATHS = ("tma", "unaligned")
 _i64 = ctypes.c_int64
 _ptr = ctypes.c_void_p
+_COUNT_LOCK = threading.Lock()
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library, its launcher's C signature declared."""
     lib = _build.load("rglru_scan")
-    fn = lib.rglru_scan_launch
-    fn.argtypes = [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr, _ptr, _ptr]
-    fn.restype = ctypes.c_int
+    for path in PATHS:
+        fn = getattr(lib, f"rglru_scan_{path}_launch")
+        fn.argtypes = [_ptr, _ptr, _ptr, _i64, _i64, _i64, _ptr, _ptr, _ptr]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -60,6 +69,16 @@ def _check(u: torch.Tensor, a: torch.Tensor, h0: torch.Tensor | None) -> None:
                              f"{h0.dtype} on {h0.device}")
 
 
+def scan_path(u: torch.Tensor, a: torch.Tensor) -> str:
+    """Which CUDA kernel serves these (B, T, W) f32 inputs: ``"tma"`` where
+    TMA can read both (a 16-byte aligned base and row stride, so W % 4 ==
+    0; and T > 0, since a tensor map has no empty axis), else
+    ``"unaligned"``.  A pure function of shape and addresses."""
+    _, t, w = u.shape
+    aligned = u.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0
+    return "tma" if t > 0 and w % 4 == 0 and aligned else "unaligned"
+
+
 def rglru_scan_torch(u: torch.Tensor, a: torch.Tensor,
                      h0: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -78,31 +97,52 @@ def rglru_scan_torch(u: torch.Tensor, a: torch.Tensor,
 def rglru_scan_cuda(u: torch.Tensor, a: torch.Tensor,
                     h0: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream (no synchronisation).
+    """Launch the CUDA kernel that :func:`scan_path` picks on the current
+    stream (no synchronisation).
 
     Raises if the tensors are not on a CUDA device, the library cannot be
     built, or the launch reports an error."""
+    return _rglru_scan_launch(u, a, h0, scan_path(u, a))
+
+
+def _rglru_scan_launch(u: torch.Tensor, a: torch.Tensor,
+                       h0: torch.Tensor | None, path: str
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel of ``path``: the wrapper's route, and for tests and
+    the smoke the unaligned kernel on inputs the TMA kernel takes, to hold
+    the two designs against each other.  Counted as every launch is."""
     _check(u, a, h0)
     if u.device.type != "cuda":
         raise ValueError(f"rglru_scan_cuda needs CUDA tensors, got {u.device}")
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    if path == "tma" and scan_path(u, a) != "tma":
+        raise ValueError(f"the TMA kernel needs W % 4 == 0, T > 0 and "
+                         f"16-byte aligned bases; got {tuple(u.shape)} at "
+                         f"{u.data_ptr():#x}, {a.data_ptr():#x}")
     b, t, w = u.shape
     lib = _library()
     out = torch.empty_like(u)
     h_last = torch.empty((b, w), dtype=torch.float32, device=u.device)
     if b == 0 or w == 0:
         return out, h_last
+    launch = getattr(lib, f"rglru_scan_{path}_launch")
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = lib.rglru_scan_launch(
+        err = launch(
             u.data_ptr(), a.data_ptr(), None if h0 is None else h0.data_ptr(),
             b, t, w, out.data_ptr(), h_last.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error {err}")
-    rglru_scan_cuda.launches += 1
+        raise RuntimeError(f"rglru_scan {path} kernel launch failed: CUDA "
+                           f"error {err} (1000: no tensor map encoded)")
+    with _COUNT_LOCK:             # read-modify-writes, from any thread
+        rglru_scan_cuda.launches += 1
+        rglru_scan_cuda.launches_by_path[path] += 1
     return out, h_last
 
 
 rglru_scan_cuda.launches = 0
+rglru_scan_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def rglru_scan(u: torch.Tensor, a: torch.Tensor,

@@ -250,24 +250,60 @@ def test_flash_kernel_takes_strided_views(cuda_device):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
+def _scan_inputs(device, b, t, w, with_h0, offset=0):
+    """u, a (and h0) on the card; ``offset`` floats into their storage."""
+    g = torch.Generator(device=device).manual_seed(b * t + w + offset)
+    u = torch.randn(offset + b * t * w, generator=g, device=device)
+    a = torch.rand(offset + b * t * w, generator=g, device=device)
+    u, a = (x[offset:].view(b, t, w) for x in (u, a))
+    h0 = torch.randn(b, w, generator=g, device=device) if with_h0 else None
+    return u, a, h0
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,t,w,with_h0", [(4, 4096, 4096, True),
-                                           (3, 37, 64, False),
-                                           (1, 1, 130, True)])
-def test_rglru_kernel_matches_plain_twin(cuda_device, b, t, w, with_h0):
+@pytest.mark.parametrize("b,t,w,with_h0,offset,path", [
+    (4, 4096, 4096, True, 0, "tma"), (1, 3072, 4096, True, 0, "tma"),
+    (2, 1000, 96, False, 0, "tma"), (3, 37, 64, False, 0, "tma"),
+    (2, 1000, 100, True, 0, "tma"), (1, 5, 4, False, 0, "tma"),
+    (1, 1, 130, True, 0, "unaligned"), (2, 0, 64, True, 0, "unaligned"),
+    (2, 300, 64, True, 1, "unaligned")])
+def test_rglru_kernel_matches_plain_twin(cuda_device, b, t, w, with_h0,
+                                         offset, path):
     """Each step rounds its product and its sum as the twin's separate
-    multiply and add do, so the two agree bit for bit."""
-    g = torch.Generator(device=cuda_device).manual_seed(b * t + w)
-    u = torch.randn(b, t, w, generator=g, device=cuda_device)
-    a = torch.rand(b, t, w, generator=g, device=cuda_device)
-    h0 = torch.randn(b, w, generator=g, device=cuda_device) if with_h0 \
-        else None
-    before = rs.rglru_scan_cuda.launches
+    multiply and add do, in time order, on both paths, so each agrees with
+    the twin bit for bit; the path is the one scan_path names.  W 100 and
+    W 4 leave the last channel tile partial (zero-filled loads, lanes past
+    W, a store clipped at W); the last case is a view off 16-byte
+    alignment."""
+    u, a, h0 = _scan_inputs(cuda_device, b, t, w, with_h0, offset)
+    assert rs.scan_path(u, a) == path
+    before = dict(rs.rglru_scan_cuda.launches_by_path)
+    total = rs.rglru_scan_cuda.launches
     got, got_last = rs.rglru_scan_cuda(u, a, h0)
     torch.cuda.synchronize()
-    assert rs.rglru_scan_cuda.launches == before + 1
+    assert rs.rglru_scan_cuda.launches == total + 1
+    assert rs.rglru_scan_cuda.launches_by_path == {
+        p: n + (p == path) for p, n in before.items()}
     want, want_last = rs.rglru_scan_torch(u, a, h0)
     assert torch.equal(got, want) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,w,with_h0", [(1, 3072, 4096, True),
+                                           (2, 1000, 96, False),
+                                           (2, 1000, 100, True)])
+def test_rglru_unaligned_kernel_equals_tma_kernel(cuda_device, b, t, w,
+                                                  with_h0):
+    """The old design, run on aligned inputs through the private entry,
+    equals the TMA kernel bit for bit."""
+    u, a, h0 = _scan_inputs(cuda_device, b, t, w, with_h0)
+    before = dict(rs.rglru_scan_cuda.launches_by_path)
+    tma = rs._rglru_scan_launch(u, a, h0, "tma")
+    old = rs._rglru_scan_launch(u, a, h0, "unaligned")
+    torch.cuda.synchronize()
+    assert rs.rglru_scan_cuda.launches_by_path == {
+        p: n + 1 for p, n in before.items()}
+    assert torch.equal(tma[0], old[0]) and torch.equal(tma[1], old[1])
 
 
 # --------------------------------------------------- write path on the card

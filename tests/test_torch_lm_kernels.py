@@ -178,6 +178,55 @@ def test_cuda_tensors_never_take_the_twins(monkeypatch):
         rs.rglru_scan(_fake(torch.rand(1, 4, 8)), _fake(torch.rand(1, 4, 8)))
 
 
+def _scan_view(t, w, offset=0, b=2):
+    """A contiguous (b, t, w) f32 view starting ``offset`` floats into its
+    storage (the storage itself is 64-byte aligned)."""
+    flat = torch.zeros(offset + b * t * w)
+    return flat[offset:].view(b, t, w)
+
+
+@pytest.mark.parametrize("t,w,offset,path", [
+    (16, 64, 0, "tma"), (16, 96, 0, "tma"), (3, 4, 0, "tma"),
+    (1, 4096, 0, "tma"), (1000, 96, 0, "tma"), (16, 64, 4, "tma"),
+    (16, 130, 0, "unaligned"), (16, 63, 0, "unaligned"),
+    (37, 2, 0, "unaligned"), (16, 64, 1, "unaligned"),
+    (16, 64, 2, "unaligned"), (0, 64, 0, "unaligned")])
+def test_rglru_scan_path_by_width_base_and_length(t, w, offset, path):
+    """TMA needs a 16-byte aligned base and row stride (W % 4 == 0) and a
+    tensor map needs T > 0; every other input takes the unaligned kernel."""
+    u = _scan_view(t, w, offset)
+    assert rs.scan_path(u, _scan_view(t, w)) == path
+    assert rs.scan_path(_scan_view(t, w), u) == path
+
+
+def test_rglru_scan_path_reads_both_inputs():
+    u, a = _scan_view(8, 64), _scan_view(8, 64, offset=1)
+    assert rs.scan_path(u, u.clone()) == "tma"
+    assert rs.scan_path(u, a) == rs.scan_path(a, u) == "unaligned"
+
+
+def test_rglru_private_entry_refuses_tma_where_tma_cannot_read(monkeypatch):
+    """The private entry may run the unaligned kernel on any input, but
+    never the TMA kernel on one it cannot read; a bad path name raises.
+    Neither reaches the library or a counter."""
+    monkeypatch.setattr(rs, "_library", lambda: pytest.fail("launched"))
+    before = (rs.rglru_scan_cuda.launches,
+              dict(rs.rglru_scan_cuda.launches_by_path))
+    for u in (_scan_view(8, 130), _scan_view(8, 64, offset=1),
+              _scan_view(0, 64)):
+        fake = _fake(u)
+        with pytest.raises(ValueError, match="TMA kernel needs"):
+            rs._rglru_scan_launch(fake, _fake(u.clone()), None, "tma")
+    with pytest.raises(ValueError, match="path must be one of"):
+        rs._rglru_scan_launch(_fake(_scan_view(8, 64)),
+                              _fake(_scan_view(8, 64)), None, "chunked")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rs._rglru_scan_launch(_scan_view(8, 64), _scan_view(8, 64), None,
+                              "unaligned")
+    assert (rs.rglru_scan_cuda.launches,
+            rs.rglru_scan_cuda.launches_by_path) == before
+
+
 @pytest.mark.parametrize("bad", ["dtype", "gqa", "causal-long-q", "window",
                                  "zero-keys"])
 def test_flash_wrapper_rejects_bad_inputs(bad):

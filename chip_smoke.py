@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: the learned-index read path,
 its write path, planning and sharded serving, the LSM write plane and the
-async front door, and RecurrentGemma-9B serving.
+async front door, the device-sharded plane, and RecurrentGemma-9B serving.
 
 Run from the repository root, with no arguments:
 
@@ -89,7 +89,24 @@ the port's sources are missing.  Phases, each of which raises on failure:
    foreground, then 8 reader threads run while the plan's cadence thread
    compacts; every answer equals the oracle and at least one compaction
    lands under the readers.
-8. LM kernels vs plain: ``flash_attention`` at the local layer's prefill
+8. The device-sharded plane, on the same column, with the fused kernel's
+   launch count set to 0 before it and read after it (> 0):
+   ``DeviceShardedService`` (e 64, buffer 16, row headroom 1.0) with four
+   rows on the card (``devices=["cuda:0"] * 4``); each row's search is one
+   launch of the
+   fused kernel.  With its exchange set in turn to allgather, a2a and
+   auto, every verb at 1, 1,000 and 2^20 queries equals
+   ``np.searchsorted`` and ``search(left)`` is timed (host wall, median of
+   5).  16,384 inserts into row 1's range and a publish: exactly that
+   row's five tensors change, the other three keep their ``data_ptr()``,
+   and the uploaded bytes equal ``row_bytes() + 4 * replicated_bytes()``.
+   A batch of 2^16 queries owned by row 0 on a2a at slack 1 is answered
+   exactly and overflows into the allgather pass.  A rebalance is a full
+   publish.  After each write step every verb at 2^20 equals the oracle;
+   ``memory_allocated`` stays within one generation of the rows plus
+   ``MEM_SLACK``.  It prints the walls beside phase 6's 4-shard
+   ``ShardedIndexService`` at 2^20, with the card line.
+9. LM kernels vs plain: ``flash_attention`` at the local layer's prefill
    (B 1, H 16, Hkv 1, T = S = 4096, hd 256, window 2048, bf16: the
    tensor-core kernel), then with softcap and GQA (hd 128, H 8, Hkv 4,
    T = S = 2048, f32) and non-causal (hd 64, f32), both on the CUDA-core
@@ -111,12 +128,12 @@ the port's sources are missing.  Phases, each of which raises on failure:
    its start to the launch call and to the kernel's start), and beside
    the unaligned kernel (the first design) on the same input through the
    private ``_rglru_scan_launch``.
-9. Consistency: recurrentgemma-9b at full width, depth cut to one
+10. Consistency: recurrentgemma-9b at full width, depth cut to one
    (rglru, rglru, local) unit plus one rglru layer, f32 with TF32 off for
    matmul and cuDNN: B 2, prefill 2,304 tokens (past the 2,048 window) +
    16 teacher-forced decode steps == a cache-free forward, rtol = atol =
    3e-2.
-10. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
+11. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
    parameters, bf16, drawn from seed 0 on the card): the prefill step at
    B 4, T 4,096 (timed, tokens/s), then ``ContinuousBatcher`` (4 slots,
    cache 4,160) drains 8 requests with prompts of 256 to 3,072 tokens and
@@ -125,12 +142,12 @@ the port's sources are missing.  Phases, each of which raises on failure:
    are set to 0 just before this phase and must be > 0 after it; every
    scan launch of the phase must take the ``tma`` path (its counts by
    path are printed after the prefill and at the end).
-11. A text line with the three redesigned kernels' earlier times, copied
+12. A text line with the three redesigned kernels' earlier times, copied
    from PERF.md and marked so, beside this run's; a ``{"kernels": [...]}``
    line (all three kernels, each with its design, every number from this
    run; the fused search's launches are the read path's, the write
-   path's, the LSM's and the pipeline's), the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+   path's, the LSM's, the pipeline's and the device plane's), the card
+   line again, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1346,6 +1363,187 @@ def pipeline_phase(torch, dev, keys, card):
     gc.collect()
     return rec
 
+# ------------------------------------------------- the device-sharded plane
+PLANE_ROWS, PLANE_EXCHANGES = 4, ("allgather", "a2a", "auto")
+# Row capacity over the largest shard: at the default 0.5 one shard's
+# re-fit after N_HOT inserts outgrows its row's segment capacity, which
+# makes that publish a full one.
+PLANE_HEADROOM = 1.0
+PLANE_SKEW = 2 ** 16        # queries of the skewed a2a batch
+
+
+class _Verbs:
+    """``check_verbs``'s verb surface for a service whose verbs take no
+    ``backend``."""
+
+    def __init__(self, svc):
+        self.svc = svc
+
+    def __getattr__(self, name):
+        fn = getattr(self.svc, name)
+        return lambda *args, backend=None, **kw: fn(*args, **kw)
+
+
+def row_ptrs(ds) -> list[list[int]]:
+    """Each row's five tensors' storage addresses."""
+    from repro_torch.index.device_plane import _ROW_FIELDS
+    return [[getattr(ds, f)[r].data_ptr() for f in _ROW_FIELDS]
+            for r in range(ds.n_devices)]
+
+
+def set_bytes(ds) -> int:
+    """Device bytes of a manifest: every row tensor and every replica."""
+    from repro_torch.index.device_plane import _ROW_FIELDS
+    tensors = [t for f in (*_ROW_FIELDS, "d_offsets", "d_boundaries")
+               for t in getattr(ds, f)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def device_plane_phase(torch, dev, keys, card, sharded_ms):
+    """Phase 8: ``DeviceShardedService`` with four rows on the card (see the
+    module docstring)."""
+    import gc
+    from repro_torch.index import DeviceShardedService
+    rng = np.random.default_rng(SEED + 7)
+    tag = f"[{card}]"
+    rec = {"rows": PLANE_ROWS, "error": WRITE_ERROR,
+           "buffer_size": WRITE_BUFFER, "headroom": PLANE_HEADROOM}
+    k32 = keys.astype(np.float32)
+    mem_base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    svc = DeviceShardedService(
+        keys, error=WRITE_ERROR, device_count=PLANE_ROWS,
+        devices=[str(dev)] * PLANE_ROWS, buffer_size=WRITE_BUFFER,
+        headroom=PLANE_HEADROOM, assume_sorted=True)
+    rec["build_s"] = time.perf_counter() - t0
+    ds = svc.device_set
+    print(f"device plane: {PLANE_ROWS} rows on {dev}, s_cap {ds.s_cap}, "
+          f"m_cap {ds.m_cap}, live keys {list(ds.n_local)}, built in "
+          f"{rec['build_s']:.1f} s", flush=True)
+
+    # every verb on every exchange at each batch size, and the walls
+    walls = {}
+    for xchg in PLANE_EXCHANGES:
+        svc.exchange = xchg
+        walls[xchg] = {}
+        for size in BATCHES:
+            q = make_queries(keys, size, rng)
+            check_verbs(_Verbs(svc), f"device plane {xchg}", keys, k32, q,
+                        rng)
+            svc.search(q, "left")
+            ws = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                svc.search(q, "left")
+                ws.append((time.perf_counter() - t1) * 1e3)
+            walls[xchg][size] = float(np.median(ws))
+        print(f"device plane {xchg}: every verb at {list(BATCHES)} equals "
+              f"np.searchsorted; search(left) host wall, median of 5, ms "
+              f"{walls[xchg]} {tag}", flush=True)
+    rec["search_ms"] = walls
+    dm = svc.metrics().device
+    rec["calls"] = {"allgather": dm.allgather_calls, "a2a": dm.a2a_calls}
+    svc.exchange = "allgather"
+
+    # one row's publish: that row's tensors alone change, and the bytes
+    d = 1
+    lo = int(np.ceil(svc.boundaries[d]))
+    hi = int(svc.boundaries[d + 1]) - 1
+    hot = make_inserts(keys, N_HOT, rng, lo, hi)
+    before, n0 = row_ptrs(svc.device_set), svc.device_set.n_local
+    m0 = svc.metrics().device
+    for k in hot:
+        svc.insert(float(k))
+    t0 = time.perf_counter()
+    published = svc.publish()
+    rec["publish_ms"] = (time.perf_counter() - t0) * 1e3
+    ds = svc.device_set
+    after, m1 = row_ptrs(ds), svc.metrics().device
+    changed = [r for r in range(PLANE_ROWS) if after[r] != before[r]]
+    kept = [r for r in range(PLANE_ROWS) if after[r] == before[r]]
+    whole = [r for r in changed
+             if all(a != b for a, b in zip(after[r], before[r]))]
+    up = m1.bytes_uploaded - m0.bytes_uploaded
+    want_up = ds.row_bytes() + ds.replicated_bytes() * PLANE_ROWS
+    if sorted(published) != [d] or changed != [d] or whole != [d] or \
+            len(kept) != PLANE_ROWS - 1 or up != want_up or \
+            m1.delta_publishes != m0.delta_publishes + 1 or \
+            ds.n_local[d] != n0[d] + N_HOT:
+        raise AssertionError(f"device plane publish: published "
+                             f"{sorted(published)}, rows changed {changed}, "
+                             f"kept {kept}, {up} bytes against {want_up}")
+    merged = np.sort(np.concatenate([keys, hot]))
+    m32 = merged.astype(np.float32)
+    check_verbs(_Verbs(svc), "device plane after a publish", merged, m32,
+                make_queries(merged, Q_KERNEL, rng), rng)
+    rec["delta"] = {"row": d, "inserts": N_HOT, "bytes": up,
+                    "row_bytes": ds.row_bytes(),
+                    "replicated_bytes": ds.replicated_bytes(),
+                    "full_bytes": m1.bytes_full_equivalent
+                    - m0.bytes_full_equivalent}
+    print(f"device plane: {N_HOT} inserts into row {d} [{lo}, {hi}], publish "
+          f"{rec['publish_ms']:.1f} ms; only row {d}'s tensors changed (rows "
+          f"{kept} kept their data_ptr); {up} bytes uploaded = row_bytes "
+          f"{ds.row_bytes()} + {PLANE_ROWS} x replicated "
+          f"{ds.replicated_bytes()} (a full publish: "
+          f"{rec['delta']['full_bytes']}) {tag}", flush=True)
+
+    # a skewed a2a batch at slack 1: exact, with overflow
+    svc.exchange, svc.slack = "a2a", 1.0
+    skew = np.full(PLANE_SKEW, merged[0])
+    got = svc.search(skew, "left")
+    if not np.array_equal(got, np.searchsorted(m32, skew.astype(np.float32),
+                                               "left")):
+        raise AssertionError("device plane: the skewed a2a batch is wrong")
+    over = svc.metrics().device.a2a_overflow_queries - \
+        m1.a2a_overflow_queries
+    if over <= 0:
+        raise AssertionError("device plane: the skewed batch did not "
+                             "overflow slack 1")
+    rec["skew_overflow_queries"] = over
+    svc.exchange, svc.slack = "allgather", 2.0
+    print(f"device plane a2a at slack 1: {PLANE_SKEW} queries owned by row "
+          f"0 answered exactly, {over} overflowed into the allgather pass",
+          flush=True)
+
+    # a rebalance is a full publish
+    m2 = svc.metrics().device
+    info = svc.rebalance(force=True)
+    m3 = svc.metrics().device
+    if info is None or m3.full_publishes != m2.full_publishes + 1:
+        raise AssertionError(f"device plane rebalance: {info}, full "
+                             f"publishes {m2.full_publishes} -> "
+                             f"{m3.full_publishes}")
+    check_verbs(_Verbs(svc), "device plane after a rebalance", merged, m32,
+                make_queries(merged, Q_KERNEL, rng), rng)
+    print(f"device plane rebalance: {info}; a full publish, live keys "
+          f"{list(svc.device_set.n_local)} {tag}", flush=True)
+    del ds, before, after
+    gc.collect()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated() - mem_base
+    gen = set_bytes(svc.device_set)
+    rec["memory"] = {"bytes": mem, "generation_bytes": gen}
+    print(f"device plane memory: {mem / 2 ** 20:.3f} MiB allocated against "
+          f"one generation of the rows {gen / 2 ** 20:.3f} MiB + slack "
+          f"{MEM_SLACK / 2 ** 20:.0f} MiB {tag}", flush=True)
+    if mem > gen + MEM_SLACK:
+        raise AssertionError(f"device plane: {mem} bytes against {gen} + "
+                             f"{MEM_SLACK}: a replaced row was kept")
+    m = svc.metrics().device
+    rec["metrics"] = {k: getattr(m, k) for k in (
+        "publishes", "delta_publishes", "full_publishes", "bytes_uploaded",
+        "bytes_full_equivalent", "delta_fraction", "allgather_calls",
+        "a2a_calls", "a2a_overflow_queries")}
+    print("search(left) host wall, median of 5, ms at batches "
+          f"{list(BATCHES)}: device plane {PLANE_ROWS} rows "
+          + ", ".join(f"{x} {walls[x]}" for x in PLANE_EXCHANGES)
+          + f"; phase 6's {WRITE_SHARDS}-shard ShardedIndexService at "
+          f"{Q_KERNEL}: {sharded_ms:.3f} {tag}", flush=True)
+    del svc
+    gc.collect()
+    return rec
+
 # ------------------------------------------------------------ LM serving
 ARCH = "recurrentgemma-9b"
 BF16_OPS = 989e12          # H100 SXM dense bf16/fp16 tensor-core op/s
@@ -1382,18 +1580,18 @@ RGLRU_DESIGN = ("tma path: one producer warp keeps TMA loads of (64 x 32) "
                 "in time order with h in a register, h tiles TMA-stored from "
                 "shared memory; unaligned path (W % 4 != 0, unaligned base, "
                 "T = 0): one thread a channel, 16 steps' loads ahead")
-# Phase 9: full width, depth cut to one unit + one tail layer, f32.
+# Phase 10: full width, depth cut to one unit + one tail layer, f32.
 CONSIST_STACKS = ((("rglru", "rglru", "local"), 1), (("rglru",), 1))
 CONSIST_B, CONSIST_T_PRE, CONSIST_T_DEC = 2, 2304, 16
 CONSIST_TOL = 3e-2         # rtol = atol, tests/test_multistep_decode.py
-# Phase 10: full width and depth, bf16.
+# Phase 11: full width and depth, bf16.
 PREFILL_B, PREFILL_T = 4, 4096
 N_SLOTS, CACHE_LEN, N_REQUESTS, MAX_NEW = 4, 4160, 8, 16
 PROMPT_LENS = (256, 3072)
 
 
 def flash_vs_plain(torch, dev):
-    """Phase 8: the flash kernel against its twin and SDPA."""
+    """Phase 9: the flash kernel against its twin and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_torch,
@@ -1461,7 +1659,7 @@ def flash_vs_plain(torch, dev):
 
 
 def rglru_vs_plain(torch, dev):
-    """Phase 8: the RG-LRU scan kernels against the twin at RGLRU_CASES,
+    """Phase 9: the RG-LRU scan kernels against the twin at RGLRU_CASES,
     each beside the unaligned kernel (the first design) on the same input."""
     from repro_torch.kernels.rglru_scan import (_rglru_scan_launch,
                                                 rglru_scan_cuda,
@@ -1533,7 +1731,7 @@ def rglru_vs_plain(torch, dev):
 
 
 def lm_consistency(torch, dev):
-    """Phase 9: teacher-forced prefill + decode == a cache-free forward,
+    """Phase 10: teacher-forced prefill + decode == a cache-free forward,
     at full width in f32, depth cut to CONSIST_STACKS."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -1633,7 +1831,7 @@ def print_breakdown(label: str, parts: dict) -> None:
 
 
 def lm_serving(torch, dev):
-    """Phase 10: full width and depth in bf16: the prefill step, then the
+    """Phase 11: full width and depth in bf16: the prefill step, then the
     continuous batcher draining N_REQUESTS requests."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1855,6 +2053,17 @@ def main() -> int:
           f"({pipeline['s']:.1f} s) [{card}]", flush=True)
     if pipe_launches <= 0:
         raise AssertionError("the pipeline never launched fitting_search")
+    fitting_search_cuda.launches = 0
+    t0 = time.perf_counter()
+    plane = device_plane_phase(torch, dev, keys, card,
+                               writes["sharded_search_ms"][Q_KERNEL])
+    plane_launches = fitting_search_cuda.launches
+    plane["s"] = time.perf_counter() - t0
+    print(f"device plane: {plane_launches} fused kernel launches "
+          f"({plane['s']:.1f} s) [{card}]", flush=True)
+    if plane_launches <= 0:
+        raise AssertionError("the device plane never launched "
+                             "fitting_search")
 
     flash_cases = flash_vs_plain(torch, dev)
     rglru_cases = rglru_vs_plain(torch, dev)
@@ -1874,10 +2083,11 @@ def main() -> int:
                   "a thread a query, the window bisected a 32-byte sector "
                   "at a time",
         "launches": launches + write_launches + lsm_launches
-        + pipe_launches,
+        + pipe_launches + plane_launches,
         "launches_by_path": {"read path": launches,
                              "write path": write_launches,
-                             "lsm": lsm_launches, "pipeline": pipe_launches},
+                             "lsm": lsm_launches, "pipeline": pipe_launches,
+                             "device plane": plane_launches},
         "max_abs_err": max(
             c["max_abs_err"] for c in fused + cases),
         "equal": all(c["max_abs_err"] == 0 for c in fused) and all(
@@ -1929,6 +2139,7 @@ def main() -> int:
     }]
     print(json.dumps({"write_path": writes}))
     print(json.dumps({"lsm": lsm, "pipeline": pipeline}))
+    print(json.dumps({"device_plane": plane}))
     print(json.dumps({"serving": serving}))
     print("earlier designs at the headline shapes, copied from PERF.md §6 "
           "(H100 80GB HBM3 at 700 W), not measured in this run: "

@@ -22,6 +22,11 @@ Module map:
                  ``Compactor``, one atomic ``LevelSet`` manifest, fan-in reads
   pipeline.py -- ``AsyncIndexService`` / ``open_pipeline``: the coalescing
                  front door and the publish / compaction cadence
+  device_plane.py - ``DeviceShardedService``: the device-sharded serving
+                 plane (replicated boundary router, one shard row per torch
+                 device, allgather / bucketed all_to_all exchange, delta
+                 epoch publish through the versioned ``DeviceShardSet``);
+                 the reference's ``index/device.py``
   telemetry.py - ``Monitor``, the typed ``ServiceMetrics`` tree, and
                  ``Replanner`` (measure -> re-fit -> re-plan, hot-swapped)
 
@@ -48,6 +53,9 @@ _FIT_NAMES = {"FitSpec", "IndexPlan", "InfeasibleSpecError", "PlanCandidate",
               "open_index", "plan"}
 _LSM_NAMES = {"Compactor", "LevelSet", "LsmIndexService", "MemView",
               "Memtable", "MemtableFullError", "Run"}
+_DEVICE_NAMES = {"DeviceShardSet", "DeviceShardedService",
+                 "sharded_lookup_a2a", "sharded_lookup_allgather",
+                 "sharded_search_a2a", "sharded_search_allgather"}
 _PIPELINE_NAMES = {"AsyncIndexService", "PipelineClosed",
                    "PipelineOverloaded", "open_pipeline"}
 _TELEMETRY_NAMES = {"DeviceMetrics", "JSONLBackend", "LsmMetrics",
@@ -61,8 +69,8 @@ __all__ = [
     "merge_sorted_sources", "numpy_lookup", "numpy_search", "route_keys",
     "shard_boundaries", "shard_cut_indices", "shard_partition",
     *sorted(_ENGINE_NAMES), *sorted(_SNAPSHOT_NAMES), *sorted(_SHARDED_NAMES),
-    *sorted(_FIT_NAMES), *sorted(_LSM_NAMES), *sorted(_PIPELINE_NAMES),
-    *sorted(_TELEMETRY_NAMES),
+    *sorted(_FIT_NAMES), *sorted(_LSM_NAMES), *sorted(_DEVICE_NAMES),
+    *sorted(_PIPELINE_NAMES), *sorted(_TELEMETRY_NAMES),
 ]
 
 
@@ -82,6 +90,9 @@ def __getattr__(name):
     if name in _LSM_NAMES:
         from . import lsm
         return getattr(lsm, name)
+    if name in _DEVICE_NAMES:
+        from . import device_plane
+        return getattr(device_plane, name)
     if name in _PIPELINE_NAMES:
         from . import pipeline
         return getattr(pipeline, name)

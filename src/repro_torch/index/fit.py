@@ -41,9 +41,9 @@ reference's ``"tpu"`` profile does not carry over.  Backend names follow the
 port: the reference's ``pallas`` is ``cuda`` and ``xla-bisect`` is
 ``torch-bisect``; ``FitSpec.from_json`` / ``IndexPlan.from_json`` map them when
 they read the reference's JSON.  Raw-knob plans default to the ``cuda``
-backend, so services serve on the card unless told otherwise.  Of the plans
-``open_index`` builds, the device plane is not ported yet and raises
-``NotImplementedError``.
+backend, so services serve on the card unless told otherwise; a device plan
+opens the port's ``DeviceShardedService``, whose rows sit on ``cuda:0 ..
+D-1`` unless ``open_index`` is given ``devices=[...]``.
 """
 from __future__ import annotations
 
@@ -862,14 +862,15 @@ def open_index(keys, spec_or_plan: "FitSpec | IndexPlan", *,
                payload: np.ndarray | None = None, **service_kwargs):
     """The single SLO-driven entry point: plan (if needed) and build.
 
-    Returns an ``LsmIndexService`` for a ``write_mode="lsm"`` plan, an
-    ``IndexService`` for a one-shard plan, else a ``ShardedIndexService`` --
-    all ready for the full insert -> publish -> lookup cycle with no raw
-    knob supplied by the caller, serving on the backend the plan chose (on
-    the CUDA card for the device backends).  A ``backend="device"`` plan
-    raises ``NotImplementedError``: that service is not ported yet.  Extra
+    Returns a ``DeviceShardedService`` for a ``backend="device"`` plan, an
+    ``LsmIndexService`` for a ``write_mode="lsm"`` plan, an ``IndexService``
+    for a one-shard plan, else a ``ShardedIndexService`` -- all ready for
+    the full insert -> publish -> lookup cycle with no raw knob supplied by
+    the caller, serving on the backend the plan chose (on the CUDA card for
+    the device backends; a device plan's rows on ``cuda:0 .. D-1``, raising
+    where fewer cards exist, unless ``devices=[...]`` names them).  Extra
     ``service_kwargs`` (e.g. ``skew_threshold``, ``auto_rebalance``,
-    ``mode``) pass through to the service constructor.
+    ``mode``, ``devices``) pass through to the service constructor.
     """
     if keys is None:
         raise ValueError("open_index needs the real key array; plan(None, "
@@ -891,9 +892,9 @@ def open_index(keys, spec_or_plan: "FitSpec | IndexPlan", *,
                         f"{type(spec_or_plan).__name__}")
     # lazy: the services import this module for their plan= constructors
     if resolved.backend == "device":
-        raise NotImplementedError(
-            "a device plan serves from the device-sharded plane, which the "
-            "port does not have yet (ROADMAP queue A, slice 7)")
+        from .device_plane import DeviceShardedService
+        return DeviceShardedService.from_plan(keys, resolved, payload=payload,
+                                              **service_kwargs)
     if resolved.write_mode == "lsm":
         from .lsm import LsmIndexService
         return LsmIndexService.from_plan(keys, resolved, payload=payload,

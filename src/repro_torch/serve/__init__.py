@@ -2,9 +2,12 @@
 the index services (port of ``repro.serve``).
 
 The SLO-driven construction path (``FitSpec`` -> ``open_index`` /
-``open_pipeline``), the sharded service, the async front door, telemetry
+``open_pipeline``), the sharded service, the device-sharded plane, the async
+front door, telemetry
 and the typed query plane's result types are re-exported from
 ``repro_torch.index`` so serving code has one import."""
+from repro_torch.index.device_plane import (DeviceShardedService,
+                                            DeviceShardSet)
 from repro_torch.index.fit import FitSpec, IndexPlan, open_index
 from repro_torch.index.pipeline import (AsyncIndexService, PipelineClosed,
                                         PipelineOverloaded, open_pipeline)
@@ -18,7 +21,7 @@ from .index_service import IndexService
 from .step import make_decode_step, make_prefill_step
 
 __all__ = ["AsyncIndexService", "ContinuousBatcher", "DeviceMetrics",
-           "FitSpec", "IndexPlan", "IndexService", "MetricsSnapshot",
+           "DeviceShardSet", "DeviceShardedService", "FitSpec", "IndexPlan", "IndexService", "MetricsSnapshot",
            "Monitor", "PipelineClosed", "PipelineOverloaded", "PointResult",
            "RangeResult", "Replanner", "Request", "ServiceMetrics",
            "ShardSet", "ShardStats", "ShardedIndexService",

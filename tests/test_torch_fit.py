@@ -5,9 +5,8 @@ plan, field by field and to tolerance 0: the port's backend names map to the
 reference's (``cuda`` = ``pallas``, ``torch-bisect`` = ``xla-bisect``) and its
 device profile is given the reference TPU profile's numbers (as test input;
 ``hardware="gpu"`` stands for ``"tpu"``).  The port's ``open_index`` builds
-its own services (on the CPU here; an lsm plan its ``LsmIndexService``),
-raises for the device plane, which is not ported yet, and the reference's
-JSON loads.
+its own services (on the CPU here; an lsm plan its ``LsmIndexService``, a
+device plan its ``DeviceShardedService``), and the reference's JSON loads.
 """
 import dataclasses
 import json
@@ -20,7 +19,8 @@ from repro.core.datasets import lognormal_keys, uniform_keys
 from repro.index import fit as ref
 from repro_torch.core.cost_model import GPUCostParams
 from repro_torch.index import LsmIndexService, fit
-from repro_torch.serve import IndexService, ShardedIndexService
+from repro_torch.serve import (DeviceShardedService, IndexService,
+                               ShardedIndexService)
 
 CANDS = (8, 32, 128, 512, 2048)
 BACKENDS = {"cuda": "pallas", "torch-bisect": "xla-bisect"}
@@ -167,10 +167,13 @@ def test_open_index_builds_the_ported_services():
         fit.open_index(keys, {"error": 64})
 
 
-def test_lsm_and_device_plans_raise_not_implemented():
-    """An lsm plan now opens the port's ``LsmIndexService``, equal to the
-    reference's on the same plan (its manifest and every write's answers);
-    only a device plan still raises."""
+def test_lsm_and_device_plans_open_the_ports_services():
+    """An lsm plan opens the port's ``LsmIndexService``, equal to the
+    reference's on the same plan (its manifest and every write's answers),
+    and a device plan the port's ``DeviceShardedService`` on the rows
+    ``devices`` names, whose ``search`` equals the reference's on that plan
+    (held to one row there: this process has one JAX device; the D = 8 case
+    is in ``tests/test_torch_device_plane.py``)."""
     rng = np.random.default_rng(13)
     keys = np.sort(rng.choice(2 ** 22, size=5_000,
                               replace=False)).astype(np.float64)
@@ -200,11 +203,22 @@ def test_lsm_and_device_plans_raise_not_implemented():
                                       theirs.search(q, side))
         np.testing.assert_array_equal(ours.search(q, side),
                                       np.searchsorted(live, q, side))
-    dev = fit.plan(keys, fit.FitSpec(error=64, device_count=2,
-                                     candidate_errors=CANDS))
-    assert dev.backend == "device"
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        fit.open_index(keys, dev)
+    dev_spec = dict(error=64, device_count=2, candidate_errors=CANDS)
+    dev = fit.plan(keys, fit.FitSpec(**dev_spec))
+    ref_dev = ref.plan(keys, ref.FitSpec(**dev_spec))
+    assert dev.backend == ref_dev.backend == "device"
+    assert (dev.device_count, dev.exchange) == (ref_dev.device_count,
+                                                ref_dev.exchange)
+    ours = fit.open_index(keys, dev, devices=["cpu"] * 2)
+    theirs = ref.open_index(keys, dataclasses.replace(
+        ref_dev, device_count=1, n_shards=1))
+    assert isinstance(ours, DeviceShardedService) and ours.plan is dev
+    assert ours.n_devices == 2 and ours.exchange == dev.exchange
+    for side in ("left", "right"):
+        np.testing.assert_array_equal(ours.search(q, side),
+                                      theirs.search(q, side))
+        np.testing.assert_array_equal(ours.search(q, side),
+                                      np.searchsorted(keys, q, side))
 
 
 def test_raw_knob_plans_default_to_the_card():

@@ -478,3 +478,37 @@ def test_pipeline_on_the_card_launches_the_fused_kernel(cuda_device):
         flushes = pipe.metrics().pipeline.flushes
     assert not failures
     assert flushes > 0 and fl.fitting_search_cuda.launches > 0
+
+
+# ------------------------------------------------ the device plane on the card
+@pytest.mark.gpu
+@pytest.mark.parametrize("exchange", ["allgather", "a2a"])
+def test_device_plane_on_the_card_launches_one_search_a_row(cuda_device,
+                                                            exchange):
+    """Four rows on one card: every search equals ``np.searchsorted``, each
+    row's search is one launch of the fused kernel (a2a's overflow pass
+    adds a round), and a one-row publish keeps the clean rows' storage."""
+    from repro_torch.index import DeviceShardedService
+    keys = _dup_keys(80_000, seed=13)
+    dev = str(cuda_device)
+    svc = DeviceShardedService(keys, error=64, device_count=4,
+                               devices=[dev] * 4, buffer_size=16,
+                               exchange=exchange, assume_sorted=True)
+    assert all(t.is_cuda for t in svc.device_set.d_keys)
+    q = _queries(keys, np.random.default_rng(14), 40_000)
+    fl.fitting_search_cuda.launches = 0
+    for side in ("left", "right"):
+        np.testing.assert_array_equal(svc.search(q, side),
+                                      np.searchsorted(keys, q, side))
+    launches = fl.fitting_search_cuda.launches
+    if svc.metrics().device.a2a_overflow_queries == 0:
+        assert launches == 4 * 2
+    else:
+        assert 4 * 2 < launches <= 4 * 2 * 2
+    before = [t.data_ptr() for t in svc.device_set.d_keys]
+    svc.insert(float(keys[0]) + 0.5)
+    svc.publish()
+    after = [t.data_ptr() for t in svc.device_set.d_keys]
+    assert [a != b for a, b in zip(after, before)] == [True] + [False] * 3
+    merged = np.sort(np.append(keys, keys[0] + 0.5))
+    np.testing.assert_array_equal(svc.search(q), np.searchsorted(merged, q))

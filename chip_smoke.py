@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: the learned-index read path,
 its write path, planning and sharded serving, the LSM write plane and the
-async front door, the device-sharded plane, and RecurrentGemma-9B serving.
+async front door, the device-sharded plane, RecurrentGemma-9B serving, and
+the attention families (gemma3-12b, internlm2-1.8b, gemma2-27b, minicpm-2b,
+qwen3-moe-235b-a22b, arctic-480b, llama-3.2-vision-11b, whisper-medium).
 
 Run from the repository root, with no arguments:
 
@@ -111,7 +113,13 @@ the port's sources are missing.  Phases, each of which raises on failure:
    tensor-core kernel), then with softcap and GQA (hd 128, H 8, Hkv 4,
    T = S = 2048, f32) and non-causal (hd 64, f32), both on the CUDA-core
    kernel, one decode query against S = 4096 (bf16), the local prefill at
-   hd 128 and non-causal at hd 64 in bf16 (tensor cores); the RG-LRU
+   hd 128 and non-causal at hd 64 in bf16 (tensor cores), and the
+   attention families' shapes in bf16 (tensor cores): whisper-medium's
+   encoder (B 2, H = Hkv = 16, T = S = 1,500, hd 64, non-causal),
+   llama-3.2-vision's cross layers (B 1, H 32, Hkv 8, Tq 4,096 over S
+   1,600 patches, hd 128, non-causal: q_offset = S - Tq < 0) and
+   gemma2-27b's global layers (B 1, H 32, Hkv 16, T = S = 4,096, hd 128,
+   causal, softcap 50, and the same without the cap); the RG-LRU
    scan at ``RGLRU_CASES``: B 4, T = W = 4096 with h0 (the headline), the
    batcher's prefill B 1, T 3,072, W 4,096 with h0, a ragged T (2, 1000,
    96), a ragged T and W (2, 1000, 100: a partial channel tile) and an
@@ -133,6 +141,14 @@ the port's sources are missing.  Phases, each of which raises on failure:
    matmul and cuDNN: B 2, prefill 2,304 tokens (past the 2,048 window) +
    16 teacher-forced decode steps == a cache-free forward, rtol = atol =
    3e-2.
+10b. Consistency of the attention families: each of the eight configs at
+   full width, each unit (and encoder unit) repeated once, f32 with TF32
+   off, B 2: prefill (past the local window where there is one; 64
+   tokens for MoE, 256 otherwise) with the memory stub (N(0, 0.02)
+   embeddings of 1,600 patches or 1,500 frames) where the family has one,
+   + 16 teacher-forced decode steps == a cache-free forward, rtol = atol =
+   3e-2.  MoE runs at capacity factor n_experts / top_k, so no token is
+   dropped at either token count.
 11. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
    parameters, bf16, drawn from seed 0 on the card): the prefill step at
    B 4, T 4,096 (timed, tokens/s), then ``ContinuousBatcher`` (4 slots,
@@ -142,15 +158,37 @@ the port's sources are missing.  Phases, each of which raises on failure:
    are set to 0 just before this phase and must be > 0 after it; every
    scan launch of the phase must take the ``tma`` path (its counts by
    path are printed after the prefill and at the end).
+11b. Serving the attention families in bf16 at full width, one at a time,
+   each freed before the next: full depth, but qwen3-moe-235b-a22b cut to
+   11 of 94 layers and arctic-480b to 2 of 35 (one card's 80 GB).  The
+   prefill step at B 4, T 4,096 (whisper: its 448-token decoder context)
+   with the memory stub where the family has one (timed, tokens/s, a
+   profiled breakdown); for the MoE models that profile's device time by
+   aten op: the expert products (``bmm``) beside the router's top-k, the
+   dispatch (sort, searchsorted, gather, scatter) and the combine
+   (``index_add_``); then the
+   decoder-only models' ``ContinuousBatcher`` (4 slots, cache 1,056: f32
+   caches, bf16 for MoE) drains 8 requests of 128 to 1,024 prompt tokens,
+   16 new tokens each, and the vlm and audio models decode 16 greedy
+   tokens through ``make_decode_step`` over the prefill's caches.  Every
+   token in the vocabulary, logits finite; flash's launch count is set to
+   0 before each model and must be > 0 after it; memory_allocated after
+   the weights and at its peak.  The warm-up prefill records each
+   distinct flash instantiation it makes (dtype, hd, H, Hkv, Tq, S,
+   causal, window, softcap) with a copy of its batch-0 inputs; after the
+   model is freed each is held against the twin on those inputs within
+   ``FLASH_TOL`` and ``BLOCK_REL_TOL``, as phase 9's cases are.
 12. A text line with the three redesigned kernels' earlier times, copied
    from PERF.md and marked so, beside this run's; a ``{"kernels": [...]}``
    line (all three kernels, each with its design, every number from this
    run; the fused search's launches are the read path's, the write
-   path's, the LSM's, the pipeline's and the device plane's), the card
+   path's, the LSM's, the pipeline's and the device plane's; flash's are
+   phase 11's and 11b's, by architecture in ``launches_by_arch``), the card
    line again, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1560,6 +1598,19 @@ FLASH_CASES = (
      {"causal": True, "window": 2048}),
     ("non-causal hd 64", 2, 8, 2, 1024, 1024, 64, "bfloat16",
      {"causal": False}),
+    # the attention families' shapes: whisper-medium's encoder over its
+    # 1,500 frames; llama-3.2-vision's cross layers, a 4,096-token prompt
+    # over 1,600 patches (Tq > S: q_offset = S - Tq < 0); gemma2-27b's
+    # global layers with their soft-cap
+    ("whisper encoder", 2, 16, 16, 1500, 1500, 64, "bfloat16",
+     {"causal": False}),
+    ("vision cross", 1, 32, 8, 4096, 1600, 128, "bfloat16",
+     {"causal": False}),
+    ("gemma2 global", 1, 32, 16, 4096, 4096, 128, "bfloat16",
+     {"causal": True, "softcap": 50.0}),
+    # the same without the soft-cap: what the cap itself costs
+    ("gemma2 global no cap", 1, 32, 16, 4096, 4096, 128, "bfloat16",
+     {"causal": True}),
 )
 # The reference's own bounds for a blocked against a dense softmax
 # (tests/test_kernels_extra.py): both accumulate in f32, in another order.
@@ -1588,6 +1639,84 @@ CONSIST_TOL = 3e-2         # rtol = atol, tests/test_multistep_decode.py
 PREFILL_B, PREFILL_T = 4, 4096
 N_SLOTS, CACHE_LEN, N_REQUESTS, MAX_NEW = 4, 4160, 8, 16
 PROMPT_LENS = (256, 3072)
+# Phase 10b: the attention families at full width, each unit (and encoder
+# unit) repeated once, f32: (arch, prefill tokens).  The prefill passes each
+# local window (gemma3 1,024, gemma2 4,096) so decode wraps the rings; the
+# MoE prompts stay short, as the dispatch buffer is E x capacity x D.
+ARCH_CONSIST = (("gemma3-12b", 1040), ("internlm2-1.8b", 256),
+                ("gemma2-27b", 4112), ("minicpm-2b", 256),
+                ("arctic-480b", 64), ("qwen3-moe-235b-a22b", 64),
+                ("llama-3.2-vision-11b", 256), ("whisper-medium", 64))
+# Phase 11b: the attention families served in bf16 at full width: (arch,
+# layers kept where one card forces a depth cut).  The two MoE models keep
+# bf16 caches: with f32 caches decode would promote each layer's whole
+# expert tensors to f32 (17.8 GB for one of arctic's).
+ARCH_SERVE = (("gemma3-12b", None), ("internlm2-1.8b", None),
+              ("gemma2-27b", None), ("minicpm-2b", None),
+              ("qwen3-moe-235b-a22b", 11), ("arctic-480b", 2),
+              ("llama-3.2-vision-11b", None), ("whisper-medium", None))
+ARCH_PREFILL_T = {"whisper-medium": 448}   # whisper's decoder context
+ARCH_CACHE_LEN, ARCH_PROMPTS = 1056, (128, 1024)
+# The MoE layer's torch ops, by the profiler's self device time of the aten
+# ops that launch them: the expert products (the only batched products of a
+# prefill) and the router's top-k, the dispatch (sort, searchsorted, gather,
+# scatter) and the combine (index_add_).  The scatter also holds the caches'
+# ring writes, which are index_put_ too.
+MOE_OPS = (("expert products", ("aten::bmm",)),
+           ("top-k", ("aten::topk",)),
+           ("sort", ("aten::sort",)),
+           ("searchsorted", ("aten::searchsorted",)),
+           ("gather", ("aten::index",)),
+           ("scatter", ("aten::index_put_", "aten::_index_put_impl_")),
+           ("combine", ("aten::index_add_",)))
+
+
+def flash_check(torch, name, q, k, v, kw):
+    """One launch of the flash kernel against its twin on the same inputs:
+    every element within FLASH_TOL (relative and absolute) and the block
+    relative error within BLOCK_REL_TOL, else AssertionError.  Returns
+    (max abs err, tol, block relative error, its limit)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_torch)
+    from repro_torch.kernels.ref import BLOCK_REL_TOL, block_rel_err
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = FLASH_TOL[str(q.dtype)[6:]]
+    bad = (got.float() - want.float()).abs() > tol + tol * want.float().abs()
+    rel, rel_tol = block_rel_err(got, want), BLOCK_REL_TOL[q.dtype]
+    if bool(bad.any()) or rel > rel_tol or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash {name}: kernel != plain twin "
+                             f"(max abs err {err}, {int(bad.sum())} "
+                             f"elements outside {tol}; block relative "
+                             f"error {rel} against {rel_tol})")
+    return err, tol, rel, rel_tol
+
+
+@contextlib.contextmanager
+def recording_flash(seen: dict):
+    """While open, every flash call the model makes (through
+    ``blocks.flash_attention``) goes on as before, and the first call of
+    each distinct (dtype, hd, H, Hkv, Tq, S, causal, window, softcap) keeps
+    a copy of its batch-0 q, k and v, strides kept, in ``seen``."""
+    from repro_torch.models import blocks
+    inner = blocks.flash_attention
+
+    def record(q, k, v, **kw):
+        key = (str(q.dtype)[6:], q.shape[3], q.shape[1], k.shape[1],
+               q.shape[2], k.shape[2], kw["causal"], kw["window"],
+               kw["softcap"])
+        if key not in seen:
+            seen[key] = (q[:1].clone(), k[:1].clone(), v[:1].clone(), kw)
+        return inner(q, k, v, **kw)
+
+    blocks.flash_attention = record
+    try:
+        yield seen
+    finally:
+        blocks.flash_attention = inner
 
 
 def flash_vs_plain(torch, dev):
@@ -1596,7 +1725,6 @@ def flash_vs_plain(torch, dev):
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_torch,
                                                      kernel_path)
-    from repro_torch.kernels.ref import BLOCK_REL_TOL, block_rel_err
     cases = []
     for name, b, h, hkv, tq, s, hd, dt, kw in FLASH_CASES:
         dtype = getattr(torch, dt)
@@ -1604,20 +1732,7 @@ def flash_vs_plain(torch, dev):
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                    for shape in ((b, h, tq, hd), (b, hkv, s, hd),
                                  (b, hkv, s, hd)))
-        got = flash_attention_cuda(q, k, v, **kw)
-        want = flash_attention_torch(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = FLASH_TOL[dt]
-        bad = (got.float() - want.float()).abs() > tol + tol * \
-            want.float().abs()
-        rel, rel_tol = block_rel_err(got, want), BLOCK_REL_TOL[dtype]
-        if bool(bad.any()) or rel > rel_tol or \
-                not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"flash {name}: kernel != plain twin "
-                                 f"(max abs err {err}, {int(bad.sum())} "
-                                 f"elements outside {tol}; block relative "
-                                 f"error {rel} against {rel_tol})")
+        err, tol, rel, rel_tol = flash_check(torch, name, q, k, v, kw)
         qpos = torch.arange(tq, device=dev)[:, None] + (s - tq)
         kpos = torch.arange(s, device=dev)[None, :]
         mask = torch.ones((tq, s), dtype=torch.bool, device=dev)
@@ -1811,9 +1926,13 @@ def device_breakdown(torch, fn) -> dict:
     out = {k: v / 1e3 for k, v in kinds.items()}
     busy = sum(out.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    self_ms = {ev.key: ev.self_device_time_total / 1e3
+               for ev in prof.key_averages()}
     out.update(wall_ms=wall_ms, busy_ms=busy,
                idle=(1.0 - busy / wall_ms) if busy else None,
-               top=[(n[:60], us / 1e3) for n, us in top])
+               top=[(n[:60], us / 1e3) for n, us in top],
+               ops={label: sum(self_ms.get(op, 0.0) for op in ops)
+                    for label, ops in MOE_OPS})
     return out
 
 
@@ -1955,6 +2074,317 @@ def lm_serving(torch, dev):
                       "decode_tick_ms": float(np.median(decode_ticks)) * 1e3}
 
 
+def _arch_cfg(arch, repeats=None, **moe):
+    """``arch``'s config, each stack's repeats set to ``repeats`` (None:
+    kept), the MoE config's fields replaced by ``moe``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if repeats is not None:
+        cut = lambda stacks: tuple((u, repeats) for u, _ in stacks)
+        cfg = dataclasses.replace(cfg, stacks=cut(cfg.stacks),
+                                  encoder_stacks=cut(cfg.encoder_stacks))
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
+
+
+def _memory_stub(torch, dev, cfg, batch, seed, dtype):
+    """The vlm / audio frontends' stub: N(0, 0.02) embeddings of
+    ``memory_len`` patches or frames, as the reference's tests draw them."""
+    if not cfg.memory_len:
+        return None
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((batch, cfg.memory_len, cfg.d_model), generator=g,
+                        device=dev) * 0.02).to(dtype)
+
+
+def arch_consistency(torch, dev):
+    """Phase 10b: each attention family at full width, one repeat of each
+    unit, f32 with TF32 off: prefill + 16 teacher-forced decode steps ==
+    a cache-free forward within CONSIST_TOL.  MoE runs at capacity factor
+    n_experts / top_k, so that no token is dropped at either token count
+    (capacity depends on it, so forward and decode would otherwise drop
+    different tokens, as in the reference)."""
+    import gc
+    from repro_torch.models import decode_step, forward, init_caches, \
+        init_params, prefill
+    from repro_torch.models.model import param_count, unembed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for i, (arch, t_pre) in enumerate(ARCH_CONSIST):
+        base = _arch_cfg(arch)
+        moe = {} if base.moe is None else {
+            "capacity_factor": base.moe.n_experts / base.moe.top_k}
+        cfg = _arch_cfg(arch, 1, **moe)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED + i, dtype=torch.float32,
+                             device=dev)
+        n = t_pre + CONSIST_T_DEC
+        g = torch.Generator(device=dev).manual_seed(SEED + 7 + i)
+        toks = torch.randint(0, cfg.vocab, (CONSIST_B, n), generator=g,
+                             device=dev, dtype=torch.int32)
+        mem = _memory_stub(torch, dev, cfg, CONSIST_B, SEED + 9 + i,
+                           torch.float32)
+        hidden, _ = forward(params, cfg, toks, memory=mem,
+                            return_hidden=True)
+        ref = unembed(params, cfg, hidden[:, t_pre:])
+        del hidden
+        caches = init_caches(cfg, CONSIST_B, n, dtype=torch.float32,
+                             device=dev)
+        _, caches = prefill(params, cfg, toks[:, :t_pre], caches,
+                            memory=mem, last_only=True)
+        worst = 0.0
+        for j in range(CONSIST_T_DEC):
+            pos = torch.full((CONSIST_B,), t_pre + j, device=dev)
+            logits, caches = decode_step(params, cfg,
+                                         toks[:, t_pre + j: t_pre + j + 1],
+                                         pos, caches)
+            diff = (logits[:, 0] - ref[:, j]).abs()
+            worst = max(worst, float(diff.max()))
+            if bool((diff > CONSIST_TOL + CONSIST_TOL
+                     * ref[:, j].abs()).any()) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"consistency {arch}: decode step {j} "
+                                     f"diverged from forward (max abs diff "
+                                     f"{float(diff.max())})")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[arch] = {"stacks": repr(cfg.stacks),
+                     "encoder_stacks": repr(cfg.encoder_stacks),
+                     "params": param_count(cfg), "t_pre": t_pre,
+                     "max_abs_diff": worst,
+                     "max_abs_logit": float(ref.abs().max()),
+                     "s": time.perf_counter() - t0}
+        extra = "".join(
+            (f" + encoder {cfg.encoder_stacks}" if cfg.encoder_stacks else "",
+             f", {out[arch]['params']} parameters, f32, TF32 off",
+             f", capacity factor {cfg.moe.capacity_factor}" if cfg.moe else "",
+             f", memory {cfg.memory_len}" if cfg.memory_len else ""))
+        print(f"consistency {arch} (full width, one repeat of each unit: "
+              f"{cfg.stacks}{extra}"
+              f"): B={CONSIST_B} prefill {t_pre} + {CONSIST_T_DEC} decode "
+              f"steps == forward within rtol=atol={CONSIST_TOL}; max abs "
+              f"diff {worst:.3g}, max |logit| "
+              f"{out[arch]['max_abs_logit']:.3g}; peak {peak:.1f} GiB "
+              f"({out[arch]['s']:.1f} s)", flush=True)
+        del params, caches, ref, logits, mem
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def serve_arch(torch, dev, arch, depth, card) -> dict:
+    """Phase 11b for one architecture, bf16: the prefill step at B 4, T
+    4,096 (whisper: its 448-token decoder context) with the memory stub
+    where the family has one, then the batcher draining N_REQUESTS
+    requests (decoder-only) or 16 greedy tokens through make_decode_step
+    over the prefill's caches (vlm, audio: the batcher takes no memory).
+    Flash's launch count is set to 0 before and must be > 0 after; then
+    each flash instantiation the warm-up prefill made is held against the
+    twin on its own inputs."""
+    import gc
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     kernel_path)
+    from repro_torch.models import decode_step, init_caches, init_params, \
+        prefill
+    from repro_torch.models.model import (active_param_count, param_bytes,
+                                          param_count)
+    from repro_torch.serve import ContinuousBatcher, Request, \
+        make_decode_step, make_prefill_step
+    cfg = _arch_cfg(arch, depth)
+    full = _arch_cfg(arch)
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=bf16, device=dev)
+    torch.cuda.synchronize()
+    res = {"params": param_count(cfg), "bytes": param_bytes(params),
+           "active_params": active_param_count(cfg),
+           "full_params": param_count(full), "layers": cfg.n_layers,
+           "full_layers": full.n_layers,
+           "weights_allocated_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    cut = "" if depth is None else \
+        f", depth cut to {cfg.n_layers} of {full.n_layers} layers " \
+        f"(full model {res['full_params']} parameters)"
+    print(f"serving {arch}: {res['params']} parameters "
+          f"({res['active_params']} active a token), {res['bytes']} bytes "
+          f"bf16 on the card{cut}; memory_allocated "
+          f"{res['weights_allocated_gib']:.2f} GiB "
+          f"({time.perf_counter() - t0:.1f} s to draw)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    b, t = PREFILL_B, ARCH_PREFILL_T.get(arch, PREFILL_T)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=g, device=dev,
+                         dtype=torch.int32)
+    mem = _memory_stub(torch, dev, cfg, b, SEED + 12, bf16)
+    step = make_prefill_step(cfg)
+    walls, caches, seen = [], None, {}
+    for i in range(3):    # the first call warms the libraries and records
+        caches = None     # each flash instantiation the prefill makes
+        fresh = init_caches(cfg, b, t + MAX_NEW, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with recording_flash(seen) if i == 0 else contextlib.nullcontext():
+            nxt, caches = step(params, toks, fresh, memory=mem)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        del fresh
+    if nxt.shape != (b,) or not bool(((nxt >= 0) & (nxt < cfg.vocab)).all()):
+        raise AssertionError(f"{arch}: prefill step gave tokens "
+                             f"{nxt.tolist()}")
+    res["prefill_s"] = float(np.median(walls[1:]))
+    res["prefill_tokens_per_s"] = b * t / res["prefill_s"]
+    print(f"{arch} prefill step B={b} T={t}"
+          f"{' memory ' + str(cfg.memory_len) if mem is not None else ''}: "
+          f"{res['prefill_s']:.3f} s (median of {len(walls) - 1} after a "
+          f"warm-up of {walls[0]:.3f} s), "
+          f"{res['prefill_tokens_per_s']:.0f} tokens/s [{card}]", flush=True)
+    keep = caches if mem is not None else None
+    caches = None
+    got = {}
+
+    def profiled_prefill():
+        got["logits"], _ = prefill(params, cfg, toks, init_caches(
+            cfg, b, t + MAX_NEW, device=dev), memory=mem, last_only=True)
+
+    res["prefill_breakdown"] = device_breakdown(torch, profiled_prefill)
+    if not bool(torch.isfinite(got.pop("logits")).all()):
+        raise AssertionError(f"{arch}: prefill logits are not all finite")
+    print_breakdown(f"{arch} prefill B={b} T={t}", res["prefill_breakdown"])
+    if cfg.moe is not None:
+        ops = res["prefill_breakdown"]["ops"]
+        disp = sum(ms for label, ms in ops.items()
+                   if label != "expert products")
+        print(f"{arch} MoE ops in that prefill ({cfg.n_layers} layers, "
+              f"torch.profiler self device ms): expert products "
+              f"{ops['expert products']:.2f}; router top-k, dispatch and "
+              f"combine {disp:.2f} (" + ", ".join(
+                  f"{k} {v:.2f}" for k, v in ops.items()
+                  if k != "expert products")
+              + f"; scatter includes the caches' ring writes) [{card}]",
+              flush=True)
+
+    if mem is None:
+        cache_dtype = bf16 if cfg.moe is not None else torch.float32
+        rng = np.random.default_rng(SEED + 13)
+        batcher = ContinuousBatcher(cfg, params, n_slots=N_SLOTS,
+                                    cache_len=ARCH_CACHE_LEN,
+                                    dtype=cache_dtype, device=dev)
+        reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).astype(
+            np.int32), max_new=MAX_NEW) for i, n in enumerate(
+                rng.integers(*ARCH_PROMPTS, N_REQUESTS, endpoint=True))]
+        for r in reqs:
+            batcher.submit(r)
+        ticks, n_ticks = [], 0
+        t1 = time.perf_counter()
+        while batcher.queue or any(batcher.slot_req):
+            admits = bool(batcher.queue) and None in batcher.slot_req
+            t2 = time.perf_counter()
+            batcher.tick()
+            torch.cuda.synchronize()
+            if not admits:
+                ticks.append(time.perf_counter() - t2)
+            n_ticks += 1
+            if n_ticks > 10_000:
+                raise AssertionError(f"{arch}: batcher did not drain")
+        wall = time.perf_counter() - t1
+        if sorted(r.rid for r in batcher.completed) != \
+                list(range(N_REQUESTS)) or any(
+                    len(r.out) != MAX_NEW or not all(
+                        0 <= x < cfg.vocab for x in r.out) for r in reqs):
+            raise AssertionError(f"{arch}: a request did not complete with "
+                                 f"{MAX_NEW} tokens in the vocabulary")
+        last = reqs[-N_SLOTS:]
+        tokens = torch.tensor([[r.out[-1]] for r in last], dtype=torch.int32,
+                              device=dev)
+        pos = torch.tensor([len(r.prompt) + MAX_NEW - 1 for r in last],
+                           device=dev)
+        dec_caches = batcher.caches
+        n_tok = sum(len(r.out) for r in reqs)
+        what = (f"batcher: {N_REQUESTS} requests (prompts "
+                f"{sorted(len(r.prompt) for r in reqs)}), {N_SLOTS} slots, "
+                f"cache {ARCH_CACHE_LEN} {str(cache_dtype)[6:]}: drained in "
+                f"{n_ticks} ticks, {n_tok} tokens")
+        res.update(ticks=n_ticks, cache_dtype=str(cache_dtype)[6:])
+    else:
+        batcher = None
+        dec = make_decode_step(cfg)
+        tok, dec_caches, ticks = nxt, keep, []
+        out = [tok]
+        t1 = time.perf_counter()
+        for i in range(MAX_NEW):
+            pos = torch.full((b,), t + i, device=dev)
+            t2 = time.perf_counter()
+            tok, dec_caches = dec(params, tok[:, None], pos, dec_caches)
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter() - t2)
+            out.append(tok)
+        wall = time.perf_counter() - t1
+        gen = torch.stack(out, 1)
+        if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+            raise AssertionError(f"{arch}: decode gave tokens {gen.tolist()}")
+        tokens, pos = tok[:, None], torch.full((b,), t + MAX_NEW, device=dev)
+        n_tok = b * MAX_NEW
+        what = (f"greedy decode through make_decode_step: {MAX_NEW} steps "
+                f"at B={b} over the prefill's caches (bf16), {n_tok} tokens")
+    logits, _ = decode_step(params, cfg, tokens, pos, dec_caches)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch}: decode logits are not all finite")
+    res["decode_breakdown"] = device_breakdown(torch, lambda: decode_step(
+        params, cfg, tokens, pos, dec_caches))
+    print_breakdown(f"{arch} decode step B={tokens.shape[0]}",
+                    res["decode_breakdown"])
+    res.update(decode_tick_ms=float(np.median(ticks)) * 1e3, drain_s=wall,
+               tokens=n_tok, decode_tokens_per_s=n_tok / wall,
+               flash_launches=flash_attention_cuda.launches,
+               peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"{arch} {what}, {wall:.2f} s, {res['decode_tokens_per_s']:.1f} "
+          f"tokens/s; median decode tick {res['decode_tick_ms']:.1f} ms; "
+          f"flash launches {res['flash_launches']}; peak memory_allocated "
+          f"{res['peak_allocated_gib']:.2f} GiB [{card}]", flush=True)
+    if res["flash_launches"] <= 0:
+        raise AssertionError(f"{arch}: serving never launched "
+                             f"flash_attention")
+    del params, batcher, dec_caches, keep, logits, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each flash instantiation of the prefill, at batch 1, on the card
+    # inputs the model gave it, against the twin (after the launch count
+    # was read, so these launches are not counted)
+    res["flash_checks"] = []
+    for key, (q, k, v, kw) in seen.items():
+        dt, hd, h, hkv, tq, s, causal, window, softcap = key
+        what = (f"{arch} {dt} hd={hd} H={h} Hkv={hkv} Tq={tq} S={s} "
+                f"causal={causal} window={window} softcap={softcap}")
+        err, tol, rel, rel_tol = flash_check(torch, what, q, k, v, kw)
+        res["flash_checks"].append({
+            "dtype": dt, "hd": hd, "h": h, "hkv": hkv, "tq": tq, "s": s,
+            "causal": causal, "window": window, "softcap": softcap,
+            "path": kernel_path(q.dtype, hd), "max_abs_err": err,
+            "block_rel_err": rel})
+        print(f"flash in {what} ({kernel_path(q.dtype, hd)}, B=1, as the "
+              f"prefill gave it): within {tol} (max abs err {err:.3g}) and "
+              f"block relative error {rel:.3g} <= {rel_tol}", flush=True)
+    del seen
+    torch.cuda.empty_cache()
+    return res
+
+
+def arch_serving(torch, dev, card) -> dict:
+    """Phase 11b: every attention family in turn, each freed before the
+    next."""
+    out = {}
+    for arch, depth in ARCH_SERVE:
+        t0 = time.perf_counter()
+        out[arch] = serve_arch(torch, dev, arch, depth, card)
+        out[arch]["s"] = time.perf_counter() - t0
+    return out
+
+
 def build_all(_build) -> None:
     """Compile every kernel source at once (one nvcc each, in parallel) and
     print ptxas's register and spill report."""
@@ -2069,7 +2499,17 @@ def main() -> int:
     rglru_cases = rglru_vs_plain(torch, dev)
     lm_consistency(torch, dev)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    consistency = arch_consistency(torch, dev)
+    print(f"architecture consistency: {len(consistency)} configs "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
     lm_launches, serving = lm_serving(torch, dev)
+    t0 = time.perf_counter()
+    archs = arch_serving(torch, dev, card)
+    print(f"architecture serving: {len(archs)} configs "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+    flash_by_arch = {ARCH: lm_launches["flash_attention"],
+                     **{a: r["flash_launches"] for a, r in archs.items()}}
 
     head = next(c for c in fused if (c["error"], c["mode"])
                 == (HEADLINE[0], f"search-{HEADLINE[1]}"))
@@ -2108,7 +2548,8 @@ def main() -> int:
         "design": "bf16 hd 64-256: TMA K/V ring + wgmma, warp-specialised "
                   "(2 consumer warpgroups, 1 producer); f32 and hd 16/32: "
                   "CUDA-core f32",
-        "launches": lm_launches["flash_attention"],
+        "launches": sum(flash_by_arch.values()),
+        "launches_by_arch": flash_by_arch,
         "max_abs_err": flash_head["max_abs_err"], "equal": True,
         **{k: flash_head[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
@@ -2141,6 +2582,8 @@ def main() -> int:
     print(json.dumps({"lsm": lsm, "pipeline": pipeline}))
     print(json.dumps({"device_plane": plane}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"arch_consistency": consistency,
+                      "arch_serving": archs}))
     print("earlier designs at the headline shapes, copied from PERF.md §6 "
           "(H100 80GB HBM3 at 700 W), not measured in this run: "
           + "; ".join(f"{name} {ms} ms ({what}), {new:.4f} ms in this run"

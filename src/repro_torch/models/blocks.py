@@ -1,18 +1,22 @@
-"""Model blocks of the port (functional: explicit parameter dicts), for the
-block types ``attn``, ``local`` and ``rglru`` (port of
+"""Model blocks of the port (functional: explicit parameter dicts), for
+every block type but the xLSTM pair: self-attention (``attn``, ``local``,
+``enc``, with optional qk-norm), cross-attention (``cross`` and the cross half
+of ``self+cross``), the top-k MoE FFN and the RG-LRU (port of
 ``repro.models.blocks``).
 
 Every block follows ``apply_<x>(params, x, cfg, ctx) -> (x, new_cache)``
-where ``ctx`` carries mode/positions/cache.  Caches make prefill/decode work:
-KV rings for attention (global cache = ring of size S, local = ring of size
-window), recurrent states for the RG-LRU.
+where ``ctx`` carries mode/positions/memory/cache.  Caches make
+prefill/decode work: KV rings for self-attention (global cache = ring of
+size S, local = ring of size window), the memory's keys and values for
+cross-attention, recurrent states for the RG-LRU.
 
 The two hot functions of prefill run on the port's hand-written kernels:
-attention over the prompt is ``kernels.flash_attention`` (the reference
-computes the same function in XLA, ``_attend`` under the prefill mask), and
-the RG-LRU scan is ``kernels.rglru_scan`` (the reference's associative
-``_rglru_scan``).  Decode over the ring and the one-step RG-LRU update stay
-plain torch, as the reference keeps them in XLA.
+attention over the prompt (self- or cross-) is ``kernels.flash_attention``
+(the reference computes the same function in XLA, ``_attend`` under the
+prefill mask), and the RG-LRU scan is ``kernels.rglru_scan`` (the
+reference's associative ``_rglru_scan``).  Decode attention, the one-step
+RG-LRU update and the MoE dispatch stay plain torch, as the reference keeps
+them in XLA.
 
 Types follow JAX's promotion: :func:`mm` multiplies mixed-type operands in
 the wider type (f32 caches meet bf16 weights at decode), and elementwise ops
@@ -40,13 +44,15 @@ Dense = Callable[[tuple, torch.dtype], torch.Tensor]
 class Ctx:
     mode: str                          # "train" | "prefill" | "decode"
     pos: torch.Tensor | None = None    # (B, T) absolute positions
+    memory: torch.Tensor | None = None  # (B, M, D) cross-attention source
     cache: Any = None                  # per-layer cache dict (prefill/decode)
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with JAX's type promotion: mixed operands (an f32 cache
     read against bf16 weights) multiply in the wider type; like types keep
-    theirs (bf16 x bf16 -> bf16, accumulated in f32 by the matmul)."""
+    theirs (bf16 x bf16 -> bf16, accumulated in f32 by the matmul).  Batched
+    operands (the experts' ``(E, C, D) @ (E, D, F)``) promote the same way."""
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
@@ -75,13 +81,16 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- attn
-def init_attention(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
+def init_attention(cfg: ModelConfig, dense: Dense, dtype: torch.dtype,
+                   device) -> dict:
+    """Self- and cross-attention share one layout."""
     d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    p = {"wq": dense((d, h * hd), dtype), "wk": dense((d, kv * hd), dtype),
+         "wv": dense((d, kv * hd), dtype), "wo": dense((h * hd, d), dtype)}
     if cfg.qk_norm:
-        raise NotImplementedError("qk_norm is not ported (ROADMAP queue A, "
-                                  "slice 9: the other nine configs)")
-    return {"wq": dense((d, h * hd), dtype), "wk": dense((d, kv * hd), dtype),
-            "wv": dense((d, kv * hd), dtype), "wo": dense((h * hd, d), dtype)}
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return p
 
 
 def _attend_dense(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
@@ -107,22 +116,37 @@ def _attend_prefill(q, k, v, cfg: ModelConfig, causal: bool,
                     window: Optional[int]) -> torch.Tensor:
     """The reference's ``_attend`` under the prefill mask (positions
     0..T-1 for queries and keys alike) is ``flash_attention`` with
-    q_offset = 0: the kernel on the card, its plain twin on the CPU."""
+    q_offset = 0, and under cross-attention's all-ones mask it is the
+    kernel with ``causal=False`` (q_offset = S - T, which then masks
+    nothing): the kernel on the card, its plain twin on the CPU.
+
+    The kernel takes one type; the reference computes in f32 whatever it
+    is given and returns v's type.  So mixed operands (a bf16 decoder query
+    over keys projected from f32 memory) meet in the wider type, and the
+    result is cast to v's."""
     b, t, h, hd = q.shape
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal, window=window,
-                          softcap=cfg.attn_softcap, scale=cfg.hd ** -0.5)
-    return out.transpose(1, 2).reshape(b, t, h * hd)
+    dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+    out = flash_attention(q.transpose(1, 2).to(dt), k.transpose(1, 2).to(dt),
+                          v.transpose(1, 2).to(dt), causal=causal,
+                          window=window, softcap=cfg.attn_softcap,
+                          scale=cfg.hd ** -0.5)
+    return out.transpose(1, 2).reshape(b, t, h * hd).to(v.dtype)
 
 
 def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
-                    causal: bool = True, window: Optional[int] = None):
-    """Self-attention with ring caches for prefill/decode."""
+                    causal: bool = True, window: Optional[int] = None,
+                    cross: bool = False):
+    """Self- or cross-attention with ring caches for prefill/decode."""
     b, t, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = mm(x, p["wq"]).reshape(b, t, h, hd)
+    if cross:
+        return _apply_cross(p, q, cfg, ctx)
     k = mm(x, p["wk"]).reshape(b, t, kv, hd)
     v = mm(x, p["wv"]).reshape(b, t, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     pos = ctx.pos if ctx.pos is not None else \
         torch.arange(t, device=x.device)[None].expand(b, t)
     q = rope(q, pos, cfg.rope_theta)
@@ -165,6 +189,33 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     return mm(_attend_dense(q, ck, cv, mask, cfg), p["wo"]), new_cache
 
 
+def _apply_cross(p: dict, q: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
+    """Cross-attention of q (B, T, H, hd) over the memory: no RoPE, every
+    key visible.  Keys and values are projected from ``ctx.memory`` at
+    prefill and in train mode (and become the cache), and read from the
+    cache at decode; qk-norm, where configured, applies on every read, as
+    the reference applies it."""
+    b, t = q.shape[:2]
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    if ctx.cache is not None and "k" in ctx.cache and ctx.mode == "decode":
+        k, v = ctx.cache["k"], ctx.cache["v"]
+        new_cache = ctx.cache
+    else:
+        mem = ctx.memory
+        k = mm(mem, p["wk"]).reshape(b, -1, kv, hd)
+        v = mm(mem, p["wv"]).reshape(b, -1, kv, hd)
+        new_cache = {"k": k, "v": v}
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if ctx.mode == "decode":
+        mask = torch.ones((t, k.shape[1]), dtype=torch.bool, device=q.device)
+        out = _attend_dense(q, k, v, mask, cfg)
+    else:
+        out = _attend_prefill(q, k, v, cfg, causal=False, window=None)
+    return mm(out, p["wo"]), new_cache
+
+
 def _ring_write(buf: torch.Tensor, vals: torch.Tensor, slots: torch.Tensor
                 ) -> torch.Tensor:
     """buf: (B, L, ...), vals: (B, T, ...), slots: (B, T) -> a new buffer
@@ -196,6 +247,77 @@ def init_mlp(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return mm(F.silu(mm(x, p["wg"])) * mm(x, p["wi"]), p["wo"])
+
+
+# ---------------------------------------------------------------------- moe
+def init_moe(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
+    """Router (kept f32 under bf16 weights, as the reference keeps it), the
+    experts' stacked ``(E, D, F)`` / ``(E, F, D)`` weights, and arctic's
+    dense residual MLP."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_expert, m.n_experts
+    p = {"router": dense((d, e), torch.float32),
+         "wi": dense((e, d, f), dtype), "wg": dense((e, d, f), dtype),
+         "wo": dense((e, f, d), dtype)}
+    if m.dense_residual:
+        p["dense"] = init_mlp(cfg, dense, dtype)
+    return p
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # the reference's path without a mesh; none until ROADMAP item 15
+    return _apply_moe_xla(p, x, cfg)
+
+
+def _bucket_and_run(xt, w, ids, wi, wg, wo, n_buckets: int, cap: int,
+                    bucket_of, dtype) -> torch.Tensor:
+    """Slot assignments into (n_buckets, cap), run experts, combine back.
+    ``bucket_of >= n_buckets`` marks an assignment as dropped.  The slot
+    arithmetic is the reference's: assignments sorted stably by bucket,
+    each one's place in its bucket its index minus the bucket's first, the
+    ones past ``cap`` dropped (written to a discard row)."""
+    tk = ids.numel()
+    k = ids.shape[-1]
+    d = xt.shape[-1]
+    dev = xt.device
+    flat_b = bucket_of.reshape(-1)
+    order = torch.argsort(flat_b, stable=True)
+    sorted_b = flat_b[order]
+    grp = (torch.arange(tk, device=dev)
+           - torch.searchsorted(sorted_b, sorted_b, side="left"))
+    keep = (sorted_b < n_buckets) & (grp < cap)
+    slot = torch.where(keep, sorted_b * cap + grp, n_buckets * cap)
+    tok = order // k
+    buf = torch.zeros((n_buckets * cap + 1, d), dtype=dtype, device=dev)
+    buf[slot] = torch.where(keep[:, None], xt[tok], 0).to(dtype)
+    xe = buf[: n_buckets * cap].reshape(n_buckets, cap, d)
+    h = F.silu(mm(xe, wg)) * mm(xe, wi)
+    ye = mm(h, wo).reshape(n_buckets * cap, d)
+    back = torch.where(keep[:, None],
+                       ye[torch.clamp(slot, max=n_buckets * cap - 1)], 0)
+    w_sorted = w.reshape(-1)[order].to(dtype)
+    out = torch.zeros((xt.shape[0], d), dtype=dtype, device=dev)
+    return out.index_add_(0, tok, (back * w_sorted[:, None]).to(dtype))
+
+
+def _apply_moe_xla(p: dict, x: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """Sort-based top-k dispatch with static per-expert capacity (tokens
+    past an expert's capacity are dropped), in plain torch ops."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    probs = torch.softmax(mm(xt.float(), p["router"]), dim=-1)
+    w, ids = torch.topk(probs, m.top_k, dim=-1)              # (T, k)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    e, k = m.n_experts, m.top_k
+    cap = max(1, int(math.ceil(t * k / e * m.capacity_factor)))
+    out = _bucket_and_run(xt, w, ids, p["wi"], p["wg"], p["wo"], e, cap,
+                          ids, x.dtype)
+    if m.dense_residual:
+        out = out + apply_mlp(p["dense"], xt)
+    return out.reshape(b, s, d)
 
 
 # -------------------------------------------------------------------- rglru

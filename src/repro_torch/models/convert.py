@@ -6,9 +6,11 @@ caller maps ``np.asarray`` over it, so this module imports no JAX) and
 returns the port's parameters.  The reference stacks a unit's layers on a
 leading repeat axis (``repro/models/model.py`` ``_init_stacks``); the port
 keeps one dict per layer, so ``tree["stacks"]["s0"]["b1"]["rec"]["wx"][r]``
-becomes ``params["stacks"]["s0"][r]["b1"]["rec"]["wx"]``.  Every other path
-is the same in both.  Each leaf must have the shape and type that
-``init_params`` gives the port for ``cfg``, or this raises.
+becomes ``params["stacks"]["s0"][r]["b1"]["rec"]["wx"]``, and the encoder's
+``enc_stacks`` the same way.  Every other path is the same in both.  Each
+leaf must have the shape and type that ``init_params`` gives the port for
+``cfg`` in the embedding's type, or this raises: so an MoE router stays f32
+under bf16 weights, as both packages draw it.
 """
 from __future__ import annotations
 
@@ -62,19 +64,22 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Params:
     """The port's parameters from the reference's (numpy leaves)."""
     dev = resolve_device(device)
     like = init_params(cfg, dtype=_dtype_of(tree), device="meta")
-    stacks = tree.get("stacks", {})
-    if set(stacks) != set(like["stacks"]):
-        raise ValueError(f"stacks {sorted(stacks)} do not match the port's "
-                         f"{sorted(like['stacks'])}")
-    out = _convert({k: v for k, v in tree.items() if k != "stacks"},
-                   {k: v for k, v in like.items() if k != "stacks"}, "",
+    stacked = [k for k in ("stacks", "enc_stacks") if k in like]
+    for key in stacked:
+        got = tree.get(key, {})
+        if set(got) != set(like[key]):
+            raise ValueError(f"{key} {sorted(got)} do not match the port's "
+                             f"{sorted(like[key])}")
+    out = _convert({k: v for k, v in tree.items() if k not in stacked},
+                   {k: v for k, v in like.items() if k not in stacked}, "",
                    dev)
-    out["stacks"] = {}
-    for si, layers in like["stacks"].items():
-        out["stacks"][si] = [
-            _convert(_layer(stacks[si], r), layers[r],
-                     f"/stacks/{si}[{r}]", dev)
-            for r in range(len(layers))]
+    for key in stacked:
+        out[key] = {}
+        for si, layers in like[key].items():
+            out[key][si] = [
+                _convert(_layer(tree[key][si], r), layers[r],
+                         f"/{key}/{si}[{r}]", dev)
+                for r in range(len(layers))]
     return out
 
 

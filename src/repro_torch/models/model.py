@@ -1,6 +1,8 @@
 """The port's model: init / forward / prefill / decode (port of
-``repro.models.model``) for the block types ``attn``, ``local`` and
-``rglru``.
+``repro.models.model``) for every block type but ``mlstm`` and ``slstm``:
+decoder-only stacks, untied embeddings, encoder stacks run over a memory
+(whisper's audio frames) and cross-attention to it (llama-vision's patches,
+whisper's encoder output), and single-device MoE.
 
 Parameters are nested dicts of tensors whose paths follow the reference's:
 the reference stacks a unit's layers on a leading repeat axis
@@ -8,8 +10,8 @@ the reference stacks a unit's layers on a leading repeat axis
 over it; the port keeps one dict per layer in a list
 (``params["stacks"]["s0"][r]["b1"]["rec"]["wx"]`` of shape (d, w)) and runs
 the layers in a Python loop on one device, with no remat and no activation
-sharding.  Caches have the same layout.  ``models/convert.py`` carries the
-reference's parameters over.
+sharding.  ``enc_stacks`` and caches have the same layout.
+``models/convert.py`` carries the reference's parameters over.
 
 Entry points take ``device=None``, which means the CUDA card and raises
 without one; the tests pass ``device="cpu"``.  Random parameters come from a
@@ -30,13 +32,14 @@ from .config import ModelConfig
 
 Params = Any
 
-PORTED_BLOCKS = ("attn", "local", "rglru")
+PORTED_BLOCKS = ("attn", "local", "enc", "cross", "self+cross", "moe",
+                 "rglru")
 
 
 def _unported(btype: str) -> NotImplementedError:
     return NotImplementedError(
         f"block type {btype!r} is not ported; the port runs {PORTED_BLOCKS} "
-        f"(ROADMAP queue A, slice 9: the other block types)")
+        f"(ROADMAP queue A item 20: the xLSTM family)")
 
 
 # ------------------------------------------------------------------ init
@@ -47,9 +50,18 @@ def init_block(btype: str, cfg: ModelConfig, dense: blocks.Dense,
     def ln():
         return torch.zeros((d,), dtype=dtype, device=device)
 
-    if btype in ("attn", "local"):
-        p = {"ln1": ln(), "attn": blocks.init_attention(cfg, dense, dtype),
+    def attn():
+        return blocks.init_attention(cfg, dense, dtype, device)
+
+    if btype in ("attn", "local", "enc", "cross"):
+        p = {"ln1": ln(), "attn": attn(),
              "ln2": ln(), "mlp": blocks.init_mlp(cfg, dense, dtype)}
+    elif btype == "self+cross":
+        p = {"ln1": ln(), "attn": attn(), "lnc": ln(), "xattn": attn(),
+             "ln2": ln(), "mlp": blocks.init_mlp(cfg, dense, dtype)}
+    elif btype == "moe":
+        p = {"ln1": ln(), "attn": attn(),
+             "ln2": ln(), "moe": blocks.init_moe(cfg, dense, dtype)}
     elif btype == "rglru":
         p = {"ln1": ln(), "rec": blocks.init_rglru(cfg, dense, dtype, device),
              "ln2": ln(), "mlp": blocks.init_mlp(cfg, dense, dtype)}
@@ -70,29 +82,45 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     dev = torch.device("meta") if meta else resolve_device(device)
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(seed)
-    if cfg.encoder_stacks or not cfg.tie_embeddings:
-        raise NotImplementedError(
-            "encoder stacks and untied embeddings are not ported (ROADMAP "
-            "queue A, slice 9: the other nine configs)")
 
     def dense(shape, dt):
         t = torch.empty(shape, dtype=dt, device=dev)
         return t.normal_(0.0, 0.02, generator=gen)
 
+    def norm():
+        return torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
+
+    def stacks(spec):
+        return {f"s{si}": [{f"b{bi}": init_block(bt, cfg, dense, dtype, dev)
+                            for bi, bt in enumerate(unit)}
+                           for _ in range(r)]
+                for si, (unit, r) in enumerate(spec)}
+
     params = {"embed": dense((cfg.vocab, cfg.d_model), dtype),
-              "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
-                                        device=dev),
-              "stacks": {}}
-    for si, (unit, r) in enumerate(cfg.stacks):
-        params["stacks"][f"s{si}"] = [
-            {f"b{bi}": init_block(bt, cfg, dense, dtype, dev)
-             for bi, bt in enumerate(unit)} for _ in range(r)]
+              "final_norm": norm(), "stacks": stacks(cfg.stacks)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense((cfg.d_model, cfg.vocab), dtype)
+    if cfg.encoder_stacks:
+        params["enc_stacks"] = stacks(cfg.encoder_stacks)
+        params["enc_final_norm"] = norm()
     return params
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Exact parameter count, from shapes alone (no allocation)."""
     return sum(t.numel() for t in _leaves(init_params(cfg, device="meta")))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token: the full count less the experts a
+    token is not routed to."""
+    n = param_count(cfg)
+    if cfg.moe is None:
+        return n
+    m = cfg.moe
+    per_layer_inactive = (m.n_experts - m.top_k) * 3 * cfg.d_model * m.d_expert
+    n_moe = sum(r * sum(1 for b in u if b == "moe") for u, r in cfg.stacks)
+    return n - n_moe * per_layer_inactive
 
 
 def param_bytes(params: Params) -> int:
@@ -121,14 +149,41 @@ def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
             h = blocks.rmsnorm(p[post_key], h, eps)
         return x + scale * h
 
-    if btype in ("attn", "local"):
+    if btype in ("attn", "local", "enc", "moe"):
         h = blocks.rmsnorm(p["ln1"], x, eps)
         h, cache = blocks.apply_attention(
-            p["attn"], h, cfg, ctx, causal=True,
+            p["attn"], h, cfg, ctx, causal=(btype != "enc"),
             window=cfg.window if btype == "local" else None)
         x = residual(x, h, "ln1p")
         h = blocks.rmsnorm(p["ln2"], x, eps)
+        h = blocks.apply_moe(p["moe"], h, cfg) if btype == "moe" else \
+            blocks.apply_mlp(p["mlp"], h)
+        x = residual(x, h, "ln2p")
+        return x, cache
+    if btype == "cross":
+        h = blocks.rmsnorm(p["ln1"], x, eps)
+        h, cache = blocks.apply_attention(p["attn"], h, cfg, ctx, cross=True)
+        x = residual(x, h, "ln1p")
+        h = blocks.rmsnorm(p["ln2"], x, eps)
         x = residual(x, blocks.apply_mlp(p["mlp"], h), "ln2p")
+        return x, cache
+    if btype == "self+cross":
+        # whisper's decoder layer: no post-norms, as in the reference
+        sub_self = Ctx(ctx.mode, ctx.pos, ctx.memory,
+                       None if ctx.cache is None else ctx.cache["self"])
+        h = blocks.rmsnorm(p["ln1"], x, eps)
+        h, c_self = blocks.apply_attention(p["attn"], h, cfg, sub_self)
+        x = x + scale * h
+        sub_x = Ctx(ctx.mode, ctx.pos, ctx.memory,
+                    None if ctx.cache is None else ctx.cache["cross"])
+        h = blocks.rmsnorm(p["lnc"], x, eps)
+        h, c_cross = blocks.apply_attention(p["xattn"], h, cfg, sub_x,
+                                            cross=True)
+        x = x + scale * h
+        h = blocks.rmsnorm(p["ln2"], x, eps)
+        x = x + scale * blocks.apply_mlp(p["mlp"], h)
+        cache = None if ctx.cache is None and ctx.mode == "train" else \
+            {"self": c_self, "cross": c_cross}
         return x, cache
     if btype == "rglru":
         h = blocks.rmsnorm(p["ln1"], x, eps)
@@ -152,7 +207,7 @@ def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
             lc = None if caches is None else caches[f"s{si}"][li]
             ncs = {}
             for bi, bt in enumerate(unit):
-                ctx = Ctx(ctx_proto.mode, ctx_proto.pos,
+                ctx = Ctx(ctx_proto.mode, ctx_proto.pos, ctx_proto.memory,
                           None if lc is None else lc[f"b{bi}"])
                 x, ncs[f"b{bi}"] = apply_block(bt, layers[li][f"b{bi}"], x,
                                                cfg, ctx)
@@ -163,12 +218,17 @@ def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
 
 # ------------------------------------------------------------------ forward
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            mode: str = "train", pos: Optional[torch.Tensor] = None,
-            caches=None, return_hidden: bool = False):
+            memory: Optional[torch.Tensor] = None, mode: str = "train",
+            pos: Optional[torch.Tensor] = None, caches=None, enc_caches=None,
+            return_hidden: bool = False):
     """Returns (logits, new_caches).  tokens: (B, T) integer.
 
+    ``memory``: precomputed frontend embeddings (B, M, D), vision patches
+    (vlm) or audio frames (audio); run through the encoder stacks, in
+    train mode, where the config has them.  ``enc_caches``: an encoder
+    output computed before, used as the memory as it is.
     ``mode="train"`` is the cache-free forward; the port does not train yet
-    (no loss, no gradients: ROADMAP queue A, slice 9)."""
+    (no loss, no gradients: ROADMAP queue A item 17)."""
     b, t = tokens.shape
     x = params["embed"][tokens]
     if cfg.emb_scale is not None:
@@ -176,7 +236,19 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if pos is None:
         pos = torch.arange(t, dtype=torch.int32,
                            device=tokens.device)[None].expand(b, t)
-    ctx = Ctx(mode, pos, None)
+
+    if cfg.encoder_stacks and memory is not None and enc_caches is None:
+        mpos = torch.arange(memory.shape[1], dtype=torch.int32,
+                            device=memory.device)[None].expand(
+                                memory.shape[0], -1)
+        memory, _ = _run_stacks(params["enc_stacks"], cfg.encoder_stacks,
+                                memory, cfg, Ctx("train", mpos), None)
+        memory = blocks.rmsnorm(params["enc_final_norm"], memory,
+                                cfg.norm_eps)
+    elif enc_caches is not None:
+        memory = enc_caches                     # precomputed encoder output
+
+    ctx = Ctx(mode, pos, memory)
     x, new_caches = _run_stacks(params["stacks"], cfg.stacks, x, cfg, ctx,
                                 caches)
     x = blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -188,7 +260,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
-    logits = blocks.mm(x, params["embed"].T)
+    un = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    logits = blocks.mm(x, un)
     if cfg.logit_scale is not None:
         logits = logits * cfg.logit_scale
     if cfg.final_softcap is not None:
@@ -199,13 +272,22 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
 # ------------------------------------------------------------------ caches
 def init_block_cache(btype: str, cfg: ModelConfig, batch: int,
                      cache_len: int, dtype, device) -> dict:
-    if btype == "attn":
+    if btype in ("attn", "moe"):
         return blocks.init_attention_cache(cfg, batch, cache_len, dtype,
                                            device)
     if btype == "local":
         return blocks.init_attention_cache(cfg, batch,
                                            min(cfg.window, cache_len), dtype,
                                            device)
+    if btype == "cross":
+        shape = (batch, cfg.memory_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if btype == "self+cross":
+        return {"self": init_block_cache("attn", cfg, batch, cache_len, dtype,
+                                         device),
+                "cross": init_block_cache("cross", cfg, batch, cache_len,
+                                          dtype, device)}
     if btype == "rglru":
         return blocks.init_rglru_cache(cfg, batch, dtype, device)
     raise _unported(btype)
@@ -222,18 +304,22 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                pos: torch.Tensor, caches):
-    """One decode step.  tokens: (B, 1); pos: (B,) absolute positions."""
-    return forward(params, cfg, tokens, mode="decode", pos=pos[:, None],
-                   caches=caches)
+                pos: torch.Tensor, caches, memory=None, enc_out=None):
+    """One decode step.  tokens: (B, 1); pos: (B,) absolute positions.
+    Cross-attention reads its keys and values from the caches prefill
+    wrote, so ``memory`` is not needed here (given, with encoder stacks,
+    it runs the encoder again, as the reference does)."""
+    return forward(params, cfg, tokens, memory=memory, mode="decode",
+                   pos=pos[:, None], caches=caches, enc_caches=enc_out)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, caches,
-            last_only: bool = False):
+            memory=None, last_only: bool = False):
     """last_only=True returns only the final position's logits (the serving
     path: a full (B, T, 256k-vocab) logits tensor is never needed)."""
-    hidden, new_caches = forward(params, cfg, tokens, mode="prefill",
-                                 caches=caches, return_hidden=True)
+    hidden, new_caches = forward(params, cfg, tokens, memory=memory,
+                                 mode="prefill", caches=caches,
+                                 return_hidden=True)
     if last_only:
         hidden = hidden[:, -1:]
     return unembed(params, cfg, hidden), new_caches

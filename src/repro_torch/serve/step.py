@@ -7,8 +7,9 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, tokens, caches):
-        logits, caches = prefill(params, cfg, tokens, caches, last_only=True)
+    def prefill_step(params, tokens, caches, memory=None):
+        logits, caches = prefill(params, cfg, tokens, caches, memory=memory,
+                                 last_only=True)
         return logits[:, -1].argmax(dim=-1).int(), caches
     return prefill_step
 

@@ -512,3 +512,87 @@ def test_device_plane_on_the_card_launches_one_search_a_row(cuda_device,
     assert [a != b for a, b in zip(after, before)] == [True] + [False] * 3
     merged = np.sort(np.append(keys, keys[0] + 0.5))
     np.testing.assert_array_equal(svc.search(q), np.searchsorted(merged, q))
+
+
+# ------------------------------------------------ the attention families
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,dtype", [(64, torch.bfloat16),
+                                      (128, torch.bfloat16),
+                                      (256, torch.bfloat16),
+                                      (64, torch.float32),
+                                      (128, torch.float32)])
+def test_flash_more_queries_than_keys_non_causal(cuda_device, hd, dtype):
+    """Cross-attention of a long prompt over fewer memory frames: Tq > S,
+    so q_offset = S - Tq is negative, which non-causal attention must
+    ignore (the wgmma path at bf16 hd 64 to 256, the CUDA-core one in
+    f32)."""
+    q, k, v = _qkv(cuda_device, 2, 8, 2, 700, 300, hd, dtype, seed=hd + 7)
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = fa.flash_attention_torch(q, k, v, causal=False)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_attend_prefill_brings_mixed_types_to_one(cuda_device):
+    """A bf16 decoder query over keys and values projected from f32 memory:
+    ``_attend_prefill`` hands the kernel f32 (the CUDA-core path) and
+    returns f32, as the reference computes its dense attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    cfg = get_config("llama-3.2-vision-11b")
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    q = torch.randn((1, 300, 32, 128), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((1, 160, 8, 128), generator=g, device=cuda_device)
+            for _ in range(2))
+    before = fa.flash_attention_cuda.launches
+    got = blocks._attend_prefill(q, k, v, cfg, causal=False, window=None)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = blocks._attend_dense(q, k, v, torch.ones(
+        (300, 160), dtype=torch.bool, device=cuda_device), cfg)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return [_to(v, dev) for v in tree]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", [
+    "gemma3-12b", "internlm2-1.8b", "gemma2-27b", "minicpm-2b",
+    "arctic-480b", "qwen3-moe-235b-a22b", "llama-3.2-vision-11b",
+    "whisper-medium"])
+def test_reduced_forward_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Each new family, reduced, in f32: the forward on the card (flash on
+    its CUDA-core kernel at hd 16, MoE dispatch in torch ops) equals the
+    same forward on the CPU (the kernel's plain twin) within flash's f32
+    tolerance; prefill attention launched the kernel."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import forward, init_params
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, seed=5, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)).astype(
+        np.int32))
+    mem = None
+    if cfg.memory_len:
+        mem = torch.from_numpy((rng.standard_normal(
+            (2, cfg.memory_len, cfg.d_model)) * 0.02).astype(np.float32))
+    want, _ = forward(params, cfg, toks, memory=mem)
+    before = fa.flash_attention_cuda.launches
+    got, _ = forward(_to(params, cuda_device), cfg, toks.to(cuda_device),
+                     memory=None if mem is None else mem.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches > before
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA card: the learned-index read path,
 its write path, planning and sharded serving, the LSM write plane and the
-async front door, the device-sharded plane, RecurrentGemma-9B serving, and
-the attention families (gemma3-12b, internlm2-1.8b, gemma2-27b, minicpm-2b,
-qwen3-moe-235b-a22b, arctic-480b, llama-3.2-vision-11b, whisper-medium).
+async front door, the device-sharded plane, RecurrentGemma-9B serving, the
+attention families (gemma3-12b, internlm2-1.8b, gemma2-27b, minicpm-2b,
+qwen3-moe-235b-a22b, arctic-480b, llama-3.2-vision-11b, whisper-medium)
+and the xLSTM family (xlstm-350m), and training on the card (the trainer
+at full width, the RG-LRU scan kernel's backward, die and resume).
 
 Run from the repository root, with no arguments:
 
@@ -148,7 +150,8 @@ the port's sources are missing.  Phases, each of which raises on failure:
    embeddings of 1,600 patches or 1,500 frames) where the family has one,
    + 16 teacher-forced decode steps == a cache-free forward, rtol = atol =
    3e-2.  MoE runs at capacity factor n_experts / top_k, so no token is
-   dropped at either token count.
+   dropped at either token count.  xlstm-350m too: one (m, m, m, s) unit,
+   prefill 300 tokens (two mLSTM chunks of 256, the second padded).
 11. Serving: recurrentgemma-9b at full width and depth (38 layers, 9.40 B
    parameters, bf16, drawn from seed 0 on the card): the prefill step at
    B 4, T 4,096 (timed, tokens/s), then ``ContinuousBatcher`` (4 slots,
@@ -178,13 +181,50 @@ the port's sources are missing.  Phases, each of which raises on failure:
    causal, window, softcap) with a copy of its batch-0 inputs; after the
    model is freed each is held against the twin on those inputs within
    ``FLASH_TOL`` and ``BLOCK_REL_TOL``, as phase 9's cases are.
-12. A text line with the three redesigned kernels' earlier times, copied
-   from PERF.md and marked so, beside this run's; a ``{"kernels": [...]}``
+13. train_main, the trainer's main path: ``launch.train.main`` with
+   ``TRAIN_ARGV`` (internlm2-1.8b at full width and depth, 1.89 B
+   parameters, f32 with torch's default matmul precision, B 8, T 256, 6
+   steps, parameters drawn from seed 0 on the card, the learned-index
+   data pipeline on the host).  Every loss finite, the last below the
+   first; each step timed between two synchronisations (s/step and
+   tokens/s from the median after the first), step 3 once under the
+   profiler (device time by kind, idle share), peak memory_allocated.
+   No forward-only kernel may launch (flash and the scan count 0): the
+   trainer's attention is the chunked torch path autograd differentiates.
+14. train_rglru: recurrentgemma-9b at full width cut to one (rglru, rglru,
+   local) unit (1.71 B parameters), f32: 3 steps of ``make_train_step`` at
+   B 2, T 2,048 with the scan's counts set to 0 before and read after:
+   forward launches must be 12 (each layer's forward and its recomputation
+   under remat), backward 6 (``rglru_scan_cuda.backward_launches``), all
+   on the ``tma`` path.  The first step keeps the inputs and outputs of
+   its first scan forward (u, a -> h) and first scan backward (g, a, h ->
+   du, da); once the model is freed, each is held to the twin on the same
+   inputs on the card with ``torch.equal``.  Then at B 4, T = W = 4,096,
+   f32, ``RGLRUScan``'s
+   backward on the card against the same backward through the twin on the
+   card: du and da ``torch.equal``; one autograd backward timed by CUDA
+   events beside its bound (read g, a, h; write du, da: 5 x 268,435,456
+   bytes at 3.35 TB/s, 0.40 ms) and the twin's time.
+15. train_xlstm: ``launch.train.main`` with ``XLSTM_ARGV`` (xlstm-350m,
+   B 8, T 256, 3 steps): finite, falling loss, s/step, tokens/s.
+16. train_resume: ``python -m repro_torch.launch.train --smoke --steps 20
+   --batch 2 --seq 64 --ckpt-every 10 --log-every 1`` in subprocesses on
+   the card (checkpoints in a temporary directory): uninterrupted and
+   ``--die-at-step 12`` (exit 42) at once, then ``--resume`` (prints
+   ``resumed from step 10``); steps 10 to 19 within 1e-5 of the
+   uninterrupted run (tests/test_substrate.py's bound); and a 12-step
+   ``--compress`` run whose loss falls.
+12. (printed last) A text line with the three redesigned kernels' earlier
+   times, copied from PERF.md and marked so, beside this run's; a
+   ``{"training": ...}`` line with phases 13 to 16; a ``{"kernels": [...]}``
    line (all three kernels, each with its design, every number from this
    run; the fused search's launches are the read path's, the write
    path's, the LSM's, the pipeline's and the device plane's; flash's are
-   phase 11's and 11b's, by architecture in ``launches_by_arch``), the card
-   line again, and last ``{"ok": true, "device": {...}}``.
+   phase 11's and 11b's, by architecture in ``launches_by_arch``; the
+   scan's are phase 11's and phase 14's, by phase in
+   ``launches_by_phase``, with the backward's check and time under
+   ``backward``), the card line again, and last ``{"ok": true, "device":
+   {...}}``.
 """
 from __future__ import annotations
 
@@ -193,6 +233,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1646,7 +1687,8 @@ PROMPT_LENS = (256, 3072)
 ARCH_CONSIST = (("gemma3-12b", 1040), ("internlm2-1.8b", 256),
                 ("gemma2-27b", 4112), ("minicpm-2b", 256),
                 ("arctic-480b", 64), ("qwen3-moe-235b-a22b", 64),
-                ("llama-3.2-vision-11b", 256), ("whisper-medium", 64))
+                ("llama-3.2-vision-11b", 256), ("whisper-medium", 64),
+                ("xlstm-350m", 300))
 # Phase 11b: the attention families served in bf16 at full width: (arch,
 # layers kept where one card forces a depth cut).  The two MoE models keep
 # bf16 caches: with f32 caches decode would promote each layer's whole
@@ -1654,7 +1696,8 @@ ARCH_CONSIST = (("gemma3-12b", 1040), ("internlm2-1.8b", 256),
 ARCH_SERVE = (("gemma3-12b", None), ("internlm2-1.8b", None),
               ("gemma2-27b", None), ("minicpm-2b", None),
               ("qwen3-moe-235b-a22b", 11), ("arctic-480b", 2),
-              ("llama-3.2-vision-11b", None), ("whisper-medium", None))
+              ("llama-3.2-vision-11b", None), ("whisper-medium", None),
+              ("xlstm-350m", None))
 ARCH_PREFILL_T = {"whisper-medium": 448}   # whisper's decoder context
 ARCH_CACHE_LEN, ARCH_PROMPTS = 1056, (128, 1024)
 # The MoE layer's torch ops, by the profiler's self device time of the aten
@@ -2346,7 +2389,9 @@ def serve_arch(torch, dev, arch, depth, card) -> dict:
           f"tokens/s; median decode tick {res['decode_tick_ms']:.1f} ms; "
           f"flash launches {res['flash_launches']}; peak memory_allocated "
           f"{res['peak_allocated_gib']:.2f} GiB [{card}]", flush=True)
-    if res["flash_launches"] <= 0:
+    attention = any(bt not in ("rglru", "mlstm", "slstm")
+                    for unit, _ in cfg.stacks for bt in unit)
+    if attention and res["flash_launches"] <= 0:
         raise AssertionError(f"{arch}: serving never launched "
                              f"flash_attention")
     del params, batcher, dec_caches, keep, logits, mem
@@ -2383,6 +2428,374 @@ def arch_serving(torch, dev, card) -> dict:
         out[arch] = serve_arch(torch, dev, arch, depth, card)
         out[arch]["s"] = time.perf_counter() - t0
     return out
+
+
+# Phase 13: the trainer at full width and depth (internlm2-1.8b, f32).
+TRAIN_ARGV = ["--arch", "internlm2-1.8b", "--steps", "6", "--batch", "8",
+              "--seq", "256", "--log-every", "1"]
+TRAIN_PROFILE_STEP = 3       # the step run under the profiler (idle share)
+# Phase 14: recurrentgemma-9b at full width, cut to one unit, f32.
+RGLRU_TRAIN_STACKS = ((("rglru", "rglru", "local"), 1),)
+RGLRU_TRAIN_B, RGLRU_TRAIN_T, RGLRU_TRAIN_STEPS = 2, 2048, 3
+RGLRU_BWD_SHAPE = (4, 4096, 4096)      # the forward scan's headline shape
+# Phase 15: the xLSTM family through the trainer.
+XLSTM_ARGV = ["--arch", "xlstm-350m", "--steps", "3", "--batch", "8",
+              "--seq", "256", "--log-every", "1"]
+# Phase 16: fault tolerance, the reference's die / resume contract.
+RESUME_CMD = ["-m", "repro_torch.launch.train", "--smoke", "--steps", "20",
+              "--batch", "2", "--seq", "64", "--ckpt-every", "10",
+              "--log-every", "1"]
+RESUME_TOL = 1e-5            # tests/test_substrate.py's post-resume bound
+
+
+@contextlib.contextmanager
+def timed_train_steps(torch, record: dict, profile_at: int | None = None):
+    """While open, every train step ``launch.train`` builds is timed on the
+    host clock between two synchronisations (``record["walls"]``, seconds),
+    and step ``profile_at`` runs once under the profiler
+    (``record["breakdown"]``, ``device_breakdown``'s dict)."""
+    import repro_torch.launch.train as lt
+    inner = lt.make_train_step
+    record.setdefault("walls", [])
+
+    def make(*args, **kw):
+        step = inner(*args, **kw)
+
+        def timed(params, opt, batch):
+            out = {}
+
+            def run():
+                out["r"] = step(params, opt, batch)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(record["walls"]) == profile_at:
+                record["breakdown"] = device_breakdown(torch, run)
+            else:
+                run()
+            torch.cuda.synchronize()
+            record["walls"].append(time.perf_counter() - t0)
+            return out["r"]
+        return timed
+
+    lt.make_train_step = make
+    try:
+        yield record
+    finally:
+        lt.make_train_step = inner
+
+
+def train_cli(torch, argv, card, what, profile_at=None) -> dict:
+    """Run ``launch.train.main(argv)`` on the card with its steps timed:
+    every loss finite and the last below the first; s/step and tokens/s
+    (the median step after the first, the profiled one left out), peak
+    memory_allocated, and the profiled step's breakdown."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.model import param_count
+    arch = argv[argv.index("--arch") + 1]
+    batch = int(argv[argv.index("--batch") + 1])
+    seq = int(argv[argv.index("--seq") + 1])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_train_steps(torch, {}, profile_at) as rec:
+        losses = train_main(list(argv))
+    total = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what}: losses {losses} are not finite and "
+                             f"falling")
+    steady = [w for i, w in enumerate(rec["walls"])
+              if i > 0 and i != profile_at]
+    step_s = float(np.median(steady))
+    tokens = batch * (seq + 1)               # the step reads T+1 tokens
+    res = {"arch": arch, "argv": argv, "params": param_count(
+        get_config(arch)), "losses": losses, "step_walls_s": rec["walls"],
+        "s_per_step": step_s, "tokens_per_s": tokens / step_s,
+        "first_step_s": rec["walls"][0], "total_s": total,
+        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"{what}: {arch} at full width and depth ({res['params']} "
+          f"parameters, f32), B={batch} T={seq}+1, {len(losses)} steps: "
+          f"losses {[round(x, 4) for x in losses]} (finite, falling); "
+          f"{step_s:.3f} s/step (median after the first, which took "
+          f"{res['first_step_s']:.3f} s), {res['tokens_per_s']:.0f} "
+          f"tokens/s; peak memory_allocated "
+          f"{res['peak_allocated_gib']:.2f} GiB ({total:.1f} s in all) "
+          f"[{card}]", flush=True)
+    if "breakdown" in rec:
+        res["breakdown"] = rec["breakdown"]
+        print_breakdown(f"{what}: train step {profile_at}", rec["breakdown"])
+    return res
+
+
+def rglru_backward_check(torch, dev, card) -> dict:
+    """Phase 14's second half: at B 4, T = W = 4,096, f32, RGLRUScan's
+    backward on the card (the scan kernel on time-flipped inputs) against
+    the same backward computed with the twin on the card: du and da
+    torch.equal.  Timed by CUDA events (one autograd backward), beside its
+    bound: it must read g, a, h and write du, da."""
+    from repro_torch.kernels.rglru_scan import (RGLRUScan, rglru_scan_cuda,
+                                                rglru_scan_torch)
+    b, t, w = RGLRU_BWD_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    u = torch.randn((b, t, w), generator=g, device=dev)
+    a = torch.rand((b, t, w), generator=g, device=dev)
+    dh = torch.randn((b, t, w), generator=g, device=dev)
+    tu, ta = u.clone().requires_grad_(True), a.clone().requires_grad_(True)
+    h = RGLRUScan.apply(tu, ta)
+
+    def kernel_bwd():
+        return torch.autograd.grad(h, (tu, ta), dh, retain_graph=True)
+
+    def twin_bwd():
+        hh, _ = rglru_scan_torch(u, a)
+        return scan_twin_backward(torch, dh, a, hh)
+
+    du, da = kernel_bwd()
+    want_du, want_da = twin_bwd()
+    torch.cuda.synchronize()
+    err = max(float((du - want_du).abs().max()),
+              float((da - want_da).abs().max()))
+    if not (torch.equal(du, want_du) and torch.equal(da, want_da)):
+        raise AssertionError(f"rglru backward on the card != the twin's "
+                             f"backward (max abs err {err})")
+    ms = median_ms(torch, kernel_bwd)
+    plain_ms = median_ms(torch, twin_bwd, reps=3, warmup=1)
+    n = b * t * w
+    nbytes = 5 * n * 4                       # read g, a, h; write du, da
+    ops = 4 * n        # the reverse recurrence's mul + add, da's mul, a_next
+    byte_ms, op_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    res = {"b": b, "t": t, "w": w, "max_abs_err": err, "exact": True,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": max(byte_ms, op_ms),
+           "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+           "bytes": nbytes, "share": max(byte_ms, op_ms) / ms}
+    print(f"rglru backward B={b} T={t} W={w} f32: du and da torch.equal to "
+          f"the twin's backward on the card (max abs err 0); one autograd "
+          f"backward {ms:.4f} ms by CUDA events, plain (the twin's loops) "
+          f"{plain_ms:.2f} ms, library none (no single PyTorch call "
+          f"computes the recurrence), bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}: {nbytes} bytes), {res['share']:.1%} of "
+          f"bound [{card}]", flush=True)
+    del h, tu, ta, u, a, dh, du, da, want_du, want_da
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def recording_scan(seen: dict):
+    """While open, every scan the model makes (through
+    ``blocks.RGLRUScan``) goes on as before, and the first forward and the
+    first backward each keep copies of their inputs and of what the kernel
+    gave back: ``seen["forward"] = (u, a, h)``, ``seen["backward"] = (g, a,
+    h, du, da)``."""
+    from repro_torch.models import blocks
+    inner = blocks.RGLRUScan
+
+    class Recording(inner):
+        @staticmethod
+        def forward(ctx, u, a):
+            h = inner.forward(ctx, u, a)
+            if "forward" not in seen:
+                seen["forward"] = (u.detach().clone(), a.detach().clone(),
+                                   h.clone())
+            return h
+
+        @staticmethod
+        def backward(ctx, g):
+            a, h = ctx.saved_tensors     # unpacked once under checkpoint
+            du, da = inner.backward(
+                types.SimpleNamespace(saved_tensors=(a, h)), g)
+            if "backward" not in seen:
+                seen["backward"] = (g.clone(), a.clone(), h.clone(),
+                                    du.clone(), da.clone())
+            return du, da
+
+    blocks.RGLRUScan = Recording
+    try:
+        yield seen
+    finally:
+        blocks.RGLRUScan = inner
+
+
+def scan_twin_backward(torch, g, a, h):
+    """RGLRUScan's backward computed with the twin: (du, da)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_torch
+    a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], 1)
+    rev, _ = rglru_scan_torch(g.flip(1).contiguous(),
+                              a_next.flip(1).contiguous())
+    gacc = rev.flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    return gacc, gacc * h_prev
+
+
+def check_recorded_scans(torch, seen: dict, card) -> dict:
+    """The scans recorded in a training step, held to the twin on the same
+    inputs on the card with torch.equal: the forward's h from (u, a), the
+    backward's du and da from (g, a, h)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_torch
+    if set(seen) != {"forward", "backward"}:
+        raise AssertionError(f"train {ARCH}: recorded scans {sorted(seen)}, "
+                             f"want a forward and a backward")
+    u, a, h = seen["forward"]
+    want_h, _ = rglru_scan_torch(u, a)
+    g, ab, hb, du, da = seen["backward"]
+    want_du, want_da = scan_twin_backward(torch, g, ab, hb)
+    pairs = {"h": (h, want_h), "du": (du, want_du), "da": (da, want_da)}
+    errs = {k: float((x - y).abs().max()) for k, (x, y) in pairs.items()}
+    equal = {k: torch.equal(x, y) for k, (x, y) in pairs.items()}
+    res = {"shape": list(u.shape), "max_abs_err": errs, "equal": equal}
+    print(f"train {ARCH}: the first step's first scan forward and first "
+          f"scan backward, shape {tuple(u.shape)}, against the twin on "
+          f"the same inputs on the card: torch.equal {equal}, max abs err "
+          f"{errs} [{card}]", flush=True)
+    if not all(equal.values()):
+        raise AssertionError(f"train {ARCH}: the training step's scans "
+                             f"differ from the twin: {errs}")
+    return res
+
+
+def train_rglru(torch, dev, card) -> dict:
+    """Phase 14: recurrentgemma-9b at full width cut to one (rglru, rglru,
+    local) unit, f32: RGLRU_TRAIN_STEPS steps of make_train_step at B 2,
+    T 2,048 with the scan's launch counts set to 0 before and read after
+    (forward: once a layer in the forward and once in its recomputation
+    under remat; backward: once a layer); then the backward's check."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.models import init_params
+    from repro_torch.models.model import param_count
+    from repro_torch.train import AdamWConfig, init_opt_state, \
+        make_train_step
+    cfg = dataclasses.replace(get_config(ARCH), stacks=RGLRU_TRAIN_STACKS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=SEED, dtype=torch.float32, device=dev)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=1,
+                                            total_steps=RGLRU_TRAIN_STEPS))
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    n_rglru = sum(r * u.count("rglru") for u, r in cfg.stacks)
+    rglru_scan_cuda.launches = 0
+    rglru_scan_cuda.backward_launches = 0
+    by_path = rglru_scan_cuda.launches_by_path
+    by_path.update(dict.fromkeys(by_path, 0))
+    losses, walls, seen = [], [], {}
+    for i in range(RGLRU_TRAIN_STEPS):
+        toks = torch.randint(0, cfg.vocab, (RGLRU_TRAIN_B, RGLRU_TRAIN_T),
+                             generator=g, device=dev, dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_scan(seen) if i == 0 else contextlib.nullcontext():
+            params, opt, m = step(params, opt, {"tokens": toks})
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    bwd = rglru_scan_cuda.backward_launches
+    fwd = rglru_scan_cuda.launches - bwd
+    res = {"stacks": repr(cfg.stacks), "params": param_count(cfg),
+           "losses": losses, "step_walls_s": walls,
+           "forward_launches": fwd, "backward_launches": bwd,
+           "launches_by_path": dict(by_path),
+           "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"train {ARCH} (full width, depth cut to {cfg.stacks}, "
+          f"{res['params']} parameters, f32): {RGLRU_TRAIN_STEPS} steps of "
+          f"make_train_step at B={RGLRU_TRAIN_B} T={RGLRU_TRAIN_T}: losses "
+          f"{[round(x, 4) for x in losses]}, step walls "
+          f"{[round(x, 3) for x in walls]} s; rglru_scan launches: forward "
+          f"{fwd} (forward + remat recompute), backward {bwd}, by path "
+          f"{dict(by_path)}; peak memory_allocated "
+          f"{res['peak_allocated_gib']:.2f} GiB [{card}]", flush=True)
+    want = (2 * n_rglru * RGLRU_TRAIN_STEPS, n_rglru * RGLRU_TRAIN_STEPS)
+    if (fwd, bwd) != want or by_path["unaligned"] or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"train {ARCH}: scan launches forward {fwd}, "
+                             f"backward {bwd} (want {want}, all tma: "
+                             f"{dict(by_path)}); losses {losses}")
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["recorded"] = check_recorded_scans(torch, seen, card)
+    del seen
+    res["backward"] = rglru_backward_check(torch, dev, card)
+    return res
+
+
+def train_resume(torch, card) -> dict:
+    """Phase 16: the trainer in subprocesses on the card (reduced
+    internlm2-1.8b): uninterrupted, killed at step 12 (exit 42) and
+    resumed from the step-10 checkpoint; steps 10 to 19 equal within
+    RESUME_TOL.  Then 12 compressed steps whose loss falls.  Checkpoints go
+    to a temporary directory, removed after."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def start(*extra):
+        return subprocess.Popen([sys.executable, *RESUME_CMD, *extra],
+                                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, what):
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"train_resume: {what} did not finish")
+        return proc.returncode, out, err
+
+    def losses(d):
+        rows = [json.loads(line) for line in
+                (Path(d) / "metrics.jsonl").read_text().splitlines()]
+        return {r["step"]: r["loss"] for r in rows}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        full, fault, comp = (f"{tmp}/{n}" for n in ("full", "fault",
+                                                     "compress"))
+        procs = {"uninterrupted": start("--ckpt-dir", full),
+                 "die at 12": start("--ckpt-dir", fault, "--die-at-step",
+                                    "12"),
+                 "compress": start("--ckpt-dir", comp, "--compress",
+                                   "--steps", "12", "--ckpt-every", "6")}
+        done = {k: finish(p, k) for k, p in procs.items()}
+        rc, out, err = done["die at 12"]
+        if rc != 42 or "SIMULATED FAILURE at step 12" not in out:
+            raise AssertionError(f"train_resume: --die-at-step 12 exited "
+                                 f"{rc}: {err[-2000:]}")
+        for k in ("uninterrupted", "compress"):
+            if done[k][0] != 0:
+                raise AssertionError(f"train_resume: {k} exited "
+                                     f"{done[k][0]}: {done[k][2][-2000:]}")
+        rc, out, err = finish(start("--ckpt-dir", fault, "--resume"),
+                              "resume")
+        if rc != 0 or "resumed from step 10" not in out:
+            raise AssertionError(f"train_resume: --resume exited {rc}, "
+                                 f"printed {out[-500:]!r}: {err[-2000:]}")
+        a, b, c = losses(full), losses(fault), losses(comp)
+    diff = max(abs(a[s] - b[s]) for s in range(10, 20))
+    comp_losses = [c[s] for s in sorted(c)]
+    res = {"max_abs_diff_steps_10_19": diff,
+           "uninterrupted": [a[s] for s in sorted(a)],
+           "resumed": [b[s] for s in sorted(b)], "compress": comp_losses,
+           "s": time.perf_counter() - t0}
+    print(f"train_resume (reduced internlm2-1.8b on the card, subprocesses): "
+          f"die at step 12 exited 42, --resume printed 'resumed from step "
+          f"10'; steps 10 to 19 max abs loss diff {diff:.3g} (bound "
+          f"{RESUME_TOL}); --compress 12 steps: loss {comp_losses[0]:.4f} -> "
+          f"{comp_losses[-1]:.4f} ({res['s']:.1f} s) [{card}]", flush=True)
+    if diff >= RESUME_TOL:
+        raise AssertionError(f"train_resume: resumed losses differ from the "
+                             f"uninterrupted run's by {diff}")
+    if len(comp_losses) != 12 or not comp_losses[-1] < comp_losses[0]:
+        raise AssertionError(f"train_resume: compressed losses "
+                             f"{comp_losses} do not fall")
+    return res
 
 
 def build_all(_build) -> None:
@@ -2511,6 +2924,20 @@ def main() -> int:
     flash_by_arch = {ARCH: lm_launches["flash_attention"],
                      **{a: r["flash_launches"] for a, r in archs.items()}}
 
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    flash_attention_cuda.launches = 0
+    rglru_scan_cuda.launches = 0
+    training = {"train_main": train_cli(torch, TRAIN_ARGV, card,
+                                        "train_main", TRAIN_PROFILE_STEP)}
+    if flash_attention_cuda.launches or rglru_scan_cuda.launches:
+        raise AssertionError("train_main launched a forward-only kernel")
+    training["train_rglru"] = train_rglru(torch, dev, card)
+    training["train_xlstm"] = train_cli(torch, XLSTM_ARGV, card,
+                                        "train_xlstm")
+    training["train_resume"] = train_resume(torch, card)
+    scan_train = training["train_rglru"]
+
     head = next(c for c in fused if (c["error"], c["mode"])
                 == (HEADLINE[0], f"search-{HEADLINE[1]}"))
     window_head = next(c for c in cases
@@ -2561,8 +2988,19 @@ def main() -> int:
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:37",
         "design": RGLRU_DESIGN,
-        "launches": lm_launches["rglru_scan"],
+        "launches": lm_launches["rglru_scan"]
+        + scan_train["forward_launches"] + scan_train["backward_launches"],
+        "launches_by_phase": {
+            "serving": lm_launches["rglru_scan"],
+            "train_rglru forward": scan_train["forward_launches"],
+            "train_rglru backward": scan_train["backward_launches"]},
         "launches_by_path": lm_launches["rglru_scan_by_path"],
+        "backward": {"launches": scan_train["backward_launches"],
+                     "design": "RGLRUScan.backward: the same kernel on "
+                               "time-flipped g and a_next, then "
+                               "da = gacc * h_prev in torch ops",
+                     "training_step_check": scan_train["recorded"],
+                     **scan_train["backward"]},
         "max_abs_err": max(c["max_abs_err"] for c in rglru_cases),
         "equal": True,
         **{k: rglru_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",
@@ -2584,6 +3022,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"arch_consistency": consistency,
                       "arch_serving": archs}))
+    print(json.dumps({"training": training}))
     print("earlier designs at the headline shapes, copied from PERF.md §6 "
           "(H100 80GB HBM3 at 700 W), not measured in this run: "
           + "; ".join(f"{name} {ms} ms ({what}), {new:.4f} ms in this run"

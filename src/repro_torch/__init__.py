@@ -2,7 +2,8 @@
 
 The JAX package stays the reference; this package mirrors its layout and
 names (``core/``, ``index/``, ``kernels/``, ``analysis/``, and for the LM
-substrate ``models/``, ``configs/``, ``serve/``) and imports neither ``jax``
+substrate ``models/``, ``configs/``, ``serve/``, ``train/``,
+``checkpoint/``, ``data/``, ``launch/``) and imports neither ``jax``
 nor anything of ``repro``.  Its kernels are hand-written CUDA C++ for Hopper
 (``csrc/``: ``fitting_lookup``, ``flash_attention``, ``rglru_scan``), built
 with ``nvcc`` at first use.  Entry points run on the CUDA card unless the
@@ -37,11 +38,17 @@ kernels, greedy decode over ring caches)::
                                 cache_len=4160)
     batcher.submit(Request(0, prompt, max_new=16))
     batcher.run_until_drained()
+
+Training on one card (AdamW, checkpoints, the learned-index data
+pipeline; ``--device cpu`` on a machine without one)::
+
+    python -m repro_torch.launch.train --arch internlm2-1.8b --steps 100 \
+        --ckpt-dir /tmp/ckpt --resume
 """
 import importlib
 
-__all__ = ["analysis", "configs", "core", "index", "kernels", "models",
-           "serve"]
+__all__ = ["analysis", "checkpoint", "configs", "core", "data", "index",
+           "kernels", "launch", "models", "serve", "train"]
 
 
 def __getattr__(name):

@@ -4,9 +4,8 @@
 Each ``<id>.py`` module exports ``config() -> ModelConfig`` with the exact
 pool dimensions.  ``reduced(cfg)`` shrinks a config to a CPU-test size of the
 same family (same block pattern, tiny dims).  ``SHAPES`` is the reference's
-input-shape set.  ``ARCHS`` lists what the port runs: nine of the
-reference's ten architectures, all but ``xlstm-350m``, whose ``mlstm`` and
-``slstm`` blocks are not ported yet (ROADMAP queue A item 20).
+input-shape set.  ``ARCHS`` lists what the port runs: all ten of the
+reference's architectures.
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ from repro_torch.models.config import ModelConfig, MoEConfig
 ARCHS = [
     "gemma3-12b", "internlm2-1.8b", "gemma2-27b", "minicpm-2b", "arctic-480b",
     "qwen3-moe-235b-a22b", "llama-3.2-vision-11b", "recurrentgemma-9b",
-    "whisper-medium",
+    "xlstm-350m", "whisper-medium",
 ]
 
 
@@ -40,9 +39,8 @@ SHAPES = {
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
-        raise NotImplementedError(
-            f"{arch!r} is not ported; the port runs {ARCHS} (xlstm-350m is "
-            f"ROADMAP queue A item 20: the xLSTM family)")
+        raise ValueError(f"unknown architecture {arch!r}; the port runs "
+                         f"{ARCHS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
     return mod.config()

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
@@ -75,3 +77,19 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(build(name)))
                 _LIBS[name] = lib
     return lib
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if grad mode is on and a CUDA tensor among ``tensors``
+    requires a gradient: a kernel wrapper that fills its output through
+    ``ctypes`` gives it no ``grad_fn``, so autograd would silently drop
+    the gradient of everything upstream."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.device.type == "cuda" and t.requires_grad
+           for t in tensors):
+        raise RuntimeError(
+            f"{name} got a CUDA tensor that requires grad with grad mode "
+            f"on; its kernel has no autograd, so the gradient would be "
+            f"dropped (call it under torch.no_grad(), or use the "
+            f"differentiable path)")

@@ -22,7 +22,11 @@ design does about it.
 * :func:`flash_attention_torch` is the same function as one masked softmax
   in f32 plain torch ops.
 * :func:`flash_attention` picks by device: the plain twin for CPU tensors
-  only; for a CUDA tensor it launches the kernel or raises.
+  only; for a CUDA tensor it launches the kernel or raises.  The kernel is
+  a forward only (the reference has no backward kernel either), so it
+  refuses a CUDA tensor that requires grad while grad mode is on; the
+  model trains through the reference's query-chunked ``_attend``
+  (``models/blocks.py``).
 """
 from __future__ import annotations
 
@@ -202,6 +206,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kw = {"causal": causal, "window": window, "softcap": softcap,
           "scale": scale}
     if q.device.type == "cuda":
+        _build.check_no_grad("flash_attention", q, k, v)
         return flash_attention_cuda(q, k, v, **kw)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, **kw)

@@ -23,7 +23,19 @@ its design does about it.
   plain torch ops; its products and sums round as the kernel's do, so the
   two agree bit for bit.
 * :func:`rglru_scan` picks by device: the plain twin for CPU tensors only;
-  for a CUDA tensor it launches the kernel or raises.
+  for a CUDA tensor it launches the kernel or raises.  It carries no
+  gradient, so it refuses a CUDA tensor that requires one while grad mode
+  is on (``_build.check_no_grad``): the training path goes through
+  :class:`RGLRUScan`.
+* :class:`RGLRUScan` is the reference's ``_rglru_scan`` custom VJP
+  (``src/repro/models/blocks.py``): its forward is the scan above from
+  zeros and saves ``(a, h)``; its backward is the same recurrence run
+  backwards in time, ``gacc_t = g_t + a_{t+1} gacc_{t+1}``, launched as
+  **the same kernel** on time-flipped inputs, and ``da = gacc * h_prev``.
+  The kernel equals its twin bit for bit, so the backward on the card
+  equals the twin's backward bit for bit.  Its launches pass
+  ``backward=True`` down to the launch, which counts them in
+  ``rglru_scan_cuda.backward_launches`` as well as in ``launches``.
 """
 from __future__ import annotations
 
@@ -95,22 +107,25 @@ def rglru_scan_torch(u: torch.Tensor, a: torch.Tensor,
 
 
 def rglru_scan_cuda(u: torch.Tensor, a: torch.Tensor,
-                    h0: torch.Tensor | None = None
+                    h0: torch.Tensor | None = None, *, backward: bool = False
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel that :func:`scan_path` picks on the current
-    stream (no synchronisation).
+    stream (no synchronisation).  ``backward`` marks a launch made for
+    :class:`RGLRUScan`'s backward, counted apart as well.
 
     Raises if the tensors are not on a CUDA device, the library cannot be
     built, or the launch reports an error."""
-    return _rglru_scan_launch(u, a, h0, scan_path(u, a))
+    return _rglru_scan_launch(u, a, h0, scan_path(u, a), backward=backward)
 
 
 def _rglru_scan_launch(u: torch.Tensor, a: torch.Tensor,
-                       h0: torch.Tensor | None, path: str
+                       h0: torch.Tensor | None, path: str, *,
+                       backward: bool = False
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel of ``path``: the wrapper's route, and for tests and
     the smoke the unaligned kernel on inputs the TMA kernel takes, to hold
-    the two designs against each other.  Counted as every launch is."""
+    the two designs against each other.  Counted as every launch is, and in
+    ``backward_launches`` too when ``backward``."""
     _check(u, a, h0)
     if u.device.type != "cuda":
         raise ValueError(f"rglru_scan_cuda needs CUDA tensors, got {u.device}")
@@ -138,19 +153,47 @@ def _rglru_scan_launch(u: torch.Tensor, a: torch.Tensor,
     with _COUNT_LOCK:             # read-modify-writes, from any thread
         rglru_scan_cuda.launches += 1
         rglru_scan_cuda.launches_by_path[path] += 1
+        rglru_scan_cuda.backward_launches += backward
     return out, h_last
 
 
 rglru_scan_cuda.launches = 0
 rglru_scan_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
+rglru_scan_cuda.backward_launches = 0
 
 
 def rglru_scan(u: torch.Tensor, a: torch.Tensor,
-               h0: torch.Tensor | None = None
+               h0: torch.Tensor | None = None, *, backward: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel for CUDA tensors, its plain twin for CPU tensors."""
+    """The kernel for CUDA tensors, its plain twin for CPU tensors.  Not
+    differentiable on the card: see :class:`RGLRUScan`.  ``backward`` is
+    passed to :func:`rglru_scan_cuda`'s count."""
     if u.device.type == "cuda":
-        return rglru_scan_cuda(u, a, h0)
+        _build.check_no_grad("rglru_scan", u, a, h0)
+        return rglru_scan_cuda(u, a, h0, backward=backward)
     if u.device.type == "cpu":
         return rglru_scan_torch(u, a, h0)
     raise ValueError(f"no rglru_scan kernel for device {u.device}")
+
+
+class RGLRUScan(torch.autograd.Function):
+    """``h = RGLRUScan.apply(u, a)``: every state of ``h_t = a_t h_{t-1}
+    + u_t`` from ``h_{-1} = 0``, differentiable in ``u`` and ``a``.  u, a:
+    contiguous (B, T, W) f32.  The kernel on the card, the twin on the CPU,
+    in both directions."""
+
+    @staticmethod
+    def forward(ctx, u: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        h, _ = rglru_scan(u, a)        # grad mode is off inside forward
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, h = ctx.saved_tensors
+        a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+        rev, _ = rglru_scan(g.flip(1).contiguous(),
+                            a_next.flip(1).contiguous(), backward=True)
+        gacc = rev.flip(1)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return gacc, gacc * h_prev

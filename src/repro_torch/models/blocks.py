@@ -1,22 +1,25 @@
 """Model blocks of the port (functional: explicit parameter dicts), for
-every block type but the xLSTM pair: self-attention (``attn``, ``local``,
-``enc``, with optional qk-norm), cross-attention (``cross`` and the cross half
-of ``self+cross``), the top-k MoE FFN and the RG-LRU (port of
-``repro.models.blocks``).
+every block type: self-attention (``attn``, ``local``, ``enc``, with
+optional qk-norm), cross-attention (``cross`` and the cross half of
+``self+cross``), the top-k MoE FFN, the RG-LRU and the xLSTM pair (``mlstm``,
+``slstm``) (port of ``repro.models.blocks``).
 
 Every block follows ``apply_<x>(params, x, cfg, ctx) -> (x, new_cache)``
 where ``ctx`` carries mode/positions/memory/cache.  Caches make
 prefill/decode work: KV rings for self-attention (global cache = ring of
 size S, local = ring of size window), the memory's keys and values for
-cross-attention, recurrent states for the RG-LRU.
+cross-attention, recurrent states for the RG-LRU and the xLSTM blocks.
 
 The two hot functions of prefill run on the port's hand-written kernels:
 attention over the prompt (self- or cross-) is ``kernels.flash_attention``
 (the reference computes the same function in XLA, ``_attend`` under the
-prefill mask), and the RG-LRU scan is ``kernels.rglru_scan`` (the
-reference's associative ``_rglru_scan``).  Decode attention, the one-step
-RG-LRU update and the MoE dispatch stay plain torch, as the reference keeps
-them in XLA.
+prefill mask), and the RG-LRU scan is ``kernels.rglru_scan.RGLRUScan`` (the
+reference's associative ``_rglru_scan`` and its custom VJP), whose backward
+launches the same kernel.  Flash is a forward only, as in the reference, so
+attention that autograd must differentiate (training) takes the reference's
+query-chunked ``_attend`` in torch ops.  Decode attention, the one-step
+RG-LRU update, the MoE dispatch and the xLSTM recurrences stay plain torch,
+as the reference keeps them in XLA (a Python loop stands for ``lax.scan``).
 
 Types follow JAX's promotion: :func:`mm` multiplies mixed-type operands in
 the wider type (f32 caches meet bf16 weights at decode), and elementwise ops
@@ -30,9 +33,10 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import RGLRUScan
 
 from .config import ModelConfig
 
@@ -93,10 +97,14 @@ def init_attention(cfg: ModelConfig, dense: Dense, dtype: torch.dtype,
     return p
 
 
+Q_CHUNK = 512  # memory-efficient attention: peak logits = B*H*Q_CHUNK*S
+
+
 def _attend_dense(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     """q: (B,T,H,hd); k,v: (B,S,Kv,hd); mask: (B,T,S) or (T,S). GQA-grouped.
 
-    The plain path: decode over the ring cache."""
+    The plain path: decode over the ring cache, and each query chunk of
+    :func:`_attend`."""
     b, t, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -110,6 +118,43 @@ def _attend_dense(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
     return out.reshape(b, t, h * hd).to(v.dtype)
+
+
+def _attend(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+    """Query-chunked attention, the reference's ``_attend``: the training
+    path, which autograd differentiates.  O(Q_CHUNK * S) logits live at
+    once instead of O(T * S); each chunk runs under
+    ``torch.utils.checkpoint``, as the reference's under ``jax.checkpoint``,
+    so backward recomputes the (chunk x S) probabilities instead of keeping
+    every chunk's."""
+    t = q.shape[1]
+    if t <= Q_CHUNK or t % Q_CHUNK != 0:
+        return _attend_dense(q, k, v, mask, cfg)
+    outs = []
+    for i in range(t // Q_CHUNK):
+        rows = slice(i * Q_CHUNK, (i + 1) * Q_CHUNK)
+        m = mask[:, rows] if mask.dim() == 3 else mask[rows]
+        outs.append(checkpoint(_attend_dense, q[:, rows], k, v, m, cfg,
+                               use_reentrant=False))
+    return torch.cat(outs, dim=1)
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd must differentiate through attention over these."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _train_mask(t: int, causal: bool, window: Optional[int],
+                device) -> torch.Tensor:
+    """The reference's (T, T) train/prefill mask over positions 0..T-1."""
+    ar = torch.arange(t, dtype=torch.int32, device=device)
+    qp, kp = ar[:, None], ar[None, :]
+    mask = torch.ones((t, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return mask
 
 
 def _attend_prefill(q, k, v, cfg: ModelConfig, causal: bool,
@@ -153,8 +198,14 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     k = rope(k, pos, cfg.rope_theta)
 
     if ctx.mode == "train" or ctx.cache is None or ctx.mode == "prefill":
-        # batch-uniform positions 0..T-1: the kernel's end-aligned mask
-        out = mm(_attend_prefill(q, k, v, cfg, causal, window), p["wo"])
+        # batch-uniform positions 0..T-1: the kernel's end-aligned mask, or
+        # under autograd the reference's chunked attention on that mask
+        if _needs_grad(q, k, v):
+            att = _attend(q, k, v, _train_mask(t, causal, window, x.device),
+                          cfg)
+        else:
+            att = _attend_prefill(q, k, v, cfg, causal, window)
+        out = mm(att, p["wo"])
         if ctx.mode != "prefill" or ctx.cache is None:
             return out, None
         # fill the ring with the last min(T, L) tokens for subsequent decode
@@ -208,9 +259,9 @@ def _apply_cross(p: dict, q: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if ctx.mode == "decode":
+    if ctx.mode == "decode" or _needs_grad(q, k, v):
         mask = torch.ones((t, k.shape[1]), dtype=torch.bool, device=q.device)
-        out = _attend_dense(q, k, v, mask, cfg)
+        out = _attend(q, k, v, mask, cfg)      # one query at decode: dense
     else:
         out = _attend_prefill(q, k, v, cfg, causal=False, window=None)
     return mm(out, p["wo"]), new_cache
@@ -359,7 +410,8 @@ def apply_rglru(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
         h = a[:, 0] * cache["h"] + un[:, 0]
         hs = h[:, None]
     else:
-        hs, h = rglru_scan(un, a)
+        hs = RGLRUScan.apply(un, a)
+        h = hs[:, -1].clone()          # the cache keeps (B, W), not hs
     new_cache = {"conv": hist[:, -(cw - 1):] if cw > 1 else hist[:, :0],
                  "h": h} if ctx.mode != "train" else None
     y = mm(hs.to(x.dtype) * gate, p["wo"])
@@ -372,3 +424,195 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
     return {"conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
                                 device=device),
             "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
+
+
+# -------------------------------------------------------------------- xlstm
+def init_mlstm(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
+    d = cfg.d_model
+    w = int(cfg.mlstm_expand * d)
+    return {"wu": dense((d, w), dtype), "wg": dense((d, w), dtype),
+            "wq": dense((w, w), dtype), "wk": dense((w, w), dtype),
+            "wv": dense((w, w), dtype), "wi": dense((w, cfg.n_heads), dtype),
+            "wf": dense((w, cfg.n_heads), dtype), "wo": dense((w, d), dtype)}
+
+
+def _mlstm_sequential(q, k, v, log_i, log_f, c0, n0, m0):
+    """Exact stabilized recurrence (decode path + chunkwise test oracle).
+    q,k,v: (B,T,H,hd) f32; log_i/log_f: (B,T,H) f32; a loop over T."""
+    c, n, m = c0, n0, m0
+    hs = []
+    for i in range(q.shape[1]):
+        qt, kt, vt, li, lf = q[:, i], k[:, i], v[:, i], log_i[:, i], \
+            log_f[:, i]
+        m_new = torch.maximum(lf + m, li)
+        f_ = torch.exp(lf + m - m_new)[..., None]            # (B,H,1)
+        i_ = torch.exp(li - m_new)[..., None]
+        n = f_ * n + i_ * kt
+        c = f_[..., None] * c + i_[..., None] * (vt[..., :, None]
+                                                 * kt[..., None, :])
+        num = torch.einsum("bhij,bhj->bhi", c, qt)
+        den = torch.clamp(torch.abs(torch.einsum("bhj,bhj->bh", n, qt)),
+                          min=1.0)
+        m = m_new
+        hs.append(num / den[..., None])
+    return torch.stack(hs, dim=1), (c, n, m)
+
+
+def _mlstm_chunk(c_in, n_in, m_in, q, k, v, log_i, log_f):
+    """One chunk of the stabilized chunkwise-parallel mLSTM (the form real
+    kernels use: BPTT stores O(T/L) inter-chunk states, not O(T) matrices).
+
+    q,k,v: (B,H,L,hd) f32; log_i/log_f: (B,H,L) f32; carry (C, n, m).
+    Returns (C, n, m) at the chunk's exit and h (B,H,L,hd)."""
+    L = q.shape[2]
+    b_cum = torch.cumsum(log_f, dim=-1)                      # inclusive decay
+    # intra-chunk pairwise log-weights: b_t - b_j + log_i_j for j <= t
+    dmat = b_cum[..., :, None] - b_cum[..., None, :] + log_i[..., None, :]
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=q.device))
+    dmat = torch.where(causal, dmat, -torch.inf)
+    m_intra = torch.amax(dmat, dim=-1)                       # (B,H,L)
+    m_inter = m_in[..., None] + b_cum                        # (B,H,L)
+    m_t = torch.maximum(m_inter, m_intra)
+    d = torch.exp(dmat - m_t[..., None])                     # (B,H,L,L)
+    r = torch.exp(m_inter - m_t)                             # (B,H,L)
+    scores = torch.einsum("bhtd,bhjd->bhtj", q, k) * d
+    num = (torch.einsum("bhtj,bhjd->bhtd", scores, v)
+           + r[..., None] * torch.einsum("bhij,bhtj->bhti", c_in, q))
+    den = (torch.sum(scores, dim=-1)
+           + r * torch.einsum("bhj,bhtj->bht", n_in, q))
+    h = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
+    # chunk-exit state
+    b_last = b_cum[..., -1]
+    m_out = torch.maximum(m_in + b_last, torch.amax(
+        b_last[..., None] - b_cum + log_i, dim=-1))
+    w = torch.exp(b_last[..., None] - b_cum + log_i - m_out[..., None])
+    decay = torch.exp(m_in + b_last - m_out)
+    c_out = (decay[..., None, None] * c_in
+             + torch.einsum("bhj,bhjv,bhjk->bhvk", w, v, k))
+    n_out = decay[..., None] * n_in + torch.einsum("bhj,bhjk->bhk", w, k)
+    return c_out, n_out, m_out, h
+
+
+def apply_mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
+    """mLSTM (xLSTM Sec. 2.3): chunkwise-parallel stabilized form for
+    train/prefill (chunk = cfg.mlstm_chunk), exact recurrence for decode.
+    Each chunk runs under ``torch.utils.checkpoint`` where autograd is
+    recording, as the reference's under ``jax.checkpoint``.
+
+    State per head: C (hd,hd) matrix memory, n (hd,), m () stabilizer."""
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    u = mm(x, p["wu"])
+    gate = F.silu(mm(x, p["wg"]))
+    w = u.shape[-1]
+    hd = w // h
+    q = mm(u, p["wq"]).reshape(b, t, h, hd).float()
+    k = (mm(u, p["wk"]) / math.sqrt(hd)).reshape(b, t, h, hd).float()
+    v = mm(u, p["wv"]).reshape(b, t, h, hd).float()
+    log_i = torch.clamp(mm(u, p["wi"]), -10.0, 10.0).float()     # (B,T,H)
+    log_f = F.logsigmoid(mm(u, p["wf"]).float())
+
+    cache = ctx.cache or {}
+    if "C" in cache:
+        c0, n0, m0 = cache["C"], cache["n"], cache["m"]
+    else:
+        dev = x.device
+        c0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=dev)
+        n0 = torch.zeros((b, h, hd), dtype=torch.float32, device=dev)
+        m0 = torch.full((b, h), -torch.inf, dtype=torch.float32, device=dev)
+
+    L = cfg.mlstm_chunk
+    if t == 1 or ctx.mode == "decode":
+        hs, (cT, nT, mT) = _mlstm_sequential(q, k, v, log_i, log_f, c0, n0,
+                                             m0)
+    else:
+        # pad T to a chunk multiple; padded steps get log_i=-inf (no effect)
+        tp = (t + L - 1) // L * L
+
+        def heads_first(a, fill=0.0):             # (B,T,H,...) -> (B,H,Tp,...)
+            pad = [0, 0] * (a.dim() - 2) + [0, tp - t]
+            return F.pad(a, pad, value=fill).movedim(2, 1)
+
+        qh, kh, vh = heads_first(q), heads_first(k), heads_first(v)
+        lih, lfh = heads_first(log_i, -torch.inf), heads_first(log_f)
+        carry, outs = (c0, n0, m0), []
+        grad = torch.is_grad_enabled()
+        for j in range(tp // L):
+            cols = slice(j * L, (j + 1) * L)
+            args = (*carry, qh[:, :, cols], kh[:, :, cols], vh[:, :, cols],
+                    lih[:, :, cols], lfh[:, :, cols])
+            if grad:
+                *carry, hj = checkpoint(_mlstm_chunk, *args,
+                                        use_reentrant=False)
+            else:
+                *carry, hj = _mlstm_chunk(*args)
+            outs.append(hj)
+        cT, nT, mT = carry
+        # (B,H,Tp,hd) -> (B,T,H,hd)
+        hs = torch.cat(outs, dim=2).movedim(1, 2)[:, :t]
+    out = hs.reshape(b, t, w).to(x.dtype)
+    new_cache = {"C": cT, "n": nT, "m": mT} if ctx.mode != "train" else None
+    return mm(out * gate, p["wo"]), new_cache
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    w = int(cfg.mlstm_expand * cfg.d_model)
+    hd = w // cfg.n_heads
+    f32 = torch.float32
+    return {"C": torch.zeros((batch, cfg.n_heads, hd, hd), dtype=f32,
+                             device=device),
+            "n": torch.zeros((batch, cfg.n_heads, hd), dtype=f32,
+                             device=device),
+            "m": torch.full((batch, cfg.n_heads), -torch.inf, dtype=f32,
+                            device=device)}
+
+
+def init_slstm(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
+    d = cfg.d_model
+    f = int(cfg.slstm_proj * d)
+    return {"wz": dense((d, d), dtype), "wi": dense((d, d), dtype),
+            "wf": dense((d, d), dtype), "wo": dense((d, d), dtype),
+            "up": dense((d, f), dtype), "down": dense((f, d), dtype)}
+
+
+def apply_slstm(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
+    """sLSTM (xLSTM Sec. 2.2): scalar memory, exp input gating, stabilized;
+    the reference's sequential step in a loop over T."""
+    b, t, d = x.shape
+    z = torch.tanh(mm(x, p["wz"])).float()
+    log_i = torch.clamp(mm(x, p["wi"]), -10, 10).float()
+    log_f = F.logsigmoid(mm(x, p["wf"]).float())
+    o = torch.sigmoid(mm(x, p["wo"])).float()
+
+    cache = ctx.cache or {}
+    if "c" in cache:
+        c, n, m = cache["c"], cache["n"], cache["m"]
+    else:
+        c = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        n = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        m = torch.full((b, d), -torch.inf, dtype=torch.float32,
+                       device=x.device)
+    hs = []
+    for i in range(t):
+        li, lf = log_i[:, i], log_f[:, i]
+        m_new = torch.maximum(lf + m, li)
+        f_ = torch.exp(lf + m - m_new)
+        i_ = torch.exp(li - m_new)
+        c = f_ * c + i_ * z[:, i]
+        n = f_ * n + i_
+        m = m_new
+        hs.append(o[:, i] * c / torch.clamp(n, min=1.0))
+    out = torch.stack(hs, dim=1).to(x.dtype)
+    new_cache = {"c": c, "n": n, "m": m} if ctx.mode != "train" else None
+    y = mm(out, p["up"])
+    return mm(F.gelu(y, approximate="tanh"), p["down"]), new_cache
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    d = cfg.d_model
+    f32 = torch.float32
+    return {"c": torch.zeros((batch, d), dtype=f32, device=device),
+            "n": torch.zeros((batch, d), dtype=f32, device=device),
+            "m": torch.full((batch, d), -torch.inf, dtype=f32,
+                            device=device)}

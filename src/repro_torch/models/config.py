@@ -1,7 +1,6 @@
 """Model configuration (a copy of ``repro.models.config``, pure Python): one
 dataclass covering all 10 assigned architectures.  The port runs every block
-type below but ``mlstm`` and ``slstm`` (ROADMAP queue A item 20), so nine of
-the ten (``repro_torch.configs.ARCHS``).
+type below, so all ten (``repro_torch.configs.ARCHS``).
 
 A model is a list of *stacks*; each stack is a repeating *unit* of block types
 scanned ``repeats`` times (params stacked on a leading repeat axis, O(1) HLO

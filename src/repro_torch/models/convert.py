@@ -11,6 +11,11 @@ becomes ``params["stacks"]["s0"][r]["b1"]["rec"]["wx"]``, and the encoder's
 leaf must have the shape and type that ``init_params`` gives the port for
 ``cfg`` in the embedding's type, or this raises: so an MoE router stays f32
 under bf16 weights, as both packages draw it.
+
+``opt_state_from_jax(tree, cfg, device)`` does the same for the reference's
+optimizer state (``repro.train.optimizer.init_opt_state``, with
+``residual`` where compression is on): ``m``, ``v`` and ``residual`` are
+f32 trees shaped like the parameters, and ``step`` an int32 scalar.
 """
 from __future__ import annotations
 
@@ -86,3 +91,21 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device=None) -> Params:
 def _dtype_of(tree: dict) -> torch.dtype:
     """The parameters' type: that of the embedding."""
     return _tensor(np.asarray(tree["embed"])[:1], torch.device("cpu")).dtype
+
+
+def opt_state_from_jax(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The port's optimizer state from the reference's (numpy leaves):
+    ``m``, ``v`` (and ``residual``) in the port's per-layer layout, f32;
+    ``step`` an int32 scalar tensor."""
+    dev = resolve_device(device)
+    trees = [k for k in ("m", "v", "residual") if k in tree]
+    if set(tree) != {*trees, "step"} or not {"m", "v"} <= set(trees):
+        raise ValueError(f"optimizer state keys {sorted(tree)}: expected "
+                         f"m, v, step and optionally residual")
+    out = {k: params_from_jax(tree[k], cfg, dev) for k in trees}
+    for k in trees:
+        if _dtype_of(tree[k]) != torch.float32:
+            raise ValueError(f"optimizer state {k} must be float32")
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=dev)
+    return out

@@ -1,16 +1,18 @@
-"""The port's model: init / forward / prefill / decode (port of
-``repro.models.model``) for every block type but ``mlstm`` and ``slstm``:
-decoder-only stacks, untied embeddings, encoder stacks run over a memory
-(whisper's audio frames) and cross-attention to it (llama-vision's patches,
-whisper's encoder output), and single-device MoE.
+"""The port's model: init / forward / prefill / decode / loss (port of
+``repro.models.model``) for every block type: decoder-only stacks, untied
+embeddings, encoder stacks run over a memory (whisper's audio frames) and
+cross-attention to it (llama-vision's patches, whisper's encoder output),
+single-device MoE, the RG-LRU and the xLSTM pair.
 
 Parameters are nested dicts of tensors whose paths follow the reference's:
 the reference stacks a unit's layers on a leading repeat axis
 (``params["stacks"]["s0"]["b1"]["rec"]["wx"]`` of shape (R, d, w)) and scans
 over it; the port keeps one dict per layer in a list
 (``params["stacks"]["s0"][r]["b1"]["rec"]["wx"]`` of shape (d, w)) and runs
-the layers in a Python loop on one device, with no remat and no activation
-sharding.  ``enc_stacks`` and caches have the same layout.
+the layers in a Python loop on one device, with no activation sharding.
+Where autograd records a train-mode forward, each layer runs under
+``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``)
+unless ``remat=False``.  ``enc_stacks`` and caches have the same layout.
 ``models/convert.py`` carries the reference's parameters over.
 
 Entry points take ``device=None``, which means the CUDA card and raises
@@ -23,24 +25,16 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.index.engine import resolve_device
+from repro_torch.tree import tree_leaves
 
 from . import blocks
 from .blocks import Ctx
 from .config import ModelConfig
 
 Params = Any
-
-PORTED_BLOCKS = ("attn", "local", "enc", "cross", "self+cross", "moe",
-                 "rglru")
-
-
-def _unported(btype: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block type {btype!r} is not ported; the port runs {PORTED_BLOCKS} "
-        f"(ROADMAP queue A item 20: the xLSTM family)")
-
 
 # ------------------------------------------------------------------ init
 def init_block(btype: str, cfg: ModelConfig, dense: blocks.Dense,
@@ -65,9 +59,13 @@ def init_block(btype: str, cfg: ModelConfig, dense: blocks.Dense,
     elif btype == "rglru":
         p = {"ln1": ln(), "rec": blocks.init_rglru(cfg, dense, dtype, device),
              "ln2": ln(), "mlp": blocks.init_mlp(cfg, dense, dtype)}
+    elif btype == "mlstm":
+        p = {"ln1": ln(), "mix": blocks.init_mlstm(cfg, dense, dtype)}
+    elif btype == "slstm":
+        p = {"ln1": ln(), "mix": blocks.init_slstm(cfg, dense, dtype)}
     else:
-        raise _unported(btype)
-    if cfg.post_norm:
+        raise ValueError(btype)
+    if cfg.post_norm and btype not in ("mlstm", "slstm"):
         p["ln1p"] = ln()
         p["ln2p"] = ln()
     return p
@@ -108,7 +106,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 
 def param_count(cfg: ModelConfig) -> int:
     """Exact parameter count, from shapes alone (no allocation)."""
-    return sum(t.numel() for t in _leaves(init_params(cfg, device="meta")))
+    shapes = init_params(cfg, device="meta")
+    return sum(t.numel() for t in tree_leaves(shapes))
 
 
 def active_param_count(cfg: ModelConfig) -> int:
@@ -124,18 +123,7 @@ def active_param_count(cfg: ModelConfig) -> int:
 
 
 def param_bytes(params: Params) -> int:
-    return sum(t.numel() * t.element_size() for t in _leaves(params))
-
-
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
 
 
 # ------------------------------------------------------------------ blocks
@@ -192,25 +180,48 @@ def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
         h = blocks.rmsnorm(p["ln2"], x, eps)
         x = x + scale * blocks.apply_mlp(p["mlp"], h)
         return x, cache
-    raise _unported(btype)
+    if btype in ("mlstm", "slstm"):
+        h = blocks.rmsnorm(p["ln1"], x, eps)
+        apply = blocks.apply_mlstm if btype == "mlstm" else blocks.apply_slstm
+        h, cache = apply(p["mix"], h, cfg, ctx)
+        return x + scale * h, cache
+    raise ValueError(btype)
+
+
+def _apply_unit(x: torch.Tensor, unit, lp: dict, lc, cfg: ModelConfig,
+                ctx_proto: Ctx):
+    """One repeat of a unit: its blocks in order.  Returns (x, caches)."""
+    ncs = {}
+    for bi, bt in enumerate(unit):
+        ctx = Ctx(ctx_proto.mode, ctx_proto.pos, ctx_proto.memory,
+                  None if lc is None else lc[f"b{bi}"])
+        x, ncs[f"b{bi}"] = apply_block(bt, lp[f"b{bi}"], x, cfg, ctx)
+    return x, ncs
+
+
+def _unit_hidden(x, unit, lp, cfg, ctx_proto) -> torch.Tensor:
+    return _apply_unit(x, unit, lp, None, cfg, ctx_proto)[0]
 
 
 def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
-                caches):
+                caches, remat: bool = False):
     """Every layer in order, a Python loop (the reference scans each
-    stack); returns the hidden state and the new caches, same layout."""
+    stack); returns the hidden state and the new caches, same layout.
+    ``remat``: where autograd is recording, each layer (one repeat of the
+    unit) runs under ``torch.utils.checkpoint`` and keeps no caches (the
+    train mode's, which ``forward`` drops)."""
     new_caches = {}
     for si, (unit, r) in enumerate(stacks):
         layers = stack_params[f"s{si}"]
         out = []
         for li in range(r):
-            lc = None if caches is None else caches[f"s{si}"][li]
-            ncs = {}
-            for bi, bt in enumerate(unit):
-                ctx = Ctx(ctx_proto.mode, ctx_proto.pos, ctx_proto.memory,
-                          None if lc is None else lc[f"b{bi}"])
-                x, ncs[f"b{bi}"] = apply_block(bt, layers[li][f"b{bi}"], x,
-                                               cfg, ctx)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(_unit_hidden, x, unit, layers[li], cfg,
+                               ctx_proto, use_reentrant=False)
+                ncs = {f"b{bi}": None for bi in range(len(unit))}
+            else:
+                lc = None if caches is None else caches[f"s{si}"][li]
+                x, ncs = _apply_unit(x, unit, layers[li], lc, cfg, ctx_proto)
             out.append(ncs)
         new_caches[f"s{si}"] = out
     return x, new_caches
@@ -220,15 +231,17 @@ def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             memory: Optional[torch.Tensor] = None, mode: str = "train",
             pos: Optional[torch.Tensor] = None, caches=None, enc_caches=None,
-            return_hidden: bool = False):
+            remat: bool = True, return_hidden: bool = False):
     """Returns (logits, new_caches).  tokens: (B, T) integer.
 
     ``memory``: precomputed frontend embeddings (B, M, D), vision patches
     (vlm) or audio frames (audio); run through the encoder stacks, in
     train mode, where the config has them.  ``enc_caches``: an encoder
     output computed before, used as the memory as it is.
-    ``mode="train"`` is the cache-free forward; the port does not train yet
-    (no loss, no gradients: ROADMAP queue A item 17)."""
+    ``mode="train"`` is the cache-free forward; under autograd with
+    ``remat`` (the default, as in the reference) each layer is
+    checkpointed.  Without autograd (serving, the consistency checks)
+    ``remat`` changes nothing."""
     b, t = tokens.shape
     x = params["embed"][tokens]
     if cfg.emb_scale is not None:
@@ -242,7 +255,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                             device=memory.device)[None].expand(
                                 memory.shape[0], -1)
         memory, _ = _run_stacks(params["enc_stacks"], cfg.encoder_stacks,
-                                memory, cfg, Ctx("train", mpos), None)
+                                memory, cfg, Ctx("train", mpos), None,
+                                remat=(mode == "train"))
         memory = blocks.rmsnorm(params["enc_final_norm"], memory,
                                 cfg.norm_eps)
     elif enc_caches is not None:
@@ -250,7 +264,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     ctx = Ctx(mode, pos, memory)
     x, new_caches = _run_stacks(params["stacks"], cfg.stacks, x, cfg, ctx,
-                                caches)
+                                caches, remat=(mode == "train" and remat))
     x = blocks.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     caches_out = new_caches if mode != "train" else None
     if return_hidden:
@@ -267,6 +281,42 @@ def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
+
+
+LOSS_CHUNK = 512  # sequence chunk for the vocab projection + xent
+
+
+def _chunk_nll(params: Params, cfg: ModelConfig, h_c: torch.Tensor,
+               y_c: torch.Tensor, w_c: torch.Tensor) -> torch.Tensor:
+    logits = unembed(params, cfg, h_c).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, y_c[..., None])[..., 0]
+    return -torch.sum(ll * w_c[None, :])
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            memory: Optional[torch.Tensor] = None, remat: bool = True
+            ) -> torch.Tensor:
+    """Next-token cross entropy (the reference's ``loss_fn``), chunked over
+    the sequence so that the (B, C, V) logits of only one chunk are ever
+    live: each chunk's unembedding and log-softmax run under
+    ``torch.utils.checkpoint``.  Labels are the tokens rolled by one; the
+    last position, which has no next token, weighs 0; the mean is over
+    ``b * (t - 1)``."""
+    b, t1 = tokens.shape
+    hidden, _ = forward(params, cfg, tokens, memory=memory, mode="train",
+                        remat=remat, return_hidden=True)
+    labels = torch.roll(tokens, -1, dims=1).long()
+    weights = torch.ones((t1,), dtype=torch.float32, device=tokens.device)
+    weights[-1] = 0.0
+    c = LOSS_CHUNK if t1 % LOSS_CHUNK == 0 else t1
+    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(t1 // c):
+        cols = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_chunk_nll, params, cfg, hidden[:, cols],
+                                   labels[:, cols], weights[cols],
+                                   use_reentrant=False)
+    return total / (b * (t1 - 1))
 
 
 # ------------------------------------------------------------------ caches
@@ -290,7 +340,11 @@ def init_block_cache(btype: str, cfg: ModelConfig, batch: int,
                                           dtype, device)}
     if btype == "rglru":
         return blocks.init_rglru_cache(cfg, batch, dtype, device)
-    raise _unported(btype)
+    if btype == "mlstm":
+        return blocks.init_mlstm_cache(cfg, batch, device)
+    if btype == "slstm":
+        return blocks.init_slstm_cache(cfg, batch, device)
+    raise ValueError(btype)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,

@@ -1,0 +1,74 @@
+"""The train step: loss + grads + AdamW (port of ``repro.train.step``), on
+one device.
+
+Microbatching (gradient accumulation) is a loop that sums each
+microbatch's loss and gradients and scales by ``1 / microbatches``, as the
+reference's ``lax.scan``; optional int8 error-feedback gradient
+compression (``train/compress.py``) sits between the gradients and the
+update.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import loss_fn
+from repro_torch.models.config import ModelConfig
+
+from .compress import compress_decompress
+from .optimizer import AdamWConfig, adamw_update
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                    microbatches: int = 1, compress: bool = False):
+    """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
+
+    batch: {"tokens": (B, T+1) integer[, "memory": (B, M, D)]}, tensors on
+    the parameters' device.  metrics: {"loss", "grad_norm", "lr"}, scalar
+    tensors.  compress=True enables int8 error-feedback gradient
+    compression; the residual is threaded through opt_state["residual"]
+    (add it at init via compress.init_residual).  The caller's parameters
+    and the state's ``m`` and ``v`` are updated in place (see
+    ``optimizer.adamw_update``)."""
+
+    def one(params, tokens, memory):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, leaves), cfg, tokens, memory)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        return loss.detach(), grads
+
+    def grads_of(params, batch):
+        tokens, memory = batch["tokens"], batch.get("memory")
+        if microbatches == 1:
+            loss, grads = one(params, tokens, memory)
+            return loss, tree_unflatten(params, grads)
+        n = tokens.shape[0] // microbatches
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in tree_leaves(params)]
+        for i in range(microbatches):
+            rows = slice(i * n, (i + 1) * n)
+            l, g = one(params, tokens[rows],
+                       None if memory is None else memory[rows])
+            loss = loss + l
+            acc = [a + gi for a, gi in zip(acc, g)]
+        inv = 1.0 / microbatches
+        return loss * inv, tree_unflatten(params, [a * inv for a in acc])
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grads_of(params, batch)
+        if compress:
+            grads, new_res = compress_decompress(grads,
+                                                 opt_state["residual"])
+        params, new_opt, metrics = adamw_update(
+            params, grads, {k: v for k, v in opt_state.items()
+                            if k != "residual"}, opt_cfg)
+        if compress:
+            new_opt["residual"] = new_res
+        metrics["loss"] = loss
+        return params, new_opt, metrics
+
+    return train_step

@@ -1,6 +1,8 @@
 """Parity checks of the port's LM against the JAX package, one architecture
 at a time, shared by ``tests/test_torch_archs_dense.py``,
-``tests/test_torch_archs_memory.py`` and ``tests/test_torch_moe.py``.
+``tests/test_torch_archs_memory.py``, ``tests/test_torch_moe.py`` and
+``tests/test_torch_xlstm.py``, and the training checks' inputs
+(``train_inputs``, ``tests/test_torch_train*.py``).
 
 For an architecture, ``reduced()`` of its config and the reference's f32
 ``init_params``, carried over by ``params_from_jax``, run on the CPU through
@@ -197,3 +199,24 @@ def flash_calls(s: Setup, monkeypatch) -> tuple[int, int]:
                 torch.from_numpy(s.toks[:, T_PRE:T_PRE + 1]),
                 torch.full((B,), T_PRE), caches)
     return at_prefill, calls[0] - at_prefill
+
+
+TRAIN_B, TRAIN_T1 = 2, 17     # tokens a row: 16 positions with a next token
+
+
+def train_inputs(arch: str):
+    """For the training checks: the reduced configs of both packages, the
+    reference's f32 parameters from key 0, seeded numpy tokens (TRAIN_B,
+    TRAIN_T1) and, for the vlm and audio families, the memory stub."""
+    cfg = reduced(get_config(arch))
+    ref_cfg = ref_reduced(ref_get_config(arch))
+    ref_params = ref_init_params(ref_cfg, jax.random.key(0),
+                                 dtype=jnp.float32)
+    toks = np.random.default_rng(1).integers(
+        2, cfg.vocab, size=(TRAIN_B, TRAIN_T1)).astype(np.int32)
+    mem = None
+    if cfg.memory_len:
+        mem = (np.random.default_rng(9).standard_normal(
+            (TRAIN_B, cfg.memory_len, cfg.d_model)) * 0.02).astype(
+                np.float32)
+    return cfg, ref_cfg, ref_params, toks, mem

@@ -40,8 +40,9 @@ def test_root_package_still_resolves_its_subpackages():
                "print('torch' in sys.modules); "
                "print(repro_torch.index.ServingHandle.__name__); "
                "print(repro_torch.kernels.rglru_scan.__name__); "
-               "print(sorted(repro_torch.__all__) == ['analysis', 'configs', "
-               "'core', 'index', 'kernels', 'models', 'serve'])")
+               "print(sorted(repro_torch.__all__) == ['analysis', 'checkpoint', "
+               "'configs', 'core', 'data', 'index', 'kernels', 'launch', "
+               "'models', 'serve', 'train'])")
     assert out.split() == ["False", "ServingHandle",
                            "repro_torch.kernels.rglru_scan", "True"]
 

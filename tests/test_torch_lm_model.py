@@ -32,6 +32,7 @@ from repro.serve.batcher import Request as RefRequest
 from repro.serve.step import make_decode_step as ref_make_decode_step
 from repro.serve.step import make_prefill_step as ref_make_prefill_step
 from repro_torch.configs import ARCHS, get_config, reduced
+from repro_torch.kernels import rglru_scan as rglru_kernels
 from repro_torch.models import (blocks, decode_step, forward, init_caches,
                                 init_params, param_count, params_from_jax,
                                 prefill)
@@ -65,15 +66,15 @@ def ref_decode(setup):
 
 
 def test_configs_and_param_count_match_reference():
-    assert ARCHS == [a for a in REF_ARCHS if a != "xlstm-350m"]
+    assert ARCHS == REF_ARCHS
     for shrink in (False, True):
         cfg, ref_cfg = get_config(ARCH), ref_get_config(ARCH)
         if shrink:
             cfg, ref_cfg = reduced(cfg), ref_reduced(ref_cfg)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
         assert param_count(cfg) == ref_param_count(ref_cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("xlstm-350m")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("xlstm-1t")
 
 
 def test_forward_matches_reference(setup):
@@ -160,7 +161,8 @@ def test_batcher_matches_reference(setup):
 
 def test_prefill_runs_the_kernel_entry_points(setup, monkeypatch):
     """Prefill attention is flash_attention and the RG-LRU scan is
-    rglru_scan, once per local / rglru layer; decode uses neither."""
+    rglru_scan (through RGLRUScan, the autograd function the block calls),
+    once per local / rglru layer; decode uses neither."""
     cfg, _, _, params, toks = setup
     calls = {"flash": 0, "scan": 0}
 
@@ -172,8 +174,8 @@ def test_prefill_runs_the_kernel_entry_points(setup, monkeypatch):
 
     monkeypatch.setattr(blocks, "flash_attention",
                         count("flash", blocks.flash_attention))
-    monkeypatch.setattr(blocks, "rglru_scan",
-                        count("scan", blocks.rglru_scan))
+    monkeypatch.setattr(rglru_kernels, "rglru_scan",
+                        count("scan", rglru_kernels.rglru_scan))
     caches = init_caches(cfg, 2, 16, dtype=torch.float32, device=CPU)
     _, caches = prefill(params, cfg, torch.from_numpy(toks[:, :T_PRE]),
                         caches, last_only=True)
@@ -213,13 +215,17 @@ def test_entry_points_need_a_card_unless_given_the_cpu(setup, monkeypatch):
 
 @pytest.mark.parametrize("what", ["mlstm", "slstm", "xlstm-350m"])
 def test_unported_block_types_raise(what):
-    """The xLSTM family is the one not ported: its block types and its
-    config raise, naming the ROADMAP item."""
+    """Every block type is ported now, the xLSTM pair included (its
+    parity is tests/test_torch_xlstm.py): its block types initialise and
+    its config loads; a block type no package knows still raises."""
     if what == "xlstm-350m":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(what)
+        assert get_config(what).stacks == (
+            (("mlstm", "mlstm", "mlstm", "slstm"), 6),)
         return
     cfg = reduced(get_config(ARCH))
     xlstm = dataclasses.replace(cfg, stacks=(((what,), 1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(xlstm, device=CPU)
+    assert set(init_params(xlstm, device=CPU)["stacks"]["s0"][0]["b0"]) \
+        == {"ln1", "mix"}
+    with pytest.raises(ValueError, match="mamba"):
+        init_params(dataclasses.replace(cfg, stacks=((("mamba",), 1),)),
+                    device=CPU)

@@ -4,8 +4,9 @@ its write path, planning and sharded serving, the LSM write plane and the
 async front door, the device-sharded plane, RecurrentGemma-9B serving, the
 attention families (gemma3-12b, internlm2-1.8b, gemma2-27b, minicpm-2b,
 qwen3-moe-235b-a22b, arctic-480b, llama-3.2-vision-11b, whisper-medium)
-and the xLSTM family (xlstm-350m), and training on the card (the trainer
-at full width, the RG-LRU scan kernel's backward, die and resume).
+and the xLSTM family (xlstm-350m), and training on the card through the
+trainer's mesh path on a one-rank NCCL group (the trainer at full width,
+the RG-LRU scan kernel's backward, MoE, die and resume).
 
 Run from the repository root, with no arguments:
 
@@ -181,6 +182,14 @@ the port's sources are missing.  Phases, each of which raises on failure:
    causal, window, softcap) with a copy of its batch-0 inputs; after the
    model is freed each is held against the twin on those inputs within
    ``FLASH_TOL`` and ``BLOCK_REL_TOL``, as phase 9's cases are.
+   xlstm-350m serves 2 of its 6 repeats (``ARCH_SERVE``).
+Training (phases 13 to 16b) runs on a one-rank NCCL process group
+(``launch.mesh.init_ranks``; never ``gloo`` on the card) and a (data 1,
+model 1) ``DeviceMesh``: every parameter a DTensor on cuda:0, placed by
+the sharding rules, each step under ``activation_sharding(mesh)``.  Each
+phase prints the backend, the mesh and the placement, and checks them,
+and prints its losses, s/step and peak memory beside PR 19 call 13's
+(the same trainer without a mesh, copied in ``C13``).
 13. train_main, the trainer's main path: ``launch.train.main`` with
    ``TRAIN_ARGV`` (internlm2-1.8b at full width and depth, 1.89 B
    parameters, f32 with torch's default matmul precision, B 8, T 256, 6
@@ -191,9 +200,13 @@ the port's sources are missing.  Phases, each of which raises on failure:
    profiler (device time by kind, idle share), peak memory_allocated.
    No forward-only kernel may launch (flash and the scan count 0): the
    trainer's attention is the chunked torch path autograd differentiates.
+   The losses must equal PR 19 c13's to the printed four decimals (at 1 x 1
+   the mesh path computes bit for bit what the step without one does).
 14. train_rglru: recurrentgemma-9b at full width cut to one (rglru, rglru,
    local) unit (1.71 B parameters), f32: 3 steps of ``make_train_step`` at
-   B 2, T 2,048 with the scan's counts set to 0 before and read after:
+   B 2, T 2,048, parameters and state placed on the mesh by the rules and
+   each step under ``activation_sharding``, with the scan's counts set to 0
+   before and read after:
    forward launches must be 12 (each layer's forward and its recomputation
    under remat), backward 6 (``rglru_scan_cuda.backward_launches``), all
    on the ``tma`` path.  The first step keeps the inputs and outputs of
@@ -213,12 +226,18 @@ the port's sources are missing.  Phases, each of which raises on failure:
    ``--die-at-step 12`` (exit 42) at once, then ``--resume`` (prints
    ``resumed from step 10``); steps 10 to 19 within 1e-5 of the
    uninterrupted run (tests/test_substrate.py's bound); and a 12-step
-   ``--compress`` run whose loss falls.
+   ``--compress`` run whose loss falls.  Each subprocess forms its own
+   one-rank NCCL group; its ``mesh:`` line must name ``nccl`` and cuda:0.
+16b. train_moe: ``launch.train.main`` with ``MOE_ARGV`` (reduced qwen3-moe,
+   3 steps) with each call of ``blocks._apply_moe_xla`` and
+   ``_apply_moe_shardmap`` counted: at a model axis of 1 every call takes
+   the single-device dispatch, as the reference does; expert parallelism
+   waits for several cards.
 12. (printed last) A text line with the three redesigned kernels' earlier
    times, copied from PERF.md and marked so, beside this run's; a
-   ``{"training": ...}`` line with phases 13 to 16; a ``{"kernels": [...]}``
-   line (all three kernels, each with its design, every number from this
-   run; the fused search's launches are the read path's, the write
+   ``{"training": ...}`` line with phases 13 to 16b; a ``{"kernels":
+   [...]}`` line (all three kernels, each with its design, every number
+   from this run; the fused search's launches are the read path's, the write
    path's, the LSM's, the pipeline's and the device plane's; flash's are
    phase 11's and 11b's, by architecture in ``launches_by_arch``; the
    scan's are phase 11's and phase 14's, by phase in
@@ -1690,14 +1709,16 @@ ARCH_CONSIST = (("gemma3-12b", 1040), ("internlm2-1.8b", 256),
                 ("llama-3.2-vision-11b", 256), ("whisper-medium", 64),
                 ("xlstm-350m", 300))
 # Phase 11b: the attention families served in bf16 at full width: (arch,
-# layers kept where one card forces a depth cut).  The two MoE models keep
+# repeats kept where one card or the smoke's time forces a depth cut:
+# xlstm-350m's host-bound loops took 270 of the phase's 357 s at its full 6
+# repeats (PR 19 c13), so it serves 2).  The two MoE models keep
 # bf16 caches: with f32 caches decode would promote each layer's whole
 # expert tensors to f32 (17.8 GB for one of arctic's).
 ARCH_SERVE = (("gemma3-12b", None), ("internlm2-1.8b", None),
               ("gemma2-27b", None), ("minicpm-2b", None),
               ("qwen3-moe-235b-a22b", 11), ("arctic-480b", 2),
               ("llama-3.2-vision-11b", None), ("whisper-medium", None),
-              ("xlstm-350m", None))
+              ("xlstm-350m", 2))
 ARCH_PREFILL_T = {"whisper-medium": 448}   # whisper's decoder context
 ARCH_CACHE_LEN, ARCH_PROMPTS = 1056, (128, 1024)
 # The MoE layer's torch ops, by the profiler's self device time of the aten
@@ -2441,6 +2462,18 @@ RGLRU_BWD_SHAPE = (4, 4096, 4096)      # the forward scan's headline shape
 # Phase 15: the xLSTM family through the trainer.
 XLSTM_ARGV = ["--arch", "xlstm-350m", "--steps", "3", "--batch", "8",
               "--seq", "256", "--log-every", "1"]
+# Phase 16b: reduced qwen3-moe through the trainer on the one-rank mesh.
+MOE_ARGV = ["--arch", "qwen3-moe-235b-a22b", "--smoke", "--steps", "3",
+            "--batch", "4", "--seq", "64", "--log-every", "1"]
+# PR 19 call 13's training numbers (H100 80GB HBM3 at 700 W; the trainer on
+# one card without a mesh), copied from PERF.md §5 and printed beside this
+# run's on the text lines, never in the kernels line.
+C13 = {"train_main": {"losses": [11.7918, 15.1184, 12.6806, 11.4881,
+                                 12.348, 11.0938],
+                      "s_per_step": 0.747, "peak_gib": 30.50},
+       "train_rglru": {"losses": [25.457, 25.0316, 24.7373],
+                       "s_per_step": 1.263, "peak_gib": 37.78},
+       "train_xlstm": {"s_per_step": 3.451, "peak_gib": 7.54}}
 # Phase 16: fault tolerance, the reference's die / resume contract.
 RESUME_CMD = ["-m", "repro_torch.launch.train", "--smoke", "--steps", "20",
               "--batch", "2", "--seq", "64", "--ckpt-every", "10",
@@ -2462,6 +2495,7 @@ def timed_train_steps(torch, record: dict, profile_at: int | None = None):
         step = inner(*args, **kw)
 
         def timed(params, opt, batch):
+            record.setdefault("mesh", mesh_facts(params))
             out = {}
 
             def run():
@@ -2483,6 +2517,49 @@ def timed_train_steps(torch, record: dict, profile_at: int | None = None):
         yield record
     finally:
         lt.make_train_step = inner
+
+
+def mesh_facts(params) -> dict:
+    """How a train step holds its parameters: the process group's backend,
+    how many of the leaves are DTensors, on which devices, over which
+    mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    dts = [t for t in leaves if isinstance(t, DTensor)]
+    mesh = dts[0].device_mesh if dts else None
+    return {"backend": dist.get_backend(), "dtensors": len(dts),
+            "leaves": len(leaves),
+            "devices": sorted({str(t.to_local().device) for t in dts}),
+            "mesh": None if mesh is None else
+            dict(zip(mesh.mesh_dim_names, mesh.shape))}
+
+
+def check_mesh(facts: dict, what: str) -> str:
+    """The trainer's mesh path on the card: every parameter a DTensor on
+    cuda:0 over the one-rank NCCL (data 1, model 1) mesh.  Returns the
+    line's text."""
+    ok = (facts["backend"] == "nccl" and facts["leaves"] > 0
+          and facts["dtensors"] == facts["leaves"]
+          and facts["devices"] == ["cuda:0"]
+          and facts["mesh"] == {"data": 1, "model": 1})
+    if not ok:
+        raise AssertionError(f"{what}: not the one-rank NCCL mesh path: "
+                             f"{facts}")
+    return (f"{facts['backend']} group of 1 rank, mesh {facts['mesh']}, "
+            f"{facts['dtensors']} of {facts['leaves']} parameters DTensors "
+            f"on {facts['devices'][0]}")
+
+
+def beside_c13(what: str, losses, step_s: float, peak: float) -> str:
+    """This run's training numbers beside PR 19 call 13's (copied)."""
+    c = C13[what]
+    was = f"losses {c['losses']}, " if "losses" in c else ""
+    return (f"PR 19 c13 (one card, no mesh; copied from PERF.md): {was}"
+            f"{c['s_per_step']} s/step, peak {c['peak_gib']} GiB; this run "
+            f"{[round(x, 4) for x in losses]}, {step_s:.3f} s/step, peak "
+            f"{peak:.2f} GiB")
 
 
 def train_cli(torch, argv, card, what, profile_at=None) -> dict:
@@ -2525,6 +2602,14 @@ def train_cli(torch, argv, card, what, profile_at=None) -> dict:
           f"tokens/s; peak memory_allocated "
           f"{res['peak_allocated_gib']:.2f} GiB ({total:.1f} s in all) "
           f"[{card}]", flush=True)
+    res["mesh"] = rec["mesh"]
+    print(f"{what}: {check_mesh(rec['mesh'], what)}; "
+          f"{beside_c13(what, losses, step_s, res['peak_allocated_gib'])} "
+          f"[{card}]", flush=True)
+    if what == "train_main" and \
+            [round(x, 4) for x in losses] != C13[what]["losses"]:
+        raise AssertionError(f"{what}: losses {losses} differ from PR 19 "
+                             f"c13's {C13[what]['losses']}")
     if "breakdown" in rec:
         res["breakdown"] = rec["breakdown"]
         print_breakdown(f"{what}: train step {profile_at}", rec["breakdown"])
@@ -2668,15 +2753,21 @@ def train_rglru(torch, dev, card) -> dict:
     import gc
     from repro_torch.configs import get_config
     from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh, place
     from repro_torch.models import init_params
-    from repro_torch.models.model import param_count
+    from repro_torch.models.model import activation_sharding, param_count
     from repro_torch.train import AdamWConfig, init_opt_state, \
         make_train_step
     cfg = dataclasses.replace(get_config(ARCH), stacks=RGLRU_TRAIN_STACKS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh()
     params = init_params(cfg, seed=SEED, dtype=torch.float32, device=dev)
     opt = init_opt_state(params)
+    params = place(params, sh.param_shardings(mesh, params), mesh)
+    opt = place(opt, sh.opt_shardings(mesh, opt), mesh)
+    facts = mesh_facts(params)
     step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=1,
                                             total_steps=RGLRU_TRAIN_STEPS))
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -2691,7 +2782,8 @@ def train_rglru(torch, dev, card) -> dict:
                              generator=g, device=dev, dtype=torch.int32)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with recording_scan(seen) if i == 0 else contextlib.nullcontext():
+        with activation_sharding(mesh, batch=RGLRU_TRAIN_B), \
+                recording_scan(seen) if i == 0 else contextlib.nullcontext():
             params, opt, m = step(params, opt, {"tokens": toks})
         losses.append(float(m["loss"]))
         walls.append(time.perf_counter() - t0)
@@ -2710,6 +2802,11 @@ def train_rglru(torch, dev, card) -> dict:
           f"{fwd} (forward + remat recompute), backward {bwd}, by path "
           f"{dict(by_path)}; peak memory_allocated "
           f"{res['peak_allocated_gib']:.2f} GiB [{card}]", flush=True)
+    res["mesh"] = facts
+    c13 = beside_c13("train_rglru", losses, float(np.median(walls[1:])),
+                     res["peak_allocated_gib"])
+    print(f"train {ARCH}: {check_mesh(facts, 'train_rglru')}; {c13} "
+          f"[{card}]", flush=True)
     want = (2 * n_rglru * RGLRU_TRAIN_STEPS, n_rglru * RGLRU_TRAIN_STEPS)
     if (fwd, bwd) != want or by_path["unaligned"] or \
             not all(np.isfinite(losses)):
@@ -2764,6 +2861,13 @@ def train_resume(torch, card) -> dict:
                  "compress": start("--ckpt-dir", comp, "--compress",
                                    "--steps", "12", "--ckpt-every", "6")}
         done = {k: finish(p, k) for k, p in procs.items()}
+        meshes = {k: next((line for line in v[1].splitlines()
+                           if line.startswith("mesh: ")), "")
+                  for k, v in done.items()}
+        for k, line in meshes.items():
+            if "nccl" not in line or "cuda:0" not in line:
+                raise AssertionError(f"train_resume: {k} did not train on "
+                                     f"the one-rank NCCL mesh: {line!r}")
         rc, out, err = done["die at 12"]
         if rc != 42 or "SIMULATED FAILURE at step 12" not in out:
             raise AssertionError(f"train_resume: --die-at-step 12 exited "
@@ -2780,13 +2884,14 @@ def train_resume(torch, card) -> dict:
         a, b, c = losses(full), losses(fault), losses(comp)
     diff = max(abs(a[s] - b[s]) for s in range(10, 20))
     comp_losses = [c[s] for s in sorted(c)]
-    res = {"max_abs_diff_steps_10_19": diff,
+    res = {"mesh": meshes["uninterrupted"],
+           "max_abs_diff_steps_10_19": diff,
            "uninterrupted": [a[s] for s in sorted(a)],
            "resumed": [b[s] for s in sorted(b)], "compress": comp_losses,
            "s": time.perf_counter() - t0}
-    print(f"train_resume (reduced internlm2-1.8b on the card, subprocesses): "
-          f"die at step 12 exited 42, --resume printed 'resumed from step "
-          f"10'; steps 10 to 19 max abs loss diff {diff:.3g} (bound "
+    print(f"train_resume (reduced internlm2-1.8b on the card, subprocesses, "
+          f"each {res['mesh']!r}): die at step 12 exited 42, --resume "
+          f"printed 'resumed from step 10'; steps 10 to 19 max abs loss diff {diff:.3g} (bound "
           f"{RESUME_TOL}); --compress 12 steps: loss {comp_losses[0]:.4f} -> "
           f"{comp_losses[-1]:.4f} ({res['s']:.1f} s) [{card}]", flush=True)
     if diff >= RESUME_TOL:
@@ -2795,6 +2900,51 @@ def train_resume(torch, card) -> dict:
     if len(comp_losses) != 12 or not comp_losses[-1] < comp_losses[0]:
         raise AssertionError(f"train_resume: compressed losses "
                              f"{comp_losses} do not fall")
+    return res
+
+
+def train_moe(torch, card) -> dict:
+    """Phase 16b: reduced qwen3-moe through the trainer on the one-rank
+    NCCL mesh, with each call of the two MoE paths counted.  At a model
+    axis of 1 the reference takes its single-device dispatch, and so must
+    the port; expert parallelism needs a model axis > 1, so several
+    cards."""
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import blocks
+    names = ("_apply_moe_xla", "_apply_moe_shardmap")
+    saved = {n: getattr(blocks, n) for n in names}
+    calls = dict.fromkeys(names, 0)
+
+    def counting(name, fn):
+        def run(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return run
+
+    rec = {}
+    t0 = time.perf_counter()
+    for n, fn in saved.items():
+        setattr(blocks, n, counting(n, fn))
+    try:
+        with timed_train_steps(torch, rec):
+            losses = train_main(list(MOE_ARGV))
+    finally:
+        for n, fn in saved.items():
+            setattr(blocks, n, fn)
+    res = {"argv": MOE_ARGV, "losses": losses, "calls": calls,
+           "mesh": rec["mesh"], "s": time.perf_counter() - t0}
+    print(f"train_moe: reduced qwen3-moe-235b-a22b through the trainer, "
+          f"{check_mesh(rec['mesh'], 'train_moe')}: {len(losses)} steps, "
+          f"losses {[round(x, 4) for x in losses]}; apply_moe took "
+          f"_apply_moe_xla {calls['_apply_moe_xla']} times and "
+          f"_apply_moe_shardmap {calls['_apply_moe_shardmap']} times (the "
+          f"reference's branch at a model axis of 1); expert parallelism "
+          f"needs a model axis > 1 and waits for a machine with several "
+          f"cards ({res['s']:.1f} s) [{card}]", flush=True)
+    if calls["_apply_moe_shardmap"] or not calls["_apply_moe_xla"] or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"train_moe: MoE calls {calls}, losses "
+                             f"{losses}")
     return res
 
 
@@ -2924,8 +3074,14 @@ def main() -> int:
     flash_by_arch = {ARCH: lm_launches["flash_attention"],
                      **{a: r["flash_launches"] for a, r in archs.items()}}
 
+    import torch.distributed as dist
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.launch.mesh import init_ranks
+    init_ranks(dev)
+    print(f"training: a one-rank {dist.get_backend()} process group on "
+          f"{dev}; every phase below trains on a (data 1, model 1) mesh",
+          flush=True)
     flash_attention_cuda.launches = 0
     rglru_scan_cuda.launches = 0
     training = {"train_main": train_cli(torch, TRAIN_ARGV, card,
@@ -2935,7 +3091,9 @@ def main() -> int:
     training["train_rglru"] = train_rglru(torch, dev, card)
     training["train_xlstm"] = train_cli(torch, XLSTM_ARGV, card,
                                         "train_xlstm")
+    training["train_moe"] = train_moe(torch, card)
     training["train_resume"] = train_resume(torch, card)
+    dist.destroy_process_group()
     scan_train = training["train_rglru"]
 
     head = next(c for c in fused if (c["error"], c["mode"])

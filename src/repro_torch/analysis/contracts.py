@@ -110,6 +110,9 @@ HOST_ONLY_MODULES = (
     "repro_torch/core/tree.py",
     "repro_torch/core/segmentation.py",
     "repro_torch/core/cost_model.py",
+    # the port's own: the sharding rules are host code (the reference's
+    # import jax for their NamedSharding)
+    "repro_torch/launch/sharding.py",
 )
 # Import roots that pull torch in at module scope (transitively included).
 ACCEL_IMPORT_ROOTS = (
@@ -120,6 +123,8 @@ ACCEL_IMPORT_ROOTS = (
     "repro_torch.index.pipeline", "repro_torch.index.fit",
     "repro_torch.index.lsm", "repro_torch.index.device_plane",
     "repro_torch.core.torch_index", "repro_torch.core.distributed",
+    "repro_torch.launch.mesh", "repro_torch.launch.train",
+    "repro_torch.train", "repro_torch.checkpoint",
 )
 
 # --------------------------------------------------------------------- RI005

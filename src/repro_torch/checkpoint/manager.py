@@ -4,9 +4,16 @@
 Layout:  <dir>/step_<N>/part_<k>.npz + manifest.json + DONE marker.
   * atomic: written to step_<N>.tmp, fsync'd, renamed; readers only trust
     directories with a DONE marker -> a killed writer never corrupts state.
-  * logical arrays: leaves are saved whole on the host; ``restore`` returns
-    a tree shaped like the one given, its leaves on the host, and the caller
-    moves them to its device.
+  * logical arrays: leaves are saved whole on the host; ``AsyncSaver``
+    gathers a DTensor (``full_tensor``, a collective: every rank of its
+    mesh saves, and a saver made with ``write=False`` gathers without
+    writing); ``restore``
+    returns a tree shaped like the one given, its leaves on the host, and
+    the caller moves them to its device, except where the tree given holds
+    DTensors: there each rank gets its shard of the logical array on
+    whatever mesh and placement the given leaf has (the reference's
+    elastic restore: a checkpoint of one rank resumes on four, and the
+    other way round).
   * async: ``AsyncSaver.save`` copies every leaf to the host (CUDA tensors
     included) before its background thread starts, so training may go on
     and replace its buffers; the previous async save is joined first, so
@@ -33,7 +40,9 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models import act_ctx
 from repro_torch.tree import tree_leaves, tree_map, tree_paths, \
     tree_unflatten
 
@@ -41,7 +50,10 @@ _BF16 = "bfloat16"
 
 
 def _host(leaf: Any) -> Any:
-    """A leaf as it will be saved: tensors copied to host memory."""
+    """A leaf as it will be saved: tensors copied to host memory, a
+    DTensor's logical tensor gathered first."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.asarray(leaf)
@@ -104,15 +116,23 @@ def save(ckpt_dir: str | os.PathLike, step: int, tree: Any,
 
 
 class AsyncSaver:
-    def __init__(self, ckpt_dir, keep_last: int = 3):
+    """``write=False``: a rank that takes part in gathering a sharded tree
+    and leaves the writing to another (every rank but the first)."""
+
+    def __init__(self, ckpt_dir, keep_last: int = 3, write: bool = True):
         self.ckpt_dir = pathlib.Path(ckpt_dir)
         self.keep_last = keep_last
+        self.write = write
         self._thread: threading.Thread | None = None
 
     def save(self, step: int, tree: Any, extra: dict | None = None):
         self.wait()
-        # copy to host *now*, so training can replace its buffers
+        # copy to host *now*, so training can replace its buffers; gathering
+        # a DTensor is a collective, so it happens here, on every rank, and
+        # never in the writer thread
         host = tree_map(_host, tree)
+        if not self.write:
+            return
 
         def run():
             save(self.ckpt_dir, step, host, extra)
@@ -145,7 +165,8 @@ def latest_step(ckpt_dir) -> int | None:
 def restore(ckpt_dir, step: int, like: Any) -> tuple[Any, dict]:
     """Returns (tree shaped like ``like``, extra).  Verifies crc32 and the
     key paths.  A leaf comes back as a CPU tensor where ``like`` has a
-    tensor, else as a numpy array."""
+    tensor, as this rank's shard of it placed as ``like``'s where that is
+    a DTensor, else as a numpy array."""
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     for name, crc in manifest["crc32"].items():
@@ -162,8 +183,12 @@ def restore(ckpt_dir, step: int, like: Any) -> tuple[Any, dict]:
         arr = parts[manifest["leaf_part"][str(i)]][f"leaf_{i}"]
         if not isinstance(want, torch.Tensor):
             leaves.append(arr)
-        elif manifest["dtypes"][i] == _BF16:
-            leaves.append(torch.from_numpy(arr).view(torch.bfloat16))
-        else:
-            leaves.append(torch.from_numpy(arr))
+            continue
+        t = torch.from_numpy(arr)
+        if manifest["dtypes"][i] == _BF16:
+            t = t.view(torch.bfloat16)
+        if isinstance(want, DTensor):
+            t = act_ctx.distribute(t.to(want.device), want.device_mesh,
+                                   want.placements)
+        leaves.append(t)
     return tree_unflatten(like, leaves), manifest.get("extra", {})

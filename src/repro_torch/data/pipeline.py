@@ -96,6 +96,22 @@ class DocIndex:
         return doc.astype(np.int64), off
 
 
+def shard_rows(batch: int, shard: tuple[int, int] = (0, 1),
+               microbatches: int = 1) -> np.ndarray:
+    """The rows of a global batch of ``batch`` rows that data-parallel
+    shard ``i`` of ``n`` holds: the i-th of n equal blocks of each of the
+    ``microbatches`` consecutive microbatches, in order.  A shard's k-th
+    local microbatch is then its block of the global k-th, so which rows
+    meet in a microbatch does not depend on the number of ranks."""
+    i, n = shard
+    if batch % (microbatches * n):
+        raise ValueError(f"a batch of {batch} rows in {microbatches} "
+                         f"microbatches does not split over {n} shards")
+    per = batch // (microbatches * n)
+    starts = np.arange(microbatches) * (batch // microbatches) + i * per
+    return (starts[:, None] + np.arange(per)[None]).reshape(-1)
+
+
 @dataclasses.dataclass
 class PipelineConfig:
     seq_len: int = 1024
@@ -130,10 +146,15 @@ class DataPipeline:
         idx = (base + np.arange(c.batch_size)) % self.n_samples
         return (idx * self.mult + self.offset) % self.n_samples
 
-    def batch_at(self, step: int) -> dict:
-        """(B, T+1) tokens + (B,) doc ids of each window start (metadata)."""
+    def batch_at(self, step: int, shard: tuple[int, int] = (0, 1),
+                 microbatches: int = 1) -> dict:
+        """(B, T+1) tokens + (B,) doc ids of each window start (metadata).
+
+        ``shard=(i, n)``: only a data-parallel rank's rows of the global
+        batch (:func:`shard_rows`)."""
         c = self.cfg
-        ids = self._sample_ids(step)
+        ids = self._sample_ids(step)[shard_rows(c.batch_size, shard,
+                                                microbatches)]
         starts = ids * (c.seq_len + 1)
         rows = starts[:, None] + np.arange(c.seq_len + 1)[None]
         toks = self.corpus.tokens[rows]

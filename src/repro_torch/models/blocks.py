@@ -32,12 +32,14 @@ import math
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import RGLRUScan
 
+from . import act_ctx
 from .config import ModelConfig
 
 # make(shape, dtype) -> a new N(0, 0.02) parameter; init_params supplies it
@@ -316,8 +318,62 @@ def init_moe(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    # the reference's path without a mesh; none until ROADMAP item 15
-    return _apply_moe_xla(p, x, cfg)
+    """Top-k MoE FFN, on the reference's two paths:
+
+    * expert parallel (a mesh installed whose ``model`` axis is larger than
+      1 and divides the experts, a global batch the data-parallel ranks
+      divide, more than one position): every model rank owns ``E / tp``
+      experts, gathers only their weights over ``data``, buckets its local
+      tokens for them, and one sum over ``model`` combines
+      (:func:`_apply_moe_shardmap`);
+    * the single-device dispatch otherwise (:func:`_apply_moe_xla`; under a
+      mesh every rank computes it with its parameters gathered).
+
+    ``p`` is the layer's parameters as the model holds them (DTensors under
+    a mesh): each path gathers what it needs (``act_ctx.materialize``)."""
+    mesh = act_ctx.mesh()
+    if (mesh is not None and "model" in mesh.mesh_dim_names
+            and act_ctx.axis_size(mesh, "model") > 1
+            and cfg.moe.n_experts % act_ctx.axis_size(mesh, "model") == 0
+            and act_ctx.global_batch(x.shape[0]) % act_ctx.dp_size() == 0
+            # decode (T == 1): the per-step gather of the experts' weights
+            # would dwarf the few active tokens (the reference's reason)
+            and x.shape[1] > 1):
+        return _apply_moe_shardmap(p, x, cfg, mesh)
+    return _apply_moe_xla(act_ctx.materialize(p), x, cfg)
+
+
+class _ModelCopy(torch.autograd.Function):
+    """Enter the expert-parallel region: the identity forward (the tokens
+    are the same on every model rank); the backward sums the gradient over
+    ``model``, since each rank's covers only its own experts' share."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ModelSum(torch.autograd.Function):
+    """Leave it: the partial outputs summed over ``model``; the backward is
+    the identity (each rank already holds the whole output's gradient).
+    ``torch.distributed.nn``'s all-reduce would sum the gradient again."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def _bucket_and_run(xt, w, ids, wi, wg, wo, n_buckets: int, cap: int,
@@ -349,6 +405,44 @@ def _bucket_and_run(xt, w, ids, wi, wg, wo, n_buckets: int, cap: int,
     w_sorted = w.reshape(-1)[order].to(dtype)
     out = torch.zeros((xt.shape[0], d), dtype=dtype, device=dev)
     return out.index_add_(0, tok, (back * w_sorted[:, None]).to(dtype))
+
+
+def _apply_moe_shardmap(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
+                        ) -> torch.Tensor:
+    """Expert parallelism in explicit collectives (the reference's
+    ``shard_map`` body): this model rank's experts gathered over ``data``
+    (their gradients reduce-scattered back), the router gathered (its
+    gradient summed over ``model`` too: each rank routes the same tokens
+    but back-propagates through its own experts' weights only), the local
+    tokens routed and bucketed for the rank's experts alone, their outputs
+    summed over ``model``.  Capacity is per rank, from its local tokens, as
+    in the reference.  The dense residual runs outside, on every rank."""
+    m = cfg.moe
+    b, s, d = x.shape
+    tp = act_ctx.axis_size(mesh, "model")
+    group = mesh.get_group("model")
+    e, k = m.n_experts, m.top_k
+    e_loc = e // tp
+    t_loc = b * s
+    cap = max(1, int(math.ceil(t_loc * k / e * m.capacity_factor)))
+    experts = act_ctx.materialize({n: p[n] for n in ("wi", "wg", "wo")},
+                                  keep=("model",))
+    router = act_ctx.materialize(p["router"], partial=("model",))
+    mi = mesh.get_local_rank("model")
+    xt = _ModelCopy.apply(x, group).reshape(-1, d)
+    probs = torch.softmax(mm(xt.float(), router.to(x.dtype)), dim=-1)
+    w, ids = torch.topk(probs, k, dim=-1)                    # (t_loc, k)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    # assignments owned by this model rank; others -> bucket e_loc (drop)
+    local_e = ids - mi * e_loc
+    bucket_of = torch.where((local_e >= 0) & (local_e < e_loc), local_e,
+                            e_loc)
+    out = _bucket_and_run(xt, w, ids, experts["wi"], experts["wg"],
+                          experts["wo"], e_loc, cap, bucket_of, x.dtype)
+    out = _ModelSum.apply(out, group).reshape(x.shape)
+    if m.dense_residual:
+        out = out + apply_mlp(act_ctx.materialize(p["dense"]), x)
+    return out
 
 
 def _apply_moe_xla(p: dict, x: torch.Tensor, cfg: ModelConfig

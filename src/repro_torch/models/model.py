@@ -2,14 +2,19 @@
 ``repro.models.model``) for every block type: decoder-only stacks, untied
 embeddings, encoder stacks run over a memory (whisper's audio frames) and
 cross-attention to it (llama-vision's patches, whisper's encoder output),
-single-device MoE, the RG-LRU and the xLSTM pair.
+MoE (single-device, and expert-parallel under a mesh), the RG-LRU and the
+xLSTM pair.
 
 Parameters are nested dicts of tensors whose paths follow the reference's:
 the reference stacks a unit's layers on a leading repeat axis
 (``params["stacks"]["s0"]["b1"]["rec"]["wx"]`` of shape (R, d, w)) and scans
 over it; the port keeps one dict per layer in a list
 (``params["stacks"]["s0"][r]["b1"]["rec"]["wx"]`` of shape (d, w)) and runs
-the layers in a Python loop on one device, with no activation sharding.
+the layers in a Python loop.  Under ``activation_sharding(mesh)`` the
+parameters are DTensors, and each layer gathers its own just before it
+computes (``act_ctx.materialize``; the embedding, unembedding and final
+norms once a call), as the reference's layers read their shards through
+GSPMD; each rank runs its own batch rows.
 Where autograd records a train-mode forward, each layer runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``)
 unless ``remat=False``.  ``enc_stacks`` and caches have the same layout.
@@ -30,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.index.engine import resolve_device
 from repro_torch.tree import tree_leaves
 
-from . import blocks
+from . import act_ctx, blocks
+from .act_ctx import activation_sharding  # noqa: F401  (as the reference)
 from .blocks import Ctx
 from .config import ModelConfig
 
@@ -188,15 +194,38 @@ def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     raise ValueError(btype)
 
 
+def _layer_params(lp: dict) -> dict:
+    """One layer's parameters as its blocks compute with them: under a mesh
+    gathered into local tensors (``act_ctx.materialize``), except a MoE
+    block's, which ``blocks.apply_moe`` gathers for the path it takes."""
+    if act_ctx.mesh() is None:
+        return lp
+    return {bk: {k: v if k == "moe" else act_ctx.materialize(v)
+                 for k, v in bp.items()} for bk, bp in lp.items()}
+
+
+def _top_params(params: Params) -> Params:
+    """``params`` with the embedding, unembedding and final norms gathered
+    under a mesh (the stacks are gathered a layer at a time)."""
+    if act_ctx.mesh() is None:
+        return params
+    return {k: v if k in ("stacks", "enc_stacks") else act_ctx.materialize(v)
+            for k, v in params.items()}
+
+
 def _apply_unit(x: torch.Tensor, unit, lp: dict, lc, cfg: ModelConfig,
                 ctx_proto: Ctx):
-    """One repeat of a unit: its blocks in order.  Returns (x, caches)."""
+    """One repeat of a unit: its blocks in order.  Returns (x, caches).
+    Under a mesh its parameters are gathered here, so that a checkpointed
+    layer gathers them again when it is recomputed."""
+    x = act_ctx.constrain_btd(x)
+    lp = _layer_params(lp)
     ncs = {}
     for bi, bt in enumerate(unit):
         ctx = Ctx(ctx_proto.mode, ctx_proto.pos, ctx_proto.memory,
                   None if lc is None else lc[f"b{bi}"])
         x, ncs[f"b{bi}"] = apply_block(bt, lp[f"b{bi}"], x, cfg, ctx)
-    return x, ncs
+    return act_ctx.constrain_btd(x), ncs
 
 
 def _unit_hidden(x, unit, lp, cfg, ctx_proto) -> torch.Tensor:
@@ -243,9 +272,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     checkpointed.  Without autograd (serving, the consistency checks)
     ``remat`` changes nothing."""
     b, t = tokens.shape
+    params = _top_params(params)
     x = params["embed"][tokens]
     if cfg.emb_scale is not None:
         x = x * torch.tensor(cfg.emb_scale, dtype=x.dtype, device=x.device)
+    x = act_ctx.constrain_btd(x)
     if pos is None:
         pos = torch.arange(t, dtype=torch.int32,
                            device=tokens.device)[None].expand(b, t)
@@ -288,7 +319,10 @@ LOSS_CHUNK = 512  # sequence chunk for the vocab projection + xent
 
 def _chunk_nll(params: Params, cfg: ModelConfig, h_c: torch.Tensor,
                y_c: torch.Tensor, w_c: torch.Tensor) -> torch.Tensor:
-    logits = unembed(params, cfg, h_c).float()
+    logits = unembed(params, cfg, act_ctx.constrain_btd(h_c)).float()
+    if act_ctx.mesh() is not None and "model" not in act_ctx.dp_axes():
+        logits = act_ctx.constrain(logits,
+                                   (act_ctx.dp_axes(), None, "model"))
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, y_c[..., None])[..., 0]
     return -torch.sum(ll * w_c[None, :])
@@ -304,6 +338,7 @@ def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     last position, which has no next token, weighs 0; the mean is over
     ``b * (t - 1)``."""
     b, t1 = tokens.shape
+    params = _top_params(params)
     hidden, _ = forward(params, cfg, tokens, memory=memory, mode="train",
                         remat=remat, return_hidden=True)
     labels = torch.roll(tokens, -1, dims=1).long()

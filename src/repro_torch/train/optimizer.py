@@ -7,7 +7,9 @@ arithmetic is the reference's, per leaf and in its order, in f32 scalar
 tensors where the reference computes in f32 arrays, so that one update
 rounds as the reference's does; each parameter comes out in its own type.
 Updates run under ``torch.no_grad`` and write the parameters, ``m`` and
-``v`` in place, as the reference's trainer donates their buffers.
+``v`` in place, as the reference's trainer donates their buffers.  Under a
+mesh they are DTensors: each rank updates its own shards, and the norm is
+the logical gradient's (``act_ctx.reduce_logical``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models import act_ctx
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -63,9 +66,17 @@ def init_opt_state(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+@torch.no_grad()
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+    """The norm of the logical tree: over DTensor leaves, each rank sums
+    the squares of the shards it counts (one replica of each) and the sums
+    are reduced over the ranks."""
+    leaves = tree_leaves(tree)
+    dev = act_ctx.local(leaves[0]).device
+    sq = sum((torch.sum(torch.square(act_ctx.local(leaf).float()))
+              for leaf in leaves if act_ctx.counts_once(leaf)),
+             torch.zeros((), dtype=torch.float32, device=dev))
+    return torch.sqrt(act_ctx.reduce_logical(leaves, sq))
 
 
 @torch.no_grad()
@@ -81,8 +92,10 @@ def adamw_update(params: Any, grads: Any, state: dict, c: AdamWConfig):
     b1c = 1.0 - torch.pow(c.b1, step.float())
     b2c = 1.0 - torch.pow(c.b2, step.float())
 
+    local = act_ctx.local
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
+        p, g, m, v = local(p), local(g), local(m), local(v)
         g = g.float() * scale
         m.mul_(c.b1).add_((1 - c.b1) * g)
         v.mul_(c.b2).add_((1 - c.b2) * g * g)

@@ -1,5 +1,12 @@
-"""The train step: loss + grads + AdamW (port of ``repro.train.step``), on
-one device.
+"""The train step: loss + grads + AdamW (port of ``repro.train.step``).
+
+Without a mesh it is one device's step.  Under
+``activation_sharding(mesh)`` the parameters and the optimizer state are
+DTensors (``launch.sharding``), each rank computes the loss of its own rows
+and its gradients, which the backward reduces into each leaf's placement
+(``act_ctx.materialize``), so the loss a rank differentiates is its mean
+divided by the data-parallel size; the loss reported is the global mean.
+AdamW then updates each rank's shards in place.
 
 Microbatching (gradient accumulation) is a loop that sums each
 microbatch's loss and gradients and scales by ``1 / microbatches``, as the
@@ -11,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import loss_fn
+from repro_torch.models import act_ctx, loss_fn
 from repro_torch.models.config import ModelConfig
 
 from .compress import compress_decompress
@@ -29,15 +36,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     compression; the residual is threaded through opt_state["residual"]
     (add it at init via compress.init_residual).  The caller's parameters
     and the state's ``m`` and ``v`` are updated in place (see
-    ``optimizer.adamw_update``)."""
+    ``optimizer.adamw_update``).  Under a mesh, ``batch`` holds this
+    rank's rows."""
 
     def one(params, tokens, memory):
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(params)]
         loss = loss_fn(tree_unflatten(params, leaves), cfg, tokens, memory)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
+        grads = torch.autograd.grad(loss / act_ctx.dp_size(), leaves,
+                                    allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else
+                 act_ctx.placed_like(g, p) for p, g in zip(leaves, grads)]
         return loss.detach(), grads
 
     def grads_of(params, batch):
@@ -47,12 +56,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             return loss, tree_unflatten(params, grads)
         n = tokens.shape[0] // microbatches
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = [torch.zeros_like(p, dtype=torch.float32)
                for p in tree_leaves(params)]
         for i in range(microbatches):
             rows = slice(i * n, (i + 1) * n)
-            l, g = one(params, tokens[rows],
-                       None if memory is None else memory[rows])
+            with act_ctx.split_batch(microbatches):
+                l, g = one(params, tokens[rows],
+                           None if memory is None else memory[rows])
             loss = loss + l
             acc = [a + gi for a, gi in zip(acc, g)]
         inv = 1.0 / microbatches
@@ -68,7 +78,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                             if k != "residual"}, opt_cfg)
         if compress:
             new_opt["residual"] = new_res
-        metrics["loss"] = loss
+        metrics["loss"] = act_ctx.mean_over_ranks(loss)
         return params, new_opt, metrics
 
     return train_step

@@ -153,6 +153,11 @@ def test_contracts_mirror_the_reference():
     assert "DeviceShardSet" in contracts.FROZEN_CLASSES
     assert all(m.startswith("repro_torch/")
                for m in contracts.HOST_ONLY_MODULES)
+    # the reference's host-only modules, in its order, then the port's own
+    # (its sharding rules, which the reference writes in jax)
+    port_only = ["repro_torch/launch/sharding.py"]
     assert [m.replace("repro_torch/", "repro/")
-            for m in contracts.HOST_ONLY_MODULES] == \
-        list(ref_contracts.HOST_ONLY_MODULES)
+            for m in contracts.HOST_ONLY_MODULES
+            if m not in port_only] == list(ref_contracts.HOST_ONLY_MODULES)
+    assert list(contracts.HOST_ONLY_MODULES[
+        len(ref_contracts.HOST_ONLY_MODULES):]) == port_only

@@ -10,7 +10,7 @@ import pytest
 SRC = Path(__file__).resolve().parents[1] / "src"
 HOST_ONLY = ("repro_torch.core.tree", "repro_torch.core.cost_model",
              "repro_torch.index.table", "repro_torch.index.query",
-             "repro_torch.index.telemetry")
+             "repro_torch.index.telemetry", "repro_torch.launch.sharding")
 
 
 def _run(code: str) -> str:

@@ -2,8 +2,9 @@
 (``--device cpu``) in subprocesses: the fault-tolerance contract of
 ``tests/test_substrate.py`` (killed at step 12 and resumed from the step-10
 checkpoint, the post-resume losses equal the uninterrupted run's within
-that test's 1e-5), int8 error-feedback compression trains, and the flags
-the port does not take raise."""
+that test's 1e-5), int8 error-feedback compression trains, a model axis
+that does not divide the ranks raises, and the default device is the
+card.  ``tests/test_torch_launch_mesh.py`` runs it over several ranks."""
 import json
 import os
 import pathlib
@@ -82,9 +83,14 @@ def test_train_with_compression_converges(tmp_path):
 
 
 def test_model_parallel_waits_for_the_mesh():
+    """The mesh spans every rank: alone, a process is one rank, which a
+    model axis of 2 does not divide (and the job it formed is closed)."""
+    import torch.distributed as dist
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="model_parallel 2 does not "
+                                         "divide the 1 ranks"):
         main(["--smoke", "--model-parallel", "2", "--device", "cpu"])
+    assert not dist.is_initialized()
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -4,9 +4,11 @@ its write path, planning and sharded serving, the LSM write plane and the
 async front door, the device-sharded plane, RecurrentGemma-9B serving, the
 attention families (gemma3-12b, internlm2-1.8b, gemma2-27b, minicpm-2b,
 qwen3-moe-235b-a22b, arctic-480b, llama-3.2-vision-11b, whisper-medium)
-and the xLSTM family (xlstm-350m), and training on the card through the
+and the xLSTM family (xlstm-350m), training on the card through the
 trainer's mesh path on a one-rank NCCL group (the trainer at full width,
-the RG-LRU scan kernel's backward, MoE, die and resume).
+the RG-LRU scan kernel's backward, MoE, die and resume), serving under
+that mesh, and the dry-run plane (the CLI, and its estimates held to the
+card).
 
 Run from the repository root, with no arguments:
 
@@ -233,15 +235,42 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    ``_apply_moe_shardmap`` counted: at a model axis of 1 every call takes
    the single-device dispatch, as the reference does; expert parallelism
    waits for several cards.
+17. serve_mesh, on the same one-rank NCCL group: recurrentgemma-9b and
+   internlm2-1.8b at full width and depth and qwen3-moe-235b-a22b at phase
+   11b's 11 layers, bf16, each on a (data 1, model 1) mesh: parameters
+   and caches placed by ``launch.specs.make_step_and_specs``'s placements
+   (the caches' batch over the data axes), prefill at B 4, T 4,096 and 8
+   greedy decode ticks through the steps it binds, against the same steps
+   without a mesh on the same inputs (run before, to warm up, and after):
+   every token ``torch.equal`` (the MoE model under deterministic
+   algorithms, both ways).  It prints prefill tokens/s, the median tick
+   and the peak beside the no-mesh run's and PERF.md §5's (copied).
+   Flash and the scan are counted from 0 and must launch.
+18. dryrun: (a) ``python -m repro_torch.launch.dryrun --arch xlstm-350m
+   --shape decode_32k --multi-pod`` in a subprocess (a fake group of 512
+   ranks, meta tensors): status ok, its memory, flops and wire bytes
+   printed; (b) internlm2-1.8b's train step (B 8, T 256 + 1), a prefill
+   (B 8, T 256) and a decode step (B 8 over a 4,096 cache), bf16
+   parameters, each built by ``make_step_and_specs`` on a one-rank (pod 1,
+   data 1, model 1) mesh, traced on meta, then run on the card under
+   ``FlopCounterMode``: the two flop counts equal exactly (the prefill's
+   flash through its registered op, which launches the kernel); the
+   estimate (the arguments' bytes plus the MemTracker temp) printed
+   beside ``max_memory_allocated`` of the real step, with the ratio.
+9b (after phase 9). The registered ops' cost: at each LM kernel's headline
+   shape, one call of the wrapper the model calls (the direct launcher)
+   and of ``flash_attention_op`` / ``rglru_scan_op`` (the dispatcher,
+   then the same launcher), in turns direct, op, op, direct: CUDA-event
+   ms, the launch path's host us and the profiler's host span.
 12. (printed last) A text line with the three redesigned kernels' earlier
    times, copied from PERF.md and marked so, beside this run's; a
    ``{"training": ...}`` line with phases 13 to 16b; a ``{"kernels":
    [...]}`` line (all three kernels, each with its design, every number
    from this run; the fused search's launches are the read path's, the write
    path's, the LSM's, the pipeline's and the device plane's; flash's are
-   phase 11's and 11b's, by architecture in ``launches_by_arch``; the
-   scan's are phase 11's and phase 14's, by phase in
-   ``launches_by_phase``, with the backward's check and time under
+   phase 11's and 11b's, by architecture in ``launches_by_arch``, and
+   phase 17's (``launches_serve_mesh``); the scan's are phase 11's, 14's
+   and 17's, by phase in ``launches_by_phase``, with the backward's check and time under
    ``backward``), the card line again, and last ``{"ok": true, "device":
    {...}}``.
 """
@@ -2948,6 +2977,331 @@ def train_moe(torch, card) -> dict:
     return res
 
 
+# Phase 17: prefill and decode under the one-rank (data 1, model 1) mesh:
+# (arch, repeats kept: None for full depth; qwen3-moe at phase 11b's 11 of
+# 94 layers), each against the same steps without a mesh.  PERF.md §5's
+# no-mesh numbers for the same models, copied (H100 80GB HBM3, 700 W):
+# prefill tokens/s at B 4, T 4,096; the batcher's median decode tick.
+SERVE_MESH = (("recurrentgemma-9b", None), ("internlm2-1.8b", None),
+              ("qwen3-moe-235b-a22b", 11))
+SERVE_MESH_TICKS = 8
+PERF_NO_MESH = {"recurrentgemma-9b": "25,792 tokens/s, tick 70.2 ms",
+                "internlm2-1.8b": "101,692 tokens/s, tick 48.9 ms, peak "
+                                  "7.7 GiB",
+                "qwen3-moe-235b-a22b": "41,645 tokens/s, tick 36.8 ms, "
+                                       "peak 59.9 GiB"}
+
+
+def serve_steps(torch, dev, cfg, params, toks, mesh, specs):
+    """Prefill then SERVE_MESH_TICKS greedy decode ticks; without a mesh
+    the plain steps, on one the steps ``make_step_and_specs`` binds, over
+    arguments placed by its placements.  Returns the tokens of each step
+    (whole), the prefill's seconds, each tick's seconds and the peak GiB."""
+    from repro_torch.launch.mesh import distribute_tree
+    from repro_torch.models import init_caches
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    b, t = toks.shape
+    caches = init_caches(cfg, b, t + SERVE_MESH_TICKS, device=dev)
+    if mesh is None:
+        pre, dec = make_prefill_step(cfg), make_decode_step(cfg)
+    else:
+        (pre, pre_in), (dec, dec_in) = specs
+        params = distribute_tree(params, pre_in[0], mesh)
+        caches = distribute_tree(caches, pre_in[2], mesh)
+        toks = distribute_tree(toks, pre_in[1], mesh)
+
+    def whole(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, ticks = [], []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        nxt, caches = pre(params, toks, caches)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        for i in range(SERVE_MESH_TICKS):
+            cur = whole(nxt)
+            out.append(cur)
+            cur = cur[:, None]
+            pos = torch.full((b,), t + i, dtype=torch.int32, device=dev)
+            if mesh is not None:
+                cur = distribute_tree(cur, dec_in[1], mesh)
+                pos = distribute_tree(pos, dec_in[2], mesh)
+            t0 = time.perf_counter()
+            nxt, caches = dec(params, cur, pos, caches)
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter() - t0)
+        out.append(whole(nxt))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del caches
+    return out, prefill_s, ticks, peak
+
+
+def serve_mesh(torch, dev, card) -> dict:
+    """Phase 17: each of SERVE_MESH in bf16 at full width on the one-rank
+    NCCL (data 1, model 1) mesh: parameters and caches placed by the rules
+    (the caches' batch over the data axes), prefill at B 4, T 4,096 and
+    SERVE_MESH_TICKS greedy decode ticks through the steps
+    ``make_step_and_specs`` binds, against the same steps without a mesh on
+    the same inputs (run before it, to warm the model up, and after it):
+    every token ``torch.equal`` (at 1 x 1 the mesh moves nothing).  The MoE model runs both under deterministic algorithms
+    (its combine's ``index_add_`` otherwise adds in a racing order).  Flash
+    and the scan must launch."""
+    import gc
+    import warnings
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.launch.specs import make_step_and_specs
+    from repro_torch.models import init_params
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    flash_attention_cuda.launches = 0
+    rglru_scan_cuda.launches = 0
+    b, t = PREFILL_B, PREFILL_T
+    res = {}
+    for arch, depth in SERVE_MESH:
+        cfg = _arch_cfg(arch, depth)
+        params = init_params(cfg, seed=SEED, dtype=torch.bfloat16,
+                             device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 17)
+        toks = torch.randint(0, cfg.vocab, (b, t), generator=g, device=dev,
+                             dtype=torch.int32)
+        specs = []
+        for kind in ("prefill", "decode"):
+            step, _, in_pl, _, _ = make_step_and_specs(
+                cfg, ShapeSpec("serve", t + SERVE_MESH_TICKS, b, kind), mesh)
+            specs.append((step, in_pl))
+        moe = cfg.moe is not None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(moe, warn_only=True)
+            try:
+                # without a mesh first (it warms the model's first calls up
+                # and gives the tokens), then on the mesh, then without
+                # again (the numbers printed beside the mesh's)
+                warm = serve_steps(torch, dev, cfg, params, toks, None, None)
+                runs = {"mesh": serve_steps(torch, dev, cfg, params, toks,
+                                            mesh, specs),
+                        "no mesh": serve_steps(torch, dev, cfg, params, toks,
+                                               None, None)}
+            finally:
+                torch.use_deterministic_algorithms(False)
+        want = warm[0]
+        for name, (got, *_) in runs.items():
+            if not all(torch.equal(a, c) for a, c in zip(got, want)):
+                raise AssertionError(
+                    f"serve_mesh {arch}: tokens {name} "
+                    f"{[x.tolist() for x in got]} != the first run's "
+                    f"{[x.tolist() for x in want]}")
+        row = {"layers": cfg.n_layers, "steps": len(got)}
+        for name, (_, pre_s, ticks, peak) in runs.items():
+            row[name] = {"prefill_tokens_per_s": b * t / pre_s,
+                         "decode_tick_ms": float(np.median(ticks)) * 1e3,
+                         "peak_gib": peak}
+        res[arch] = row
+        print(f"serve_mesh {arch} ({cfg.n_layers} layers, bf16, mesh "
+              f"{{data 1, model 1}} on nccl): prefill B={b} T={t} + "
+              f"{SERVE_MESH_TICKS} decode ticks, tokens equal to the steps "
+              f"without a mesh; mesh: "
+              f"{row['mesh']['prefill_tokens_per_s']:.0f} tokens/s, tick "
+              f"{row['mesh']['decode_tick_ms']:.1f} ms, peak "
+              f"{row['mesh']['peak_gib']:.2f} GiB; no mesh in this run: "
+              f"{row['no mesh']['prefill_tokens_per_s']:.0f} tokens/s, "
+              f"tick {row['no mesh']['decode_tick_ms']:.1f} ms, peak "
+              f"{row['no mesh']['peak_gib']:.2f} GiB (after a warm-up run "
+              f"without it); PERF.md §5 without a mesh, copied: "
+              f"{PERF_NO_MESH[arch]} [{card}]", flush=True)
+        del params, runs, specs, warm
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["flash_launches"] = flash_attention_cuda.launches
+    res["scan_launches"] = rglru_scan_cuda.launches
+    print(f"serve_mesh: {res['flash_launches']} flash and "
+          f"{res['scan_launches']} scan launches", flush=True)
+    if res["flash_launches"] <= 0 or res["scan_launches"] <= 0:
+        raise AssertionError("serve_mesh: flash or the scan never launched")
+    return res
+
+
+# Phase 18: the dry run on the card's machine, and the estimator held to the
+# card: (name, shape) of internlm2-1.8b's steps, bf16 parameters as the
+# dry run's.  Train at phase 13's B 8, T 256 (+1 for the labels).
+DRYRUN_CELLS = (("train", (257, 8, "train")), ("prefill", (256, 8, "prefill")),
+                ("decode", (4096, 8, "decode")))
+
+
+def dryrun_cli(card) -> dict:
+    """Phase 18a: ``python -m repro_torch.launch.dryrun`` for xlstm-350m
+    decode_32k on the multi-pod mesh, in a subprocess (a fake group of 512
+    ranks, meta tensors): status ok, 512 ranks."""
+    import tempfile
+    import os
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "xlstm-350m", "--shape", "decode_32k", "--multi-pod", "--out",
+             out], capture_output=True, text=True, timeout=600, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun CLI exit {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        rec = json.loads((Path(out) / "xlstm-350m__decode_32k__pod2x16x16"
+                          ".json").read_text())
+    if rec["status"] != "ok" or rec["n_devices"] != 512:
+        raise AssertionError(f"dryrun record: {rec}")
+    mem, coll = rec["memory"], rec["collectives"]
+    print(f"dryrun xlstm-350m decode_32k pod2x16x16: status ok, "
+          f"{rec['n_devices']} ranks, per-rank flops "
+          f"{rec['cost']['flops']:.4e}, global {rec['jaxpr_flops_global']:.4e}"
+          f", wire bytes {coll['wire_bytes']}, memory argument "
+          f"{mem['argument_size_in_bytes']} output "
+          f"{mem['output_size_in_bytes']} temp {mem['temp_size_in_bytes']} "
+          f"alias {mem['alias_size_in_bytes']} bytes; traced in "
+          f"{rec['lower_s']} s ({wall:.1f} s with the process) [{card}]",
+          flush=True)
+    return {k: rec[k] for k in ("memory", "cost", "collectives",
+                                "jaxpr_flops_global", "n_devices",
+                                "lower_s")}
+
+
+def estimator_vs_card(torch, dev, card) -> dict:
+    """Phase 18b: internlm2-1.8b's train, prefill and decode steps built by
+    ``make_step_and_specs`` on a one-rank (pod 1, data 1, model 1) NCCL
+    mesh, traced on meta (flops; memory: the arguments' bytes plus the
+    MemTracker peak's temp), then run for real on the card under the flop
+    counter: the two counts equal exactly; the estimate printed beside
+    ``max_memory_allocated`` of the real step."""
+    import gc
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.dryrun import local_bytes, peak_bytes
+    from repro_torch.launch.flops_count import count_flops
+    from repro_torch.launch.mesh import distribute_tree
+    from repro_torch.launch.specs import make_step_and_specs
+    from repro_torch.models import init_caches, init_params
+    from repro_torch.train.optimizer import init_opt_state
+    mesh = init_device_mesh("cuda", (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    cfg = get_config("internlm2-1.8b")
+    res = {}
+    for name, (t, b, kind) in DRYRUN_CELLS:
+        shape = ShapeSpec(name, t, b, kind)
+        step, args, in_pl, _, _ = make_step_and_specs(cfg, shape, mesh)
+        grad = torch.enable_grad() if kind == "train" else torch.no_grad()
+        placed = tuple(distribute_tree(a, p, mesh)
+                       for a, p in zip(args, in_pl))
+        t0 = time.perf_counter()
+        with grad:
+            meta_flops = count_flops(step, *placed)
+            temp = peak_bytes(step, placed) - local_bytes(placed)
+        trace_s = time.perf_counter() - t0
+        est = local_bytes(placed) + temp
+        del placed, args
+        # the same step on the card, from real arguments
+        params = init_params(cfg, seed=SEED, dtype=torch.bfloat16,
+                             device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 18)
+        toks = torch.randint(0, cfg.vocab, (b, t if kind != "decode" else 1),
+                             generator=g, device=dev, dtype=torch.int32)
+        if kind == "train":
+            real = (params, init_opt_state(params), {"tokens": toks})
+        elif kind == "prefill":
+            real = (params, toks, init_caches(cfg, b, t, device=dev))
+        else:
+            real = (params, toks, torch.full((b,), t - 1, dtype=torch.int32,
+                                             device=dev),
+                    init_caches(cfg, b, t, device=dev))
+        real = tuple(distribute_tree(a, p, mesh) for a, p in zip(real, in_pl))
+        flash_attention_cuda.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with grad, FlopCounterMode(display=False) as counter:
+            step(*real)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        card_flops = counter.get_total_flops()
+        row = {"meta_flops": meta_flops, "card_flops": card_flops,
+               "estimate_bytes": est, "argument_bytes": est - temp,
+               "temp_bytes": temp, "max_memory_allocated": peak,
+               "ratio": est / peak, "trace_s": trace_s,
+               "flash_launches": flash_attention_cuda.launches}
+        res[name] = row
+        print(f"estimator {name} internlm2-1.8b B={b} T={t} bf16 on (pod 1, "
+              f"data 1, model 1): flops meta {meta_flops} card {card_flops} "
+              f"({'equal' if meta_flops == card_flops else 'DIFFER'}); "
+              f"estimate {est / 2 ** 30:.3f} GiB (arguments "
+              f"{(est - temp) / 2 ** 30:.3f} + temp {temp / 2 ** 30:.3f}) "
+              f"against max_memory_allocated {peak / 2 ** 30:.3f} GiB, "
+              f"ratio {est / peak:.3f}; flash launches "
+              f"{row['flash_launches']}; traced in {trace_s:.1f} s"
+              + (" (phase 13's f32 step: 30.50 GiB)" if kind == "train"
+                 else "") + f" [{card}]", flush=True)
+        if meta_flops != card_flops or meta_flops <= 0:
+            raise AssertionError(f"estimator {name}: meta flops {meta_flops}"
+                                 f" != card flops {card_flops}")
+        if kind == "prefill" and row["flash_launches"] <= 0:
+            raise AssertionError("estimator prefill: the flash op never "
+                                 "launched its kernel")
+        del real, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def op_dispatch(torch, dev) -> dict:
+    """Phase 9b: what the registered ops cost beside the wrappers' direct
+    path, at each LM kernel's headline shape: one call by CUDA events, the
+    host wall of the launch path, and one call under the profiler (its host
+    span), for ``flash_attention`` / ``rglru_scan`` (direct launcher: what
+    the model calls) and ``flash_attention_op`` / ``rglru_scan_op`` (the
+    dispatcher, then the same launcher: what a flop counter or a memory
+    tracker sees)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_op)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_op
+    name, b, h, hkv, tq, s, hd, dt, kw = FLASH_CASES[0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(
+        getattr(torch, dt)) for shape in ((b, h, tq, hd), (b, hkv, s, hd),
+                                          (b, hkv, s, hd)))
+    _, rb, rt, rw, _ = RGLRU_CASES[0]
+    u = torch.randn((rb, rt, rw), generator=g, device=dev)
+    a = torch.rand((rb, rt, rw), generator=g, device=dev)
+    h0 = torch.randn((rb, rw), generator=g, device=dev)
+    fns = {
+        "flash_attention": (
+            lambda: flash_attention(q, k, v, **kw),
+            lambda: flash_attention_op(q, k, v, kw.get("causal", True),
+                                       kw.get("window"), kw.get("softcap"),
+                                       None), "flash"),
+        "rglru_scan": (lambda: rglru_scan(u, a, h0),
+                       lambda: rglru_scan_op(u, a, h0, False), "rglru_scan")}
+    res = {}
+    for kernel, (direct, op, pattern) in fns.items():
+        row = {}
+        for label, fn in (("direct", direct), ("op", op), ("op 2", op),
+                          ("direct 2", direct)):
+            row[label] = {"ms": median_ms(torch, fn),
+                          "host_us": host_us(torch, fn),
+                          "host_span_us": one_call_profile(
+                              torch, fn, pattern)["host_span_us"]}
+        res[kernel] = row
+        print(f"{kernel} one call, direct / registered op / op / direct "
+              f"(CUDA events ms; launch path host us; host span under the "
+              f"profiler us): " + "; ".join(
+                  f"{lab} {r['ms']:.4f} ms, {r['host_us']:.1f} us, "
+                  f"{fmt_us(r['host_span_us'])} us" for lab, r in row.items()),
+              flush=True)
+    return res
+
+
 def build_all(_build) -> None:
     """Compile every kernel source at once (one nvcc each, in parallel) and
     print ptxas's register and spill report."""
@@ -3060,6 +3414,7 @@ def main() -> int:
 
     flash_cases = flash_vs_plain(torch, dev)
     rglru_cases = rglru_vs_plain(torch, dev)
+    dispatch = op_dispatch(torch, dev)
     lm_consistency(torch, dev)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3093,6 +3448,15 @@ def main() -> int:
                                         "train_xlstm")
     training["train_moe"] = train_moe(torch, card)
     training["train_resume"] = train_resume(torch, card)
+    t0 = time.perf_counter()
+    served_mesh = serve_mesh(torch, dev, card)
+    served_mesh["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dryrun = {"cli": dryrun_cli(card),
+              "estimator": estimator_vs_card(torch, dev, card)}
+    dryrun["s"] = time.perf_counter() - t0
+    print(f"serve_mesh {served_mesh['s']:.1f} s, dryrun {dryrun['s']:.1f} s "
+          f"[{card}]", flush=True)
     dist.destroy_process_group()
     scan_train = training["train_rglru"]
 
@@ -3133,8 +3497,11 @@ def main() -> int:
         "design": "bf16 hd 64-256: TMA K/V ring + wgmma, warp-specialised "
                   "(2 consumer warpgroups, 1 producer); f32 and hd 16/32: "
                   "CUDA-core f32",
-        "launches": sum(flash_by_arch.values()),
+        "launches": sum(flash_by_arch.values())
+        + served_mesh["flash_launches"],
         "launches_by_arch": flash_by_arch,
+        "launches_serve_mesh": served_mesh["flash_launches"],
+        "dispatch": dispatch["flash_attention"],
         "max_abs_err": flash_head["max_abs_err"], "equal": True,
         **{k: flash_head[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
@@ -3147,9 +3514,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/rglru_scan.py:37",
         "design": RGLRU_DESIGN,
         "launches": lm_launches["rglru_scan"]
-        + scan_train["forward_launches"] + scan_train["backward_launches"],
+        + scan_train["forward_launches"] + scan_train["backward_launches"]
+        + served_mesh["scan_launches"],
+        "dispatch": dispatch["rglru_scan"],
         "launches_by_phase": {
             "serving": lm_launches["rglru_scan"],
+            "serve_mesh": served_mesh["scan_launches"],
             "train_rglru forward": scan_train["forward_launches"],
             "train_rglru backward": scan_train["backward_launches"]},
         "launches_by_path": lm_launches["rglru_scan_by_path"],
@@ -3181,6 +3551,7 @@ def main() -> int:
     print(json.dumps({"arch_consistency": consistency,
                       "arch_serving": archs}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"serve_mesh": served_mesh, "dryrun": dryrun}))
     print("earlier designs at the headline shapes, copied from PERF.md §6 "
           "(H100 80GB HBM3 at 700 W), not measured in this run: "
           + "; ".join(f"{name} {ms} ms ({what}), {new:.4f} ms in this run"

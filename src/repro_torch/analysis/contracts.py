@@ -113,6 +113,10 @@ HOST_ONLY_MODULES = (
     # the port's own: the sharding rules are host code (the reference's
     # import jax for their NamedSharding)
     "repro_torch/launch/sharding.py",
+    # HLO-text parsing and the collective record (the accountant imports
+    # torch when it traces), and the paged KV cache's bookkeeping
+    "repro_torch/launch/hlo_analysis.py",
+    "repro_torch/serve/paged_kv.py",
 )
 # Import roots that pull torch in at module scope (transitively included).
 ACCEL_IMPORT_ROOTS = (
@@ -124,6 +128,9 @@ ACCEL_IMPORT_ROOTS = (
     "repro_torch.index.lsm", "repro_torch.index.device_plane",
     "repro_torch.core.torch_index", "repro_torch.core.distributed",
     "repro_torch.launch.mesh", "repro_torch.launch.train",
+    "repro_torch.launch.specs", "repro_torch.launch.flops_count",
+    "repro_torch.launch.dryrun", "repro_torch.serve.step",
+    "repro_torch.serve.batcher", "repro_torch.serve.index_service",
     "repro_torch.train", "repro_torch.checkpoint",
 )
 

@@ -79,6 +79,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def observed() -> bool:
+    """Whether a ``TorchDispatchMode`` is active (a flop counter, a memory
+    tracker, the collective accountant, fake tensors): a kernel wrapper
+    then calls its registered op, which such a mode sees whole, instead of
+    its launcher, which it would not see at all."""
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
 def check_no_grad(name: str, *tensors) -> None:
     """Raise if grad mode is on and a CUDA tensor among ``tensors``
     requires a gradient: a kernel wrapper that fills its output through

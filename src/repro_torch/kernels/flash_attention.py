@@ -22,18 +22,31 @@ design does about it.
 * :func:`flash_attention_torch` is the same function as one masked softmax
   in f32 plain torch ops.
 * :func:`flash_attention` picks by device: the plain twin for CPU tensors
-  only; for a CUDA tensor it launches the kernel or raises.  The kernel is
-  a forward only (the reference has no backward kernel either), so it
-  refuses a CUDA tensor that requires grad while grad mode is on; the
-  model trains through the reference's query-chunked ``_attend``
-  (``models/blocks.py``).
+  only; for a CUDA tensor it launches the kernel or raises; for a ``meta``
+  tensor it gives the output's shape and nothing else, so that a step can
+  be traced without a device (``launch/dryrun.py``).  Any other device
+  raises.  The kernel is a forward only (the reference has no backward
+  kernel either), so it refuses a CUDA tensor that requires grad while
+  grad mode is on; the model trains through the reference's query-chunked
+  ``_attend`` (``models/blocks.py``).
+* ``torch.ops.repro_torch.flash_attention`` is the same function as one
+  registered op: the launcher on CUDA tensors, the twin on CPU tensors, a
+  shape-only fake on ``meta``, and a flop formula for
+  ``torch.utils.flop_counter``: ``4 B H Tq S hd``, the two products of the
+  reference's ``_attend`` over its full (Tq, S) logits, whatever the mask.
+  :func:`flash_attention` calls the op where a dispatch mode observes the
+  call (a flop counter, a memory tracker, the collective accountant) and on
+  ``meta``; otherwise it calls the launcher or the twin directly, since the
+  op's dispatcher adds host time to every call on the serving path.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -198,16 +211,54 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    softcap: float | None = None,
-                    scale: float | None = None) -> torch.Tensor:
-    """The kernel for CUDA tensors, its plain twin for CPU tensors."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int],
+                       softcap: Optional[float], scale: Optional[float]
+                       ) -> torch.Tensor:
+    """The registered op: the launcher on CUDA tensors, the twin on CPU
+    tensors (the fake below serves ``meta``)."""
     kw = {"causal": causal, "window": window, "softcap": softcap,
           "scale": scale}
     if q.device.type == "cuda":
-        _build.check_no_grad("flash_attention", q, k, v)
         return flash_attention_cuda(q, k, v, **kw)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, **kw)
     raise ValueError(f"no flash_attention kernel for device {q.device}")
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window, softcap, scale):
+    _check(q, k, v, causal, window, softcap)
+    b, h, tq, hd = q.shape
+    return q.new_empty((b, tq, h, hd)).transpose(1, 2)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_attention_flops(q_shape, k_shape, *args, out_shape=None,
+                          **kwargs) -> int:
+    """``4 B H Tq S hd``: q k^T and p v over the full (Tq, S) logits, as
+    the reference's ``_attend`` computes them under any mask."""
+    b, h, tq, hd = q_shape
+    return 4 * b * h * tq * k_shape[2] * hd
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """The kernel for CUDA tensors, its plain twin for CPU tensors, the
+    output's shape for ``meta`` tensors; through the registered op where a
+    dispatch mode observes the call."""
+    dev = q.device.type
+    if dev == "cuda":
+        _build.check_no_grad("flash_attention", q, k, v)
+    elif dev not in ("cpu", "meta"):
+        raise ValueError(f"no flash_attention kernel for device {q.device}")
+    if dev == "meta" or _build.observed():
+        return flash_attention_op(q, k, v, causal, window, softcap, scale)
+    kw = {"causal": causal, "window": window, "softcap": softcap,
+          "scale": scale}
+    if dev == "cuda":
+        return flash_attention_cuda(q, k, v, **kw)
+    return flash_attention_torch(q, k, v, **kw)

@@ -23,10 +23,18 @@ its design does about it.
   plain torch ops; its products and sums round as the kernel's do, so the
   two agree bit for bit.
 * :func:`rglru_scan` picks by device: the plain twin for CPU tensors only;
-  for a CUDA tensor it launches the kernel or raises.  It carries no
-  gradient, so it refuses a CUDA tensor that requires one while grad mode
-  is on (``_build.check_no_grad``): the training path goes through
+  for a CUDA tensor it launches the kernel or raises; for a ``meta`` tensor
+  it gives the outputs' shapes and nothing else (a step traced without a
+  device).  Any other device raises.  It carries no gradient, so it
+  refuses a CUDA tensor that requires one while grad mode is on
+  (``_build.check_no_grad``): the training path goes through
   :class:`RGLRUScan`.
+* ``torch.ops.repro_torch.rglru_scan`` is the same function as one
+  registered op (launcher, twin, a shape-only fake on ``meta``, and a flop
+  formula of 0: the recurrence has no products, nor has the reference's
+  associative scan).  :func:`rglru_scan` calls it where a dispatch mode
+  observes the call and on ``meta``, the launcher or the twin directly
+  otherwise (the op's dispatcher would add host time to every launch).
 * :class:`RGLRUScan` is the reference's ``_rglru_scan`` custom VJP
   (``src/repro/models/blocks.py``): its forward is the scan above from
   zeros and saves ``(a, h)``; its backward is the same recurrence run
@@ -42,8 +50,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -162,18 +172,48 @@ rglru_scan_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
 rglru_scan_cuda.backward_launches = 0
 
 
-def rglru_scan(u: torch.Tensor, a: torch.Tensor,
-               h0: torch.Tensor | None = None, *, backward: bool = False
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel for CUDA tensors, its plain twin for CPU tensors.  Not
-    differentiable on the card: see :class:`RGLRUScan`.  ``backward`` is
-    passed to :func:`rglru_scan_cuda`'s count."""
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def rglru_scan_op(u: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor],
+                  backward: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered op: the launcher on CUDA tensors, the twin on CPU
+    tensors (the fake below serves ``meta``)."""
     if u.device.type == "cuda":
-        _build.check_no_grad("rglru_scan", u, a, h0)
         return rglru_scan_cuda(u, a, h0, backward=backward)
     if u.device.type == "cpu":
         return rglru_scan_torch(u, a, h0)
     raise ValueError(f"no rglru_scan kernel for device {u.device}")
+
+
+@rglru_scan_op.register_fake
+def _rglru_scan_fake(u, a, h0, backward):
+    _check(u, a, h0)
+    return torch.empty_like(u), u.new_empty((u.shape[0], u.shape[2]))
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def rglru_scan_flops(*args, out_shape=None, **kwargs) -> int:
+    """0: elementwise products and sums only, no matrix product."""
+    return 0
+
+
+def rglru_scan(u: torch.Tensor, a: torch.Tensor,
+               h0: torch.Tensor | None = None, *, backward: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel for CUDA tensors, its plain twin for CPU tensors, the
+    outputs' shapes for ``meta`` tensors; through the registered op where a
+    dispatch mode observes the call.  Not differentiable on the card: see
+    :class:`RGLRUScan`.  ``backward`` is passed to :func:`rglru_scan_cuda`'s
+    count."""
+    dev = u.device.type
+    if dev == "cuda":
+        _build.check_no_grad("rglru_scan", u, a, h0)
+    elif dev not in ("cpu", "meta"):
+        raise ValueError(f"no rglru_scan kernel for device {u.device}")
+    if dev == "meta" or _build.observed():
+        return rglru_scan_op(u, a, h0, backward)
+    if dev == "cuda":
+        return rglru_scan_cuda(u, a, h0, backward=backward)
+    return rglru_scan_torch(u, a, h0)
 
 
 class RGLRUScan(torch.autograd.Function):

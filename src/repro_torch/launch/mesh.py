@@ -15,6 +15,7 @@ import os
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor.placement_types import Placement
 
 from repro_torch.models import act_ctx
 from repro_torch.tree import tree_map
@@ -88,8 +89,21 @@ def place(tree, specs, mesh):
     of the logical tensor by its spec in ``specs`` (every rank holds the
     same ``tree``).  0-d tensors (the step counter) stay plain: every rank
     computes the same value."""
-    def one(t, spec):
+    return distribute_tree(
+        tree, tree_map(lambda spec: to_placements(spec, mesh), specs), mesh)
+
+
+def distribute_tree(tree, placements, mesh):
+    """:func:`place` with each leaf's DTensor placements given (a tree of
+    lists, as ``to_placements`` makes them) instead of its spec."""
+    def one(t, pl):
         if t.dim() == 0:
             return t
-        return act_ctx.distribute(t, mesh, to_placements(spec, mesh))
-    return tree_map(one, tree, specs)
+        return act_ctx.distribute(t, mesh, pl)
+    return tree_map(one, tree, placements, is_leaf=_is_placements)
+
+
+def _is_placements(node) -> bool:
+    """Whether ``node`` of a placements tree is one leaf's placements."""
+    return isinstance(node, list) and bool(node) and all(
+        isinstance(p, Placement) for p in node)

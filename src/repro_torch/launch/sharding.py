@@ -151,7 +151,8 @@ def param_spec(path, leaf, mesh, policy: str = "2d") -> P:
     return ok((FSDP, None))
 
 
-def _strip_axis(spec: P, axis: str) -> P:
+def strip_axis(spec: P, axis: str) -> P:
+    """``spec`` with mesh axis ``axis`` taken out of every entry."""
     out = []
     for e in spec:
         if e == axis:
@@ -176,7 +177,7 @@ def param_shardings(mesh, params_shapes: Any, policy: str = "2d") -> Any:
         spec = param_spec(path, leaf, mesh,
                           policy if policy == "zero3" else "2d")
         if policy == "tp":      # weights replicated over `data`: serve policy
-            spec = _strip_axis(spec, FSDP)
+            spec = strip_axis(spec, FSDP)
         return spec
     return _map_with_path(pick, params_shapes)
 

@@ -1,0 +1,182 @@
+"""Meta-device stand-ins for every (arch x shape) dry-run cell (port of
+``repro.launch.specs``).
+
+``input_specs`` returns (step_kind, args): every model input of the cell as
+a tensor on the ``meta`` device, which has a shape and a type and no
+storage.  ``make_step_and_specs`` also binds the step function under
+activation sharding on a mesh, with each argument's and output's DTensor
+placements (``launch.sharding``'s rules through ``to_placements``) and the
+arguments the step consumes (the reference's donated ones).
+
+The port runs one process per rank, so the bound step takes its arguments
+placed: parameters, optimizer state and caches as DTensors holding this
+rank's shards, and the batch's tensors (tokens, positions, memory) as
+DTensors whose local rows are this rank's.  It returns its outputs placed
+as the output placements say: the next tokens as a DTensor over the rows,
+the caches as DTensors placed as they came, the train step's parameters and
+state in place and its metrics as plain scalars.
+
+One departure from the reference: a cache leaf's batch dim is over the
+data-parallel axes as ``cache_spec`` says, but the kv-head or cache-length
+dim that ``cache_spec`` puts over ``model`` stays replicated, because each
+model rank computes attention whole (tensor-parallel products are not
+ported yet).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.configs import SHAPES, ShapeSpec, get_config
+from repro_torch.models import act_ctx, init_caches, init_params
+from repro_torch.models.config import ModelConfig
+from repro_torch.serve.step import make_decode_step, make_prefill_step
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+from repro_torch.train.step import make_train_step
+from repro_torch.tree import tree_map
+
+from . import sharding as sh
+
+META = torch.device("meta")
+
+
+def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16):
+    return init_params(cfg, dtype=dtype, device=META)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int):
+    return init_caches(cfg, batch, cache_len, device=META)
+
+
+def _cell(arch: str | ModelConfig, shape: str | ShapeSpec
+         ) -> tuple[ModelConfig, ShapeSpec]:
+    """A cell's config and shape: by name, or given as they are (a reduced
+    config, a shape of one's own)."""
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    return cfg, SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def input_specs(arch: str | ModelConfig, shape: str | ShapeSpec
+                ) -> tuple[str, dict[str, Any]]:
+    """Returns (kind, shapes): every model input for this cell on meta."""
+    cfg, s = _cell(arch, shape)
+    b, t = s.global_batch, s.seq_len
+    mem = (torch.empty((b, cfg.memory_len, cfg.d_model), dtype=torch.bfloat16,
+                       device=META) if cfg.memory_len else None)
+
+    def ints(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=META)
+
+    if s.kind == "train":
+        batch = {"tokens": ints(b, t)}
+        if mem is not None:
+            batch["memory"] = mem
+        return "train", {"batch": batch}
+    if s.kind == "prefill":
+        out = {"tokens": ints(b, t), "caches": cache_shapes(cfg, b, t)}
+        if mem is not None:
+            out["memory"] = mem
+        return "prefill", out
+    # decode: one new token against a cache of seq_len
+    return "decode", {"tokens": ints(b, 1), "pos": ints(b),
+                      "caches": cache_shapes(cfg, b, t)}
+
+
+def _bind(fn, mesh, policy: str, batch: int, row_pl: list,
+          data_args: tuple, out_rows: tuple):
+    """``fn`` under ``activation_sharding(mesh)``: the arguments at
+    ``data_args`` (batch tensors, placed over rows) are handed over as this
+    rank's rows, and the outputs at ``out_rows`` come back as DTensors
+    placed ``row_pl`` over the rows of a global batch of ``batch``."""
+    dp_axes = ("pod", "data", "model") if policy == "zero3" else \
+        ("pod", "data")
+
+    @functools.wraps(fn)
+    def inner(*args):
+        args = [tree_map(act_ctx.local, a) if i in data_args else a
+                for i, a in enumerate(args)]
+        with act_ctx.activation_sharding(mesh, dp_axes, batch=batch):
+            out = fn(*args)
+        return tuple(
+            DTensor.from_local(o, mesh, row_pl, run_check=False,
+                               shape=(batch, *o.shape[1:]),
+                               stride=torch.empty((batch, *o.shape[1:]),
+                                                  device=META).stride())
+            if i in out_rows else o for i, o in enumerate(out))
+    return inner
+
+
+def make_step_and_specs(arch: str | ModelConfig, shape: str | ShapeSpec,
+                        mesh, *,
+                        microbatches: int = 1, donate: bool = True,
+                        policy: str = "2d"):
+    """Builds (fn, args, in_placements, out_placements, donate_argnums).
+
+    ``args`` are the cell's global arguments on meta; ``mesh=None`` gives
+    the step without a mesh and no placements (the global program, traced
+    whole).  On a mesh, place ``args`` by ``in_placements``
+    (``launch.mesh.distribute_tree``) before calling ``fn``.  policy: see
+    ``launch.sharding.param_spec`` ("2d" | "zero3" | "tp").  ``arch`` and
+    ``shape`` are names, or a config and a ``ShapeSpec`` (see :func:`_cell`).
+    The parameters are bf16, as the reference's ``param_shapes``."""
+    cfg, _ = _cell(arch, shape)
+    kind, shapes = input_specs(cfg, shape)
+    p_shapes = param_shapes(cfg)
+    if kind == "train":
+        step = make_train_step(cfg, AdamWConfig(), microbatches=microbatches)
+        args = (p_shapes, init_opt_state(p_shapes), shapes["batch"])
+        donate_argnums = (0, 1) if donate else ()
+    elif kind == "prefill":
+        step = make_prefill_step(cfg)
+        args = [p_shapes, shapes["tokens"], shapes["caches"]]
+        if "memory" in shapes:
+            args.append(shapes["memory"])
+        args = tuple(args)
+        donate_argnums = (2,) if donate else ()
+    else:
+        step = make_decode_step(cfg)
+        args = (p_shapes, shapes["tokens"], shapes["pos"], shapes["caches"])
+        donate_argnums = (3,) if donate else ()
+    if mesh is None:
+        return step, args, None, None, donate_argnums
+
+    def pl(spec_tree):
+        return tree_map(lambda spec: sh.to_placements(spec, mesh), spec_tree)
+
+    def data_pl(tree):
+        return tree_map(lambda t: sh.to_placements(
+            sh.batch_spec(mesh, t.shape[0], t.dim(), policy), mesh), tree)
+
+    repl = [Replicate()] * mesh.ndim
+    p_pl = pl(sh.param_shardings(mesh, p_shapes, policy))
+    b = (shapes["batch"] if kind == "train" else shapes)["tokens"].shape[0]
+    row_pl = sh.to_placements(sh.batch_spec(mesh, b, 1, policy), mesh)
+    if kind == "train":
+        opt_pl = pl(sh.opt_shardings(mesh, args[1], policy))
+        step = _bind(step, mesh, policy, b, row_pl, data_args=(2,),
+                     out_rows=())
+        in_pl = (p_pl, opt_pl, data_pl(shapes["batch"]))
+        out_pl = (p_pl, opt_pl, {"grad_norm": repl, "lr": repl,
+                                 "loss": repl})
+        return step, args, in_pl, out_pl, donate_argnums
+
+    # the cache's model entries stay replicated: see the module docstring
+    c_pl = pl(tree_map(lambda s: sh.strip_axis(s, sh.TP),
+                       sh.cache_shardings(mesh, shapes["caches"], b)))
+    tok_pl = data_pl(shapes["tokens"])
+    if kind == "prefill":
+        step = _bind(step, mesh, policy, b, row_pl,
+                     data_args=(1, 3) if len(args) == 4 else (1,),
+                     out_rows=(0,))
+        in_pl = [p_pl, tok_pl, c_pl]
+        if len(args) == 4:
+            in_pl.append(data_pl(shapes["memory"]))
+        return step, args, tuple(in_pl), (row_pl, c_pl), donate_argnums
+
+    step = _bind(step, mesh, policy, b, row_pl, data_args=(1, 2),
+                 out_rows=(0,))
+    in_pl = (p_pl, tok_pl, data_pl(shapes["pos"]), c_pl)
+    return step, args, in_pl, (row_pl, c_pl), donate_argnums

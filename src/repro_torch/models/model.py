@@ -406,6 +406,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, caches,
             memory=None, last_only: bool = False):
     """last_only=True returns only the final position's logits (the serving
     path: a full (B, T, 256k-vocab) logits tensor is never needed)."""
+    params = _top_params(params)
     hidden, new_caches = forward(params, cfg, tokens, memory=memory,
                                  mode="prefill", caches=caches,
                                  return_hidden=True)

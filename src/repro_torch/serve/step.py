@@ -1,22 +1,40 @@
 """Serve steps: prefill (last-token logits) and greedy decode, cache-threaded
-(port of ``repro.serve.step``)."""
+(port of ``repro.serve.step``).
+
+Under ``activation_sharding(mesh)`` the parameters and the caches are
+DTensors (``launch.specs.make_step_and_specs`` places them) and the tokens
+are this rank's rows.  A cache leaf's batch dim is over the data-parallel
+axes, so a rank computes on its own rows' caches (``act_ctx.local``), and
+the new caches come back placed as the old ones (``act_ctx.like``).
+"""
 from __future__ import annotations
 
-from repro_torch.models import decode_step, prefill
+from repro_torch.models import act_ctx, decode_step, prefill
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
+
+
+def _rank_caches(caches):
+    return caches if act_ctx.mesh() is None else \
+        tree_map(act_ctx.local, caches)
+
+
+def _placed_as(old, new):
+    return new if act_ctx.mesh() is None else tree_map(act_ctx.like, old, new)
 
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, tokens, caches, memory=None):
-        logits, caches = prefill(params, cfg, tokens, caches, memory=memory,
-                                 last_only=True)
-        return logits[:, -1].argmax(dim=-1).int(), caches
+        logits, new = prefill(params, cfg, tokens, _rank_caches(caches),
+                              memory=memory, last_only=True)
+        return logits[:, -1].argmax(dim=-1).int(), _placed_as(caches, new)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
     def decode_fn(params, tokens, pos, caches):
         """tokens: (B,1) current token; pos: (B,) its absolute position."""
-        logits, caches = decode_step(params, cfg, tokens, pos, caches)
-        return logits[:, -1].argmax(dim=-1).int(), caches
+        logits, new = decode_step(params, cfg, tokens, pos,
+                                  _rank_caches(caches))
+        return logits[:, -1].argmax(dim=-1).int(), _placed_as(caches, new)
     return decode_fn

@@ -27,14 +27,20 @@ def tree_paths(tree: Any) -> list[str]:
     return [path for path, _ in _walk(tree, "")]
 
 
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable, tree: Any, *rest: Any,
+             is_leaf: Callable | None = None) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves of each
-    tree in ``rest`` (same structure), in a tree of the same structure."""
+    tree in ``rest`` (same structure), in a tree of the same structure.
+    ``is_leaf(node)`` of each node of the last tree in ``rest``, where
+    given, stops the walk there (a leaf that is itself a list)."""
+    if is_leaf is not None and rest and is_leaf(rest[-1]):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
 

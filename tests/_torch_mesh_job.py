@@ -11,7 +11,10 @@ port only.
 
 Cases: ``to_placements`` round trips; expert-parallel MoE (values and every
 gradient against the single-process ``_apply_moe_xla``); three train steps
-of ``make_train_step`` under the mesh against the same steps without one.
+of ``make_train_step`` under the mesh against the same steps without one;
+prefill and decode steps bound by ``launch.specs.make_step_and_specs`` on
+the mesh against the same steps without one (the logits each step
+computes, recorded on the way, and its tokens).
 """
 import dataclasses
 import json
@@ -27,13 +30,17 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import shard_rows
-from repro_torch.launch.mesh import place
+from repro_torch.configs import ShapeSpec
+from repro_torch.launch.mesh import distribute_tree, place
+from repro_torch.launch.specs import make_step_and_specs
 from repro_torch.launch.sharding import (P, batch_spec, opt_shardings,
                                          param_shardings, to_placements)
 from repro_torch.launch.train import row_shard
-from repro_torch.models import act_ctx, blocks, init_params
+from repro_torch.models import (act_ctx, blocks, decode_step, init_caches,
+                                init_params, prefill)
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.model import activation_sharding
+from repro_torch.serve import step as serve_step
 from repro_torch.train import (AdamWConfig, init_opt_state, init_residual,
                                make_train_step)
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
@@ -48,6 +55,8 @@ TRAIN_CASES = {"internlm2-1.8b": {"microbatches": 2},
                "recurrentgemma-9b": {"compress": True},
                "qwen3-moe-235b-a22b": {}}
 TRAIN_B, TRAIN_T1, TRAIN_STEPS = 4, 17, 3
+SERVE_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b")
+SERVE_B, SERVE_T, SERVE_LEN, SERVE_STEPS = 4, 12, 16, 3
 
 
 def _full(t):
@@ -241,6 +250,93 @@ def train_case(mesh, arch: str, kw: dict) -> dict:
             "step": int(o["step"]), "shardmap_calls": len(taken)}
 
 
+def _serve_run(cfg, params, tokens, caches, mesh):
+    """Prefill then SERVE_STEPS greedy decode steps; returns (the logits of
+    each step, its tokens), whole batches.  Without a mesh the steps of
+    ``serve.step``; on one, those ``make_step_and_specs`` binds, over
+    placed arguments, the logits gathered from the rows."""
+    logits = []
+    inner = {"prefill": serve_step.prefill,
+             "decode_step": serve_step.decode_step}
+
+    def recording(name):
+        def call(*a, **kw):
+            out = inner[name](*a, **kw)
+            logits.append(out[0][:, -1].detach())
+            return out
+        return call
+
+    if mesh is None:
+        pre = serve_step.make_prefill_step(cfg)
+        dec = serve_step.make_decode_step(cfg)
+    else:
+        pre, _, pre_in, _, _ = make_step_and_specs(
+            cfg, ShapeSpec("serve", SERVE_LEN, SERVE_B, "prefill"), mesh)
+        dec, _, dec_in, _, _ = make_step_and_specs(
+            cfg, ShapeSpec("serve", SERVE_LEN, SERVE_B, "decode"), mesh)
+        params = distribute_tree(params, pre_in[0], mesh)
+        caches = distribute_tree(caches, pre_in[2], mesh)
+        tokens = distribute_tree(tokens, pre_in[1], mesh)
+    toks = []
+    serve_step.prefill = recording("prefill")
+    serve_step.decode_step = recording("decode_step")
+    try:
+        with torch.no_grad():
+            nxt, caches = pre(params, tokens, caches)
+            for i in range(SERVE_STEPS):
+                full = _full(nxt)
+                toks.append(full)
+                cur = full[:, None]
+                pos = torch.full((SERVE_B,), SERVE_T + i, dtype=torch.int32)
+                if mesh is not None:
+                    cur = distribute_tree(cur, dec_in[1], mesh)
+                    pos = distribute_tree(pos, dec_in[2], mesh)
+                nxt, caches = dec(params, cur, pos, caches)
+            toks.append(_full(nxt))
+    finally:
+        serve_step.prefill = inner["prefill"]
+        serve_step.decode_step = inner["decode_step"]
+    if mesh is not None:
+        logits = [_rows(x, mesh) for x in logits]
+    return logits, toks
+
+
+def serve_case(mesh, arch: str) -> dict:
+    """Prefill (SERVE_T tokens into caches of SERVE_LEN) and SERVE_STEPS
+    decode steps bound on the mesh against the same steps without one."""
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        2, cfg.vocab, size=(SERVE_B, SERVE_T)).astype(np.int32))
+
+    def caches():
+        return init_caches(cfg, SERVE_B, SERVE_LEN, dtype=torch.float32,
+                           device="cpu")
+
+    want_l, want_t = _serve_run(cfg, params, tokens, caches(), None)
+    taken = []
+    inner = blocks._apply_moe_shardmap
+
+    def counted(*args):
+        taken.append(1)
+        return inner(*args)
+
+    blocks._apply_moe_shardmap = counted
+    try:
+        got_l, got_t = _serve_run(cfg, params, tokens, caches(), mesh)
+    finally:
+        blocks._apply_moe_shardmap = inner
+    return {"steps": len(got_l),
+            "max_abs_logits": max(float((a - b).abs().max())
+                                  for a, b in zip(got_l, want_l)),
+            "max_logit": max(float(b.abs().max()) for b in want_l),
+            "tokens_equal": all(torch.equal(a, b)
+                                for a, b in zip(got_t, want_t)),
+            "logits_equal": all(torch.equal(a, b)
+                                for a, b in zip(got_l, want_l)),
+            "shardmap_calls": len(taken)}
+
+
 def _run(mesh, d: str, name: str, cases: dict) -> None:
     res = {k: fn() for k, fn in cases.items()}
     if dist.get_rank() == 0:
@@ -261,7 +357,9 @@ def rank_main(rank: int, world: int, d: str) -> None:
                for a in EP_ARCHS},
             **{f"train {a}": (lambda a=a: train_case(mesh, a,
                                                      TRAIN_CASES[a]))
-               for a in TRAIN_CASES}})
+               for a in TRAIN_CASES},
+            **{f"serve {a}": (lambda a=a: serve_case(mesh, a))
+               for a in SERVE_ARCHS}})
     finally:
         dist.destroy_process_group()
 
@@ -274,8 +372,11 @@ def one_rank(d: str) -> None:
         mesh = init_device_mesh("cpu", (1, 1),
                                 mesh_dim_names=("data", "model"))
         _run(mesh, d, "mesh_1x1.json", {
-            f"train {a}": (lambda a=a: train_case(mesh, a, TRAIN_CASES[a]))
-            for a in TRAIN_CASES})
+            **{f"train {a}": (lambda a=a: train_case(mesh, a,
+                                                     TRAIN_CASES[a]))
+               for a in TRAIN_CASES},
+            **{f"serve {a}": (lambda a=a: serve_case(mesh, a))
+               for a in SERVE_ARCHS}})
     finally:
         dist.destroy_process_group()
 

@@ -10,7 +10,8 @@ import pytest
 SRC = Path(__file__).resolve().parents[1] / "src"
 HOST_ONLY = ("repro_torch.core.tree", "repro_torch.core.cost_model",
              "repro_torch.index.table", "repro_torch.index.query",
-             "repro_torch.index.telemetry", "repro_torch.launch.sharding")
+             "repro_torch.index.telemetry", "repro_torch.launch.sharding",
+             "repro_torch.launch.hlo_analysis", "repro_torch.serve.paged_kv")
 
 
 def _run(code: str) -> str:

@@ -19,7 +19,13 @@
   itself shows between two orderings of the same sums, measured in the
   same job (2.8e-5 and 6.5e-5 on this machine: Adam scales gradients near
   its eps by their own size, and an int8 rounding tie moves a quantum);
-  on the 1 x 1 mesh equal bit for bit.
+  on the 1 x 1 mesh equal bit for bit;
+* prefill (12 tokens into caches of 16) and three greedy decode steps,
+  bound under the mesh by ``launch.specs.make_step_and_specs`` with the
+  parameters and caches placed (reduced internlm2, recurrentgemma and
+  qwen3-moe, whose prefill MoE takes expert parallelism and whose decode
+  does not), against the same steps without a mesh: every step's logits
+  within 1e-4, every token equal; on the 1 x 1 mesh all equal bit for bit.
 """
 import dataclasses
 import json
@@ -42,6 +48,7 @@ ROOT = Path(__file__).resolve().parents[1]
 JOB = ROOT / "tests" / "_torch_mesh_job.py"
 EP_ARCHS = {"qwen3-moe-235b-a22b": False, "arctic-480b": True}
 TRAIN_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b")
+SERVE_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b")
 JOB_TIMEOUT = 180
 
 
@@ -129,3 +136,21 @@ def test_train_steps_on_1x1_equal_no_mesh(job, arch):
     assert res["params_are_dtensors"] and res["step"] == 3
     assert res["equal"], res
     assert res["shardmap_calls"] == 0      # model axis 1: single-device MoE
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_prefill_decode_on_2x2_match_no_mesh(job, arch):
+    res = job["mesh_2x2.json"][f"serve {arch}"]
+    assert res["steps"] == 4                # prefill + 3 decode steps
+    assert res["tokens_equal"], res
+    assert res["max_abs_logits"] <= 1e-4, res
+    # qwen3's prefill MoE takes expert parallelism (2 layers); decode at
+    # T = 1 stays on the single-device dispatch, as the reference rules
+    assert res["shardmap_calls"] == (2 if "moe" in arch else 0)
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_prefill_decode_on_1x1_equal_no_mesh(job, arch):
+    res = job["mesh_1x1.json"][f"serve {arch}"]
+    assert res["tokens_equal"] and res["logits_equal"], res
+    assert res["shardmap_calls"] == 0

@@ -245,7 +245,10 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    every token ``torch.equal`` (the MoE model under deterministic
    algorithms, both ways).  It prints prefill tokens/s, the median tick
    and the peak beside the no-mesh run's and PERF.md §5's (copied).
-   Flash and the scan are counted from 0 and must launch.
+   Flash and the scan are counted from 0 just before each model's run on
+   the mesh and read just after it: flash must launch for every model, the
+   scan for recurrentgemma-9b only, each as often as in the run without
+   the mesh (counted the same way).
 18. dryrun: (a) ``python -m repro_torch.launch.dryrun --arch xlstm-350m
    --shape decode_32k --multi-pod`` in a subprocess (a fake group of 512
    ranks, meta tensors): status ok, its memory, flops and wire bytes
@@ -269,7 +272,8 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    from this run; the fused search's launches are the read path's, the write
    path's, the LSM's, the pipeline's and the device plane's; flash's are
    phase 11's and 11b's, by architecture in ``launches_by_arch``, and
-   phase 17's (``launches_serve_mesh``); the scan's are phase 11's, 14's
+   phase 17's mesh runs (``launches_serve_mesh``, by architecture in
+   ``launches_serve_mesh_by_arch``); the scan's are phase 11's, 14's
    and 17's, by phase in ``launches_by_phase``, with the backward's check and time under
    ``backward``), the card line again, and last ``{"ok": true, "device":
    {...}}``.
@@ -3046,9 +3050,13 @@ def serve_mesh(torch, dev, card) -> dict:
     SERVE_MESH_TICKS greedy decode ticks through the steps
     ``make_step_and_specs`` binds, against the same steps without a mesh on
     the same inputs (run before it, to warm the model up, and after it):
-    every token ``torch.equal`` (at 1 x 1 the mesh moves nothing).  The MoE model runs both under deterministic algorithms
-    (its combine's ``index_add_`` otherwise adds in a racing order).  Flash
-    and the scan must launch."""
+    every token ``torch.equal`` (at 1 x 1 the mesh moves nothing).  The MoE
+    model runs both under deterministic algorithms (its combine's
+    ``index_add_`` otherwise adds in a racing order).  Flash and the scan
+    are counted from 0 just before each model's run on the mesh and read
+    just after it, and again around the run after it without the mesh:
+    on the mesh flash must launch for every model, the scan exactly for
+    the recurrent one, and each as often as without the mesh."""
     import gc
     import warnings
     from torch.distributed.device_mesh import init_device_mesh
@@ -3058,9 +3066,17 @@ def serve_mesh(torch, dev, card) -> dict:
     from repro_torch.launch.specs import make_step_and_specs
     from repro_torch.models import init_params
     mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
-    flash_attention_cuda.launches = 0
-    rglru_scan_cuda.launches = 0
     b, t = PREFILL_B, PREFILL_T
+
+    def counted(*args):
+        """serve_steps(*args) with flash and the scan counted from 0 just
+        before it and read just after: (its result, the two counts)."""
+        flash_attention_cuda.launches = 0
+        rglru_scan_cuda.launches = 0
+        out = serve_steps(*args)
+        return out, {"flash": flash_attention_cuda.launches,
+                     "scan": rglru_scan_cuda.launches}
+
     res = {}
     for arch, depth in SERVE_MESH:
         cfg = _arch_cfg(arch, depth)
@@ -3083,10 +3099,11 @@ def serve_mesh(torch, dev, card) -> dict:
                 # and gives the tokens), then on the mesh, then without
                 # again (the numbers printed beside the mesh's)
                 warm = serve_steps(torch, dev, cfg, params, toks, None, None)
-                runs = {"mesh": serve_steps(torch, dev, cfg, params, toks,
-                                            mesh, specs),
-                        "no mesh": serve_steps(torch, dev, cfg, params, toks,
-                                               None, None)}
+                runs, launches = {}, {}
+                for name, m, sp in (("mesh", mesh, specs),
+                                    ("no mesh", None, None)):
+                    runs[name], launches[name] = counted(
+                        torch, dev, cfg, params, toks, m, sp)
             finally:
                 torch.use_deterministic_algorithms(False)
         want = warm[0]
@@ -3096,7 +3113,9 @@ def serve_mesh(torch, dev, card) -> dict:
                     f"serve_mesh {arch}: tokens {name} "
                     f"{[x.tolist() for x in got]} != the first run's "
                     f"{[x.tolist() for x in want]}")
-        row = {"layers": cfg.n_layers, "steps": len(got)}
+        row = {"layers": cfg.n_layers, "steps": len(got),
+               "launches_serve_mesh": launches["mesh"],
+               "launches_no_mesh": launches["no mesh"]}
         for name, (_, pre_s, ticks, peak) in runs.items():
             row[name] = {"prefill_tokens_per_s": b * t / pre_s,
                          "decode_tick_ms": float(np.median(ticks)) * 1e3,
@@ -3113,16 +3132,30 @@ def serve_mesh(torch, dev, card) -> dict:
               f"tick {row['no mesh']['decode_tick_ms']:.1f} ms, peak "
               f"{row['no mesh']['peak_gib']:.2f} GiB (after a warm-up run "
               f"without it); PERF.md §5 without a mesh, copied: "
-              f"{PERF_NO_MESH[arch]} [{card}]", flush=True)
+              f"{PERF_NO_MESH[arch]}; launches on the mesh: flash "
+              f"{launches['mesh']['flash']}, scan {launches['mesh']['scan']}"
+              f" (without it: flash {launches['no mesh']['flash']}, scan "
+              f"{launches['no mesh']['scan']}) [{card}]", flush=True)
+        recurrent = any("rglru" in unit for unit, _ in cfg.stacks)
+        if (launches["mesh"]["flash"] <= 0
+                or (launches["mesh"]["scan"] > 0) != recurrent
+                or launches["mesh"] != launches["no mesh"]):
+            raise AssertionError(
+                f"serve_mesh {arch}: launches on the mesh {launches['mesh']}"
+                f", without it {launches['no mesh']}: flash must launch on "
+                f"the mesh, the scan exactly where the model is recurrent, "
+                f"and both as often as without the mesh")
         del params, runs, specs, warm
         gc.collect()
         torch.cuda.empty_cache()
-    res["flash_launches"] = flash_attention_cuda.launches
-    res["scan_launches"] = rglru_scan_cuda.launches
+    archs = [arch for arch, _ in SERVE_MESH]
+    res["flash_launches"] = sum(res[a]["launches_serve_mesh"]["flash"]
+                                for a in archs)
+    res["scan_launches"] = sum(res[a]["launches_serve_mesh"]["scan"]
+                               for a in archs)
     print(f"serve_mesh: {res['flash_launches']} flash and "
-          f"{res['scan_launches']} scan launches", flush=True)
-    if res["flash_launches"] <= 0 or res["scan_launches"] <= 0:
-        raise AssertionError("serve_mesh: flash or the scan never launched")
+          f"{res['scan_launches']} scan launches on the mesh, the three "
+          f"models", flush=True)
     return res
 
 
@@ -3181,8 +3214,7 @@ def estimator_vs_card(torch, dev, card) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.launch.dryrun import local_bytes, peak_bytes
-    from repro_torch.launch.flops_count import count_flops
+    from repro_torch.launch.dryrun import local_bytes, trace_step
     from repro_torch.launch.mesh import distribute_tree
     from repro_torch.launch.specs import make_step_and_specs
     from repro_torch.models import init_caches, init_params
@@ -3199,8 +3231,8 @@ def estimator_vs_card(torch, dev, card) -> dict:
                        for a, p in zip(args, in_pl))
         t0 = time.perf_counter()
         with grad:
-            meta_flops = count_flops(step, *placed)
-            temp = peak_bytes(step, placed) - local_bytes(placed)
+            _, meta_flops, _, peak = trace_step(step, placed)
+            temp = peak - local_bytes(placed)
         trace_s = time.perf_counter() - t0
         est = local_bytes(placed) + temp
         del placed, args
@@ -3501,6 +3533,9 @@ def main() -> int:
         + served_mesh["flash_launches"],
         "launches_by_arch": flash_by_arch,
         "launches_serve_mesh": served_mesh["flash_launches"],
+        "launches_serve_mesh_by_arch": {
+            a: served_mesh[a]["launches_serve_mesh"]["flash"]
+            for a, _ in SERVE_MESH},
         "dispatch": dispatch["flash_attention"],
         "max_abs_err": flash_head["max_abs_err"], "equal": True,
         **{k: flash_head[k] for k in ("ms", "plain_ms", "bound_ms",

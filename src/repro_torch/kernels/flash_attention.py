@@ -211,6 +211,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
+def _direct(q, k, v, **kw) -> torch.Tensor:
+    """The launcher for CUDA tensors, the twin for CPU tensors; any other
+    device raises."""
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, **kw)
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v, **kw)
+    raise ValueError(f"no flash_attention kernel for device {q.device}")
+
+
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, window: Optional[int],
@@ -218,13 +228,8 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> torch.Tensor:
     """The registered op: the launcher on CUDA tensors, the twin on CPU
     tensors (the fake below serves ``meta``)."""
-    kw = {"causal": causal, "window": window, "softcap": softcap,
-          "scale": scale}
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, **kw)
-    if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, **kw)
-    raise ValueError(f"no flash_attention kernel for device {q.device}")
+    return _direct(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale)
 
 
 @flash_attention_op.register_fake
@@ -250,15 +255,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The kernel for CUDA tensors, its plain twin for CPU tensors, the
     output's shape for ``meta`` tensors; through the registered op where a
     dispatch mode observes the call."""
-    dev = q.device.type
-    if dev == "cuda":
+    if q.device.type == "cuda":
         _build.check_no_grad("flash_attention", q, k, v)
-    elif dev not in ("cpu", "meta"):
-        raise ValueError(f"no flash_attention kernel for device {q.device}")
-    if dev == "meta" or _build.observed():
+    if q.device.type == "meta" or _build.observed():
         return flash_attention_op(q, k, v, causal, window, softcap, scale)
-    kw = {"causal": causal, "window": window, "softcap": softcap,
-          "scale": scale}
-    if dev == "cuda":
-        return flash_attention_cuda(q, k, v, **kw)
-    return flash_attention_torch(q, k, v, **kw)
+    return _direct(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale)

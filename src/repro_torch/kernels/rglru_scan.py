@@ -172,16 +172,22 @@ rglru_scan_cuda.launches_by_path = dict.fromkeys(PATHS, 0)
 rglru_scan_cuda.backward_launches = 0
 
 
-@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
-def rglru_scan_op(u: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor],
-                  backward: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """The registered op: the launcher on CUDA tensors, the twin on CPU
-    tensors (the fake below serves ``meta``)."""
+def _direct(u, a, h0, backward):
+    """The launcher for CUDA tensors, the twin for CPU tensors; any other
+    device raises."""
     if u.device.type == "cuda":
         return rglru_scan_cuda(u, a, h0, backward=backward)
     if u.device.type == "cpu":
         return rglru_scan_torch(u, a, h0)
     raise ValueError(f"no rglru_scan kernel for device {u.device}")
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def rglru_scan_op(u: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor],
+                  backward: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered op: the launcher on CUDA tensors, the twin on CPU
+    tensors (the fake below serves ``meta``)."""
+    return _direct(u, a, h0, backward)
 
 
 @rglru_scan_op.register_fake
@@ -204,16 +210,11 @@ def rglru_scan(u: torch.Tensor, a: torch.Tensor,
     dispatch mode observes the call.  Not differentiable on the card: see
     :class:`RGLRUScan`.  ``backward`` is passed to :func:`rglru_scan_cuda`'s
     count."""
-    dev = u.device.type
-    if dev == "cuda":
+    if u.device.type == "cuda":
         _build.check_no_grad("rglru_scan", u, a, h0)
-    elif dev not in ("cpu", "meta"):
-        raise ValueError(f"no rglru_scan kernel for device {u.device}")
-    if dev == "meta" or _build.observed():
+    if u.device.type == "meta" or _build.observed():
         return rglru_scan_op(u, a, h0, backward)
-    if dev == "cuda":
-        return rglru_scan_cuda(u, a, h0, backward=backward)
-    return rglru_scan_torch(u, a, h0)
+    return _direct(u, a, h0, backward)
 
 
 class RGLRUScan(torch.autograd.Function):

@@ -86,16 +86,19 @@ def local_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _locals(tree))
 
 
-def peak_bytes(step, args) -> int:
-    """The peak bytes of the tensors live during ``step(*args)``, the
-    arguments' shards included."""
+def trace_step(step, args) -> tuple:
+    """One run of ``step(*args)`` under ``MemTracker``, the flop counter and
+    the collective accountant together: (its output, its FLOPs, the
+    :func:`~.hlo_analysis.collective_record` of its collectives, the peak
+    bytes of the tensors live during it, the arguments' shards included)."""
     from torch.distributed._tools.mem_tracker import MemTracker
     tracker = MemTracker()
     tracker.track_external(*_locals(args))
-    with tracker:
-        step(*args)
+    with tracker, FlopCounterMode(display=False) as counter:
+        out, collectives = trace_collectives(step, *args)
     peak = tracker.get_tracker_snapshot("peak")
-    return max((snap["Total"] for snap in peak.values()), default=0)
+    return (out, counter.get_total_flops(), collectives,
+            max((snap["Total"] for snap in peak.values()), default=0))
 
 
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: pathlib.Path,
@@ -120,18 +123,16 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: pathlib.Path,
         arg_bytes = local_bytes(placed)
         alias = local_bytes([placed[i] for i in donate])
         t0 = time.time()
-        with FlopCounterMode(display=False) as counter:
-            out, collectives = trace_collectives(step, *placed)
+        out, flops, collectives, peak = trace_step(step, placed)
         t_lower = time.time() - t0
         mem_rec = {"argument_size_in_bytes": arg_bytes,
                    "output_size_in_bytes": local_bytes(out),
-                   "temp_size_in_bytes": peak_bytes(step, placed)
-                   - arg_bytes,
+                   "temp_size_in_bytes": peak - arg_bytes,
                    "generated_code_size_in_bytes": 0,
                    "alias_size_in_bytes": alias}
         rec.update(status="ok", lower_s=round(t_lower, 1), compile_s=0.0,
                    memory=mem_rec,
-                   cost={"flops": float(counter.get_total_flops())},
+                   cost={"flops": float(flops)},
                    collectives=collectives,
                    jaxpr_flops_global=float(flops_global(
                        arch, shape, microbatches=microbatches)),

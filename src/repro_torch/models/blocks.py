@@ -582,12 +582,8 @@ def _mlstm_chunk(c_in, n_in, m_in, q, k, v, log_i, log_f):
         b_last[..., None] - b_cum + log_i, dim=-1))
     w = torch.exp(b_last[..., None] - b_cum + log_i - m_out[..., None])
     decay = torch.exp(m_in + b_last - m_out)
-    # w v as the (1 x 1)(1 x hd) products the reference's three-operand
-    # einsum makes of it (a dot_general over no contracted dim): the same
-    # values, and the same FLOPs counted
-    wv = torch.matmul(w[..., None, None], v[..., None, :])[..., 0, :]
     c_out = (decay[..., None, None] * c_in
-             + torch.einsum("bhjv,bhjk->bhvk", wv, k))
+             + torch.einsum("bhj,bhjv,bhjk->bhvk", w, v, k))
     n_out = decay[..., None] * n_in + torch.einsum("bhj,bhjk->bhk", w, k)
     return c_out, n_out, m_out, h
 

@@ -4,14 +4,23 @@ without a mesh: ``count_flops`` over ``make_step_and_specs(cfg, shape,
 None)`` traced on meta equals ``repro.launch.flops_count.count_flops`` of
 ``jax.make_jaxpr`` of the reference's step, for train, prefill and decode.
 
-Tolerance 0, with one stated exception: xlstm's train step.  The
-reference's mLSTM is a ``lax.scan`` over chunks, and the scan's transpose
-computes the carry's cotangent through every chunk: through the last
-chunk's exit state, which training never reads, and into the first
-chunk's initial state, a constant.  The port's autograd prunes both, so its
-count is lower by those products: 0.41 % of the step at two chunks (the
-shape below), and less as chunks are added.  It is held to within 1 % and
-never above the reference's.
+Tolerance 0, with two stated differences, both in xlstm's mLSTM:
+
+* One op.  The chunk's exit state takes ``einsum("bhj,bhjv,bhjk->bhvk",
+  w, v, k)``.  The reference's einsum makes ``w v`` a dot_general with no
+  contracted dim, which its counter counts as ``2 B H L hd`` FLOPs per
+  chunk; torch's einsum multiplies the pair elementwise, which
+  FlopCounterMode does not count.  The prefill is held to the reference's
+  count less exactly that op (0.15 % of the reduced prefill below).
+* Training.  The reference's mLSTM is a ``lax.scan`` over chunks, and the
+  scan's transpose computes the carry's cotangent through every chunk:
+  through the last chunk's exit state, which training never reads, and
+  into the first chunk's initial state, a constant.  The port's autograd
+  prunes both.  With the ``w v`` op four times (forward, the checkpoint's
+  recomputation, and its two transposes) the port's count is lower by
+  0.50 % of the step at two chunks (the shape below), and less as chunks
+  are added.  It is held to within 1 %, and at least the four ``w v``
+  ops below the reference's.
 """
 import jax
 import jax.numpy as jnp
@@ -66,6 +75,16 @@ def ref_flops(arch: str, kind: str, b: int, t: int) -> float:
     return ref_count_flops(jax.make_jaxpr(step)(*args))
 
 
+def wv_flops(arch: str, b: int, t: int) -> int:
+    """The reference's count of the mLSTM's ``w v`` dot_general over one
+    pass of the step: ``2 B H L hd`` per chunk of every mLSTM layer."""
+    cfg = reduced(get_config(arch))
+    layers = sum(pattern.count("mlstm") * n for pattern, n in cfg.stacks)
+    hd = int(cfg.d_model * cfg.mlstm_expand) // cfg.n_heads
+    chunk = cfg.mlstm_chunk
+    return 2 * b * cfg.n_heads * chunk * hd * -(-t // chunk) * layers
+
+
 def port_flops(arch: str, kind: str, b: int, t: int) -> int:
     step, args, in_pl, _, _ = make_step_and_specs(
         reduced(get_config(arch)), ShapeSpec("test", t, b, kind), None)
@@ -81,7 +100,10 @@ def test_global_flops_equal_reference_jaxpr(arch, kind):
     got = port_flops(arch, kind, B, t)
     assert want > 0
     if (arch, kind) == ("xlstm-350m", "train"):
-        assert 0 < want - got <= 0.01 * want, (got, want)
+        assert 4 * wv_flops(arch, B, t) < want - got <= 0.01 * want, \
+            (got, want)
+    elif (arch, kind) == ("xlstm-350m", "prefill"):
+        assert got == want - wv_flops(arch, B, t), (got, want)
     else:
         assert got == want
 

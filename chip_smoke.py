@@ -6,7 +6,7 @@ attention families (gemma3-12b, internlm2-1.8b, gemma2-27b, minicpm-2b,
 qwen3-moe-235b-a22b, arctic-480b, llama-3.2-vision-11b, whisper-medium)
 and the xLSTM family (xlstm-350m), training on the card through the
 trainer's mesh path on a one-rank NCCL group (the trainer at full width,
-the RG-LRU scan kernel's backward, MoE, die and resume), serving under
+the RG-LRU scan's backward kernel, MoE, die and resume), serving under
 that mesh, and the dry-run plane (the CLI, and its estimates held to the
 card).
 
@@ -20,8 +20,9 @@ the port's sources are missing.  Phases, each of which raises on failure:
 
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
 2. The build: compile ``csrc/fitting_lookup.cu``, ``flash_attention.cu`` and
-   ``rglru_scan.cu`` with ``nvcc`` for sm_90a, one process each, all at once,
-   and print ``ptxas``'s register/spill report.
+   ``rglru_scan.cu`` (the scan's forward and backward kernels) with ``nvcc``
+   for sm_90a, one process each, all at once, and print ``ptxas``'s
+   register/spill report.
 3. The data: ``iot_like(2**23)`` keys, rescaled to [0, 2^23] and floored to
    integers (exact in f32; duplicates stay), a 32 MB f32 column on the card,
    fitted at each error e in {16, 64, 256} through ``Snapshot.from_arrays``.
@@ -209,17 +210,24 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    B 2, T 2,048, parameters and state placed on the mesh by the rules and
    each step under ``activation_sharding``, with the scan's counts set to 0
    before and read after:
-   forward launches must be 12 (each layer's forward and its recomputation
-   under remat), backward 6 (``rglru_scan_cuda.backward_launches``), all
-   on the ``tma`` path.  The first step keeps the inputs and outputs of
+   the forward kernel must launch 12 times (``rglru_scan_cuda.launches``:
+   each layer's forward and its recomputation under remat), the backward
+   kernel 6 (``rglru_scan_backward_cuda.launches``: once a layer), all on
+   the ``tma`` path.  The first step keeps the inputs and outputs of
    its first scan forward (u, a -> h) and first scan backward (g, a, h ->
    du, da); once the model is freed, each is held to the twin on the same
-   inputs on the card with ``torch.equal``.  Then at B 4, T = W = 4,096,
-   f32, ``RGLRUScan``'s
-   backward on the card against the same backward through the twin on the
-   card: du and da ``torch.equal``; one autograd backward timed by CUDA
-   events beside its bound (read g, a, h; write du, da: 5 x 268,435,456
-   bytes at 3.35 TB/s, 0.40 ms) and the twin's time.
+   inputs on the card with ``torch.equal`` (the backward to the forward
+   twin on flipped time, ``scan_twin_backward``).  Then the backward
+   kernel at ``RGLRU_BWD_SHAPES`` (B 4, T = W = 4,096, and the training
+   shape B 2, T 2,048, W 4,096), f32: du and da ``torch.equal`` to its
+   twin on the card, to the port's backward before the kernel (the forward
+   kernel on time-flipped inputs, cats and a product: ``flip_backward``)
+   and to one autograd backward; timed by CUDA events in turns kernel,
+   old, old, kernel, in bursts of 20 and one call under the profiler (the
+   kernel's own time, the wrapper's host span), beside the autograd
+   backward, the twin and the bound (read g, a, h; write du, da: 5 x
+   268,435,456 bytes at 3.35 TB/s, 0.4006 ms; 0.1002 ms at the training
+   shape).
 15. train_xlstm: ``launch.train.main`` with ``XLSTM_ARGV`` (xlstm-350m,
    B 8, T 256, 3 steps): finite, falling loss, s/step, tokens/s.
 16. train_resume: ``python -m repro_torch.launch.train --smoke --steps 20
@@ -274,8 +282,10 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    phase 11's and 11b's, by architecture in ``launches_by_arch``, and
    phase 17's mesh runs (``launches_serve_mesh``, by architecture in
    ``launches_serve_mesh_by_arch``); the scan's are phase 11's, 14's
-   and 17's, by phase in ``launches_by_phase``, with the backward's check and time under
-   ``backward``), the card line again, and last ``{"ok": true, "device":
+   and 17's forward launches, by phase in ``launches_by_phase``, with the
+   backward kernel's own record under ``backward``: its design, phase 14's
+   launches by path, its checks and times at both shapes), the card line
+   again, and last ``{"ok": true, "device":
    {...}}``.
 """
 from __future__ import annotations
@@ -2491,7 +2501,18 @@ TRAIN_PROFILE_STEP = 3       # the step run under the profiler (idle share)
 # Phase 14: recurrentgemma-9b at full width, cut to one unit, f32.
 RGLRU_TRAIN_STACKS = ((("rglru", "rglru", "local"), 1),)
 RGLRU_TRAIN_B, RGLRU_TRAIN_T, RGLRU_TRAIN_STEPS = 2, 2048, 3
-RGLRU_BWD_SHAPE = (4, 4096, 4096)      # the forward scan's headline shape
+# The backward kernel's timed shapes: the forward's headline, and the
+# training shape above (B 2, T 2,048, W 4,096).
+RGLRU_BWD_SHAPES = (("headline", 4, 4096, 4096),
+                    ("training", RGLRU_TRAIN_B, RGLRU_TRAIN_T, 4096))
+RGLRU_BWD_DESIGN = ("one reverse-time pass: one producer warp TMA-loads g "
+                    "at t0, a at t0 + 1 and h at t0 - 1 (rows outside [0, T) "
+                    "zero-fill) as (64 x 32) tiles into a 3-stage ring, the "
+                    "block walks the time tiles last to first, one consumer "
+                    "warp steps its 32 channels downward with gacc in a "
+                    "register, du and da tiles TMA-stored from two "
+                    "alternating pairs; unaligned path: one thread a "
+                    "channel, 16 steps' loads ahead")
 # Phase 15: the xLSTM family through the trainer.
 XLSTM_ARGV = ["--arch", "xlstm-350m", "--steps", "3", "--batch", "8",
               "--seq", "256", "--log-every", "1"]
@@ -2650,57 +2671,100 @@ def train_cli(torch, argv, card, what, profile_at=None) -> dict:
 
 
 def rglru_backward_check(torch, dev, card) -> dict:
-    """Phase 14's second half: at B 4, T = W = 4,096, f32, RGLRUScan's
-    backward on the card (the scan kernel on time-flipped inputs) against
-    the same backward computed with the twin on the card: du and da
-    torch.equal.  Timed by CUDA events (one autograd backward), beside its
-    bound: it must read g, a, h and write du, da."""
+    """Phase 14's second half: the backward kernel at RGLRU_BWD_SHAPES, f32,
+    on g, a and h = the forward kernel's states, held torch.equal to its
+    twin on the card and to the port's backward before the kernel (the
+    forward kernel on time-flipped inputs, ``flip_backward``), and one
+    autograd backward through RGLRUScan to the kernel's du and da.  Timed
+    by CUDA events in turns kernel, old, old, kernel, the kernel in bursts
+    of 20 and one call under the profiler (its own time, the wrapper's host
+    span), the autograd backward, the twin, beside the bound: read g, a,
+    h; write du, da."""
     from repro_torch.kernels.rglru_scan import (RGLRUScan, rglru_scan_cuda,
-                                                rglru_scan_torch)
-    b, t, w = RGLRU_BWD_SHAPE
-    g = torch.Generator(device=dev).manual_seed(SEED + 21)
-    u = torch.randn((b, t, w), generator=g, device=dev)
-    a = torch.rand((b, t, w), generator=g, device=dev)
-    dh = torch.randn((b, t, w), generator=g, device=dev)
-    tu, ta = u.clone().requires_grad_(True), a.clone().requires_grad_(True)
-    h = RGLRUScan.apply(tu, ta)
+                                                rglru_scan_backward_cuda,
+                                                rglru_scan_backward_torch,
+                                                scan_path)
+    shapes = []
+    for i, (name, b, t, w) in enumerate(RGLRU_BWD_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21 + i)
+        u = torch.randn((b, t, w), generator=gen, device=dev)
+        a = torch.rand((b, t, w), generator=gen, device=dev)
+        g = torch.randn((b, t, w), generator=gen, device=dev)
+        h, _ = rglru_scan_cuda(u, a)
+        tu, ta = u.clone().requires_grad_(True), a.clone().requires_grad_(True)
+        th = RGLRUScan.apply(tu, ta)
 
-    def kernel_bwd():
-        return torch.autograd.grad(h, (tu, ta), dh, retain_graph=True)
+        def kernel(g=g, a=a, h=h):
+            return rglru_scan_backward_cuda(g, a, h)
 
-    def twin_bwd():
-        hh, _ = rglru_scan_torch(u, a)
-        return scan_twin_backward(torch, dh, a, hh)
+        def old(g=g, a=a, h=h):
+            return flip_backward(torch, rglru_scan_cuda, g, a, h)
 
-    du, da = kernel_bwd()
-    want_du, want_da = twin_bwd()
-    torch.cuda.synchronize()
-    err = max(float((du - want_du).abs().max()),
-              float((da - want_da).abs().max()))
-    if not (torch.equal(du, want_du) and torch.equal(da, want_da)):
-        raise AssertionError(f"rglru backward on the card != the twin's "
-                             f"backward (max abs err {err})")
-    ms = median_ms(torch, kernel_bwd)
-    plain_ms = median_ms(torch, twin_bwd, reps=3, warmup=1)
-    n = b * t * w
-    nbytes = 5 * n * 4                       # read g, a, h; write du, da
-    ops = 4 * n        # the reverse recurrence's mul + add, da's mul, a_next
-    byte_ms, op_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
-    res = {"b": b, "t": t, "w": w, "max_abs_err": err, "exact": True,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-           "bound_ms": max(byte_ms, op_ms),
-           "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-           "bytes": nbytes, "share": max(byte_ms, op_ms) / ms}
-    print(f"rglru backward B={b} T={t} W={w} f32: du and da torch.equal to "
-          f"the twin's backward on the card (max abs err 0); one autograd "
-          f"backward {ms:.4f} ms by CUDA events, plain (the twin's loops) "
-          f"{plain_ms:.2f} ms, library none (no single PyTorch call "
-          f"computes the recurrence), bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_by']}: {nbytes} bytes), {res['share']:.1%} of "
-          f"bound [{card}]", flush=True)
-    del h, tu, ta, u, a, dh, du, da, want_du, want_da
-    torch.cuda.empty_cache()
-    return res
+        def autograd(th=th, tu=tu, ta=ta, g=g):
+            return torch.autograd.grad(th, (tu, ta), g, retain_graph=True)
+
+        def twin(g=g, a=a, h=h):
+            return rglru_scan_backward_torch(g, a, h)
+
+        path = scan_path(g, a, h)
+        got, want, was, via = kernel(), twin(), old(), autograd()
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        equal = {"twin": all(map(torch.equal, got, want)),
+                 "old": all(map(torch.equal, got, was)),
+                 "autograd": all(map(torch.equal, got, via))}
+        if not all(equal.values()):
+            raise AssertionError(f"rglru backward {name}: kernel ({path}) "
+                                 f"torch.equal {equal} (max abs err to the "
+                                 f"twin {err})")
+        del got, want, was, via
+        turns = [median_ms(torch, fn) for fn in (kernel, old, old, kernel)]
+        ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        b_ms = burst_ms(torch, kernel)
+        auto_ms = median_ms(torch, autograd)
+        prof = one_call_profile(torch, kernel, "rglru_scan_bwd")
+        plain_ms = median_ms(torch, twin, reps=3, warmup=1)
+        n = b * t * w
+        nbytes = 5 * n * 4                   # read g, a, h; write du, da
+        ops = 3 * n              # the chain's product and sum, da's product
+        byte_ms, op_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+        bound = max(byte_ms, op_ms)
+        res = {"case": name, "b": b, "t": t, "w": w, "path": path,
+               "max_abs_err": err, "equal": equal, "ms": ms,
+               "turns_ms": turns, "burst_ms": b_ms, "old_ms": old_ms,
+               "autograd_ms": auto_ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": bound,
+               "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+               "bytes": nbytes, "share": bound / ms,
+               "burst_share": bound / b_ms, "old_share": bound / old_ms,
+               "one_call_profile": prof}
+        shapes.append(res)
+        print(f"rglru backward {name} B={b} T={t} W={w} f32: path {path}, "
+              f"du and da torch.equal to the twin, to the old flip-based "
+              f"backward and to one autograd backward (max abs err 0); "
+              f"kernel {ms:.4f} ms one call (turns kernel, old, old, kernel: "
+              f"{', '.join(f'{x:.4f}' for x in turns)}), {b_ms:.4f} ms in "
+              f"bursts of 20; the old flip-based backward {old_ms:.4f} ms; "
+              f"one autograd backward {auto_ms:.4f} ms; plain (the twin's "
+              f"loop) {plain_ms:.2f} ms; library none (no single PyTorch "
+              f"call computes the recurrence); bound {bound:.4f} ms "
+              f"({res['bound_by']}: {nbytes} bytes), {res['share']:.1%} of "
+              f"bound ({res['burst_share']:.1%} in bursts; the old "
+              f"{res['old_share']:.1%}) [{card}]", flush=True)
+        if prof["recorded"]:
+            print(f"rglru backward {name} one call under the profiler "
+                  f"({prof['recorded']} of {prof['reps']} recorded): events "
+                  f"{prof['event_ms']:.4f} ms = kernel "
+                  f"{prof['kernel_ms']:.4f} ms + "
+                  f"{prof['outside_kernel_ms'] * 1e3:.1f} us outside it; "
+                  f"the wrapper's host span {prof['host_span_us']:.1f} us",
+                  flush=True)
+        else:
+            print(f"rglru backward {name} one call under the profiler: no "
+                  f"call's kernel recorded, not measured", flush=True)
+        del u, a, g, h, tu, ta, th
+        torch.cuda.empty_cache()
+    return {"shapes": shapes}
 
 
 @contextlib.contextmanager
@@ -2739,15 +2803,23 @@ def recording_scan(seen: dict):
         blocks.RGLRUScan = inner
 
 
-def scan_twin_backward(torch, g, a, h):
-    """RGLRUScan's backward computed with the twin: (du, da)."""
-    from repro_torch.kernels.rglru_scan import rglru_scan_torch
+def flip_backward(torch, scan, g, a, h):
+    """RGLRUScan's backward as the port ran it before its backward kernel
+    (PRs 19 to 21): the forward scan ``scan`` (the kernel's wrapper or its
+    twin) on time-flipped g and a_next, flipped back; da = gacc * h_prev.
+    Returns (du, da)."""
     a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], 1)
-    rev, _ = rglru_scan_torch(g.flip(1).contiguous(),
-                              a_next.flip(1).contiguous())
+    rev, _ = scan(g.flip(1).contiguous(), a_next.flip(1).contiguous())
     gacc = rev.flip(1)
     h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
     return gacc, gacc * h_prev
+
+
+def scan_twin_backward(torch, g, a, h):
+    """RGLRUScan's backward computed with the forward scan's twin on
+    flipped time: (du, da)."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_torch
+    return flip_backward(torch, rglru_scan_torch, g, a, h)
 
 
 def check_recorded_scans(torch, seen: dict, card) -> dict:
@@ -2785,7 +2857,8 @@ def train_rglru(torch, dev, card) -> dict:
     import dataclasses
     import gc
     from repro_torch.configs import get_config
-    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan import (rglru_scan_backward_cuda,
+                                                rglru_scan_cuda)
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import make_host_mesh, place
     from repro_torch.models import init_params
@@ -2805,10 +2878,11 @@ def train_rglru(torch, dev, card) -> dict:
                                             total_steps=RGLRU_TRAIN_STEPS))
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
     n_rglru = sum(r * u.count("rglru") for u, r in cfg.stacks)
-    rglru_scan_cuda.launches = 0
-    rglru_scan_cuda.backward_launches = 0
     by_path = rglru_scan_cuda.launches_by_path
+    bwd_by_path = rglru_scan_backward_cuda.launches_by_path
+    rglru_scan_cuda.launches = rglru_scan_backward_cuda.launches = 0
     by_path.update(dict.fromkeys(by_path, 0))
+    bwd_by_path.update(dict.fromkeys(bwd_by_path, 0))
     losses, walls, seen = [], [], {}
     for i in range(RGLRU_TRAIN_STEPS):
         toks = torch.randint(0, cfg.vocab, (RGLRU_TRAIN_B, RGLRU_TRAIN_T),
@@ -2820,20 +2894,21 @@ def train_rglru(torch, dev, card) -> dict:
             params, opt, m = step(params, opt, {"tokens": toks})
         losses.append(float(m["loss"]))
         walls.append(time.perf_counter() - t0)
-    bwd = rglru_scan_cuda.backward_launches
-    fwd = rglru_scan_cuda.launches - bwd
+    fwd, bwd = rglru_scan_cuda.launches, rglru_scan_backward_cuda.launches
     res = {"stacks": repr(cfg.stacks), "params": param_count(cfg),
            "losses": losses, "step_walls_s": walls,
            "forward_launches": fwd, "backward_launches": bwd,
            "launches_by_path": dict(by_path),
+           "backward_launches_by_path": dict(bwd_by_path),
            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"train {ARCH} (full width, depth cut to {cfg.stacks}, "
           f"{res['params']} parameters, f32): {RGLRU_TRAIN_STEPS} steps of "
           f"make_train_step at B={RGLRU_TRAIN_B} T={RGLRU_TRAIN_T}: losses "
           f"{[round(x, 4) for x in losses]}, step walls "
-          f"{[round(x, 3) for x in walls]} s; rglru_scan launches: forward "
-          f"{fwd} (forward + remat recompute), backward {bwd}, by path "
-          f"{dict(by_path)}; peak memory_allocated "
+          f"{[round(x, 3) for x in walls]} s; launches: the forward scan "
+          f"kernel {fwd} (forward + remat recompute, by path "
+          f"{dict(by_path)}), the backward kernel {bwd} (by path "
+          f"{dict(bwd_by_path)}); peak memory_allocated "
           f"{res['peak_allocated_gib']:.2f} GiB [{card}]", flush=True)
     res["mesh"] = facts
     c13 = beside_c13("train_rglru", losses, float(np.median(walls[1:])),
@@ -2842,10 +2917,11 @@ def train_rglru(torch, dev, card) -> dict:
           f"[{card}]", flush=True)
     want = (2 * n_rglru * RGLRU_TRAIN_STEPS, n_rglru * RGLRU_TRAIN_STEPS)
     if (fwd, bwd) != want or by_path["unaligned"] or \
-            not all(np.isfinite(losses)):
+            bwd_by_path["unaligned"] or not all(np.isfinite(losses)):
         raise AssertionError(f"train {ARCH}: scan launches forward {fwd}, "
                              f"backward {bwd} (want {want}, all tma: "
-                             f"{dict(by_path)}); losses {losses}")
+                             f"{dict(by_path)}, {dict(bwd_by_path)}); "
+                             f"losses {losses}")
     del params, opt, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -3314,7 +3390,7 @@ def op_dispatch(torch, dev) -> dict:
                                        kw.get("window"), kw.get("softcap"),
                                        None), "flash"),
         "rglru_scan": (lambda: rglru_scan(u, a, h0),
-                       lambda: rglru_scan_op(u, a, h0, False), "rglru_scan")}
+                       lambda: rglru_scan_op(u, a, h0), "rglru_scan")}
     res = {}
     for kernel, (direct, op, pattern) in fns.items():
         row = {}
@@ -3463,18 +3539,21 @@ def main() -> int:
 
     import torch.distributed as dist
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan import (rglru_scan_backward_cuda,
+                                                rglru_scan_cuda)
     from repro_torch.launch.mesh import init_ranks
     init_ranks(dev)
     print(f"training: a one-rank {dist.get_backend()} process group on "
           f"{dev}; every phase below trains on a (data 1, model 1) mesh",
           flush=True)
-    flash_attention_cuda.launches = 0
-    rglru_scan_cuda.launches = 0
+    flash_attention_cuda.launches = rglru_scan_cuda.launches = 0
+    rglru_scan_backward_cuda.launches = 0
     training = {"train_main": train_cli(torch, TRAIN_ARGV, card,
                                         "train_main", TRAIN_PROFILE_STEP)}
-    if flash_attention_cuda.launches or rglru_scan_cuda.launches:
-        raise AssertionError("train_main launched a forward-only kernel")
+    if flash_attention_cuda.launches or rglru_scan_cuda.launches or \
+            rglru_scan_backward_cuda.launches:
+        raise AssertionError("train_main launched a kernel of a model it "
+                             "does not train (flash or the scan)")
     training["train_rglru"] = train_rglru(torch, dev, card)
     training["train_xlstm"] = train_cli(torch, XLSTM_ARGV, card,
                                         "train_xlstm")
@@ -3549,21 +3628,30 @@ def main() -> int:
         "replaces": "src/repro/kernels/rglru_scan.py:37",
         "design": RGLRU_DESIGN,
         "launches": lm_launches["rglru_scan"]
-        + scan_train["forward_launches"] + scan_train["backward_launches"]
-        + served_mesh["scan_launches"],
+        + scan_train["forward_launches"] + served_mesh["scan_launches"],
         "dispatch": dispatch["rglru_scan"],
         "launches_by_phase": {
             "serving": lm_launches["rglru_scan"],
             "serve_mesh": served_mesh["scan_launches"],
-            "train_rglru forward": scan_train["forward_launches"],
-            "train_rglru backward": scan_train["backward_launches"]},
+            "train_rglru forward": scan_train["forward_launches"]},
         "launches_by_path": lm_launches["rglru_scan_by_path"],
-        "backward": {"launches": scan_train["backward_launches"],
-                     "design": "RGLRUScan.backward: the same kernel on "
-                               "time-flipped g and a_next, then "
-                               "da = gacc * h_prev in torch ops",
-                     "training_step_check": scan_train["recorded"],
-                     **scan_train["backward"]},
+        "backward": {
+            "name": "rglru_scan_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/rglru_scan.cu",
+            "replaces": "src/repro/models/blocks.py:420 (_rglru_scan_bwd: "
+                        "XLA's reverse associative scan, no Pallas kernel)",
+            "design": RGLRU_BWD_DESIGN,
+            "launches": scan_train["backward_launches"],
+            "launches_by_path": scan_train["backward_launches_by_path"],
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in scan_train["backward"]["shapes"]),
+            "equal": True,
+            **{k: scan_train["backward"]["shapes"][0][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "burst_ms", "old_ms", "autograd_ms",
+                         "share")},
+            "training_step_check": scan_train["recorded"],
+            "shapes": scan_train["backward"]["shapes"]},
         "max_abs_err": max(c["max_abs_err"] for c in rglru_cases),
         "equal": True,
         **{k: rglru_cases[0][k] for k in ("ms", "plain_ms", "bound_ms",

@@ -853,6 +853,13 @@ extern "C" int flash_attention_wgmma_launch(
   if (b <= 0 || h <= 0 || hkv <= 0 || h % hkv != 0 || tq <= 0 || s <= 0 ||
       static_cast<int64_t>(b) * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  // Encoding a tensor map needs the card's context current on this thread,
+  // which a thread whose first CUDA work is this launch does not have yet:
+  // setting the device makes the runtime's primary context current.
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, hd, tq, h, b, q_st, q_sh, q_sb, kWgBQ) ||
       !make_map(&mk, k, hd, s, hkv, b, k_st, k_sh, k_sb, kWgBK) ||

@@ -15,7 +15,9 @@ rglru_scan      -- the RG-LRU linear recurrence over time (``rglru_scan_cuda``,
                    its twin ``rglru_scan_torch``, and the module's
                    ``rglru_scan``); the LM's prefill scan.  Two kernels,
                    picked by ``scan_path``: a TMA-fed ring where TMA can
-                   read the inputs, one thread a channel elsewhere
+                   read the inputs, one thread a channel elsewhere; and
+                   the same two designs run backwards in time for
+                   ``RGLRUScan``'s gradient (``rglru_scan_backward``)
 ops.py          -- the device-index-level wrapper ``ops.fitting_lookup``
 ref.py          -- the torch oracles ``lookup_ref``, ``attention_ref``,
                    ``rglru_ref``

@@ -598,46 +598,145 @@ def test_reduced_forward_on_the_card_matches_the_cpu(cuda_device, arch):
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
 
 
+def _bwd_inputs(device, b, t, w, offset=0):
+    """g, a, h for the backward on the card (h the forward scan's states),
+    each ``offset`` floats into its storage."""
+    u, a, _ = _scan_inputs(device, b, t, w, False, offset)
+    gen = torch.Generator(device=device).manual_seed(b + t + w)
+    g = torch.randn(offset + b * t * w, generator=gen, device=device)
+    h = torch.empty(offset + b * t * w, device=device)
+    h[offset:] = rs.rglru_scan_torch(u, a)[0].flatten()
+    return g[offset:].view(b, t, w), a, h[offset:].view(b, t, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,w,offset,path", [
+    (2, 300, 256, 0, "tma"), (2, 77, 130, 0, "unaligned"),
+    (2, 37, 64, 0, "tma"), (3, 64, 128, 0, "tma"), (2, 1, 128, 0, "tma"),
+    (1, 1, 130, 0, "unaligned"), (2, 200, 100, 0, "tma"),
+    (2, 300, 64, 1, "unaligned")])
+def test_rglru_backward_kernel_matches_twin(cuda_device, b, t, w, offset,
+                                            path):
+    """The backward kernel equals its twin bit for bit on both paths: T
+    below one tile, T 1, a W that leaves the last channel tile partial
+    (W 100), and a base off 16-byte alignment that forces unaligned; one
+    launch, counted on the path scan_path names."""
+    g, a, h = _bwd_inputs(cuda_device, b, t, w, offset)
+    assert rs.scan_path(g, a, h) == path
+    before = dict(rs.rglru_scan_backward_cuda.launches_by_path)
+    fwd = rs.rglru_scan_cuda.launches
+    du, da = rs.rglru_scan_backward_cuda(g, a, h)
+    torch.cuda.synchronize()
+    assert rs.rglru_scan_backward_cuda.launches_by_path == {
+        p: n + (p == path) for p, n in before.items()}
+    assert rs.rglru_scan_cuda.launches == fwd
+    want_du, want_da = rs.rglru_scan_backward_torch(g, a, h)
+    assert torch.equal(du, want_du) and torch.equal(da, want_da)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,w", [(2, 300, 256), (2, 37, 64),
+                                   (2, 200, 100)])
+def test_rglru_backward_unaligned_kernel_equals_tma_kernel(cuda_device, b,
+                                                           t, w):
+    """The backward's two kernels on the same aligned inputs agree bit for
+    bit."""
+    g, a, h = _bwd_inputs(cuda_device, b, t, w)
+    tma = rs._rglru_scan_backward_launch(g, a, h, "tma")
+    old = rs._rglru_scan_backward_launch(g, a, h, "unaligned")
+    torch.cuda.synchronize()
+    assert torch.equal(tma[0], old[0]) and torch.equal(tma[1], old[1])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,w", [(2, 300, 256), (2, 77, 130)])
 def test_rglru_backward_on_the_card_equals_the_twin(cuda_device, b, t, w):
-    """RGLRUScan's backward launches the scan kernel on time-flipped
-    inputs; the kernel equals its twin bit for bit, so du and da on the
-    card equal the twin's backward on the same card exactly (W 256 takes
-    the tma path, W 130 the unaligned one)."""
+    """RGLRUScan's backward on the card is one launch of the backward
+    kernel and none of the forward's; du and da equal the twin's backward
+    on the same card, and the forward scan's twin on time-flipped inputs
+    (the port's backward before its kernel), exactly (W 256 takes the tma
+    path, W 130 the unaligned one)."""
     g = torch.Generator(device=cuda_device).manual_seed(b * t + w)
     u = torch.randn((b, t, w), generator=g, device=cuda_device)
     a = torch.rand((b, t, w), generator=g, device=cuda_device)
     dh = torch.randn((b, t, w), generator=g, device=cuda_device)
-    before = rs.rglru_scan_cuda.backward_launches
     tu, ta = u.clone().requires_grad_(True), a.clone().requires_grad_(True)
-    rs.RGLRUScan.apply(tu, ta).backward(dh)
+    h = rs.RGLRUScan.apply(tu, ta)
+    before = (rs.rglru_scan_cuda.launches,
+              rs.rglru_scan_backward_cuda.launches)
+    h.backward(dh)
     torch.cuda.synchronize()
-    assert rs.rglru_scan_cuda.backward_launches == before + 1
-    # the twin's backward: the same function on the twin, on the card
-    h, _ = rs.rglru_scan_torch(u, a)
+    assert (rs.rglru_scan_cuda.launches,
+            rs.rglru_scan_backward_cuda.launches) == (before[0],
+                                                      before[1] + 1)
+    hh, _ = rs.rglru_scan_torch(u, a)
+    want_du, want_da = rs.rglru_scan_backward_torch(dh, a, hh)
+    assert torch.equal(tu.grad, want_du) and torch.equal(ta.grad, want_da)
     a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], 1)
     rev, _ = rs.rglru_scan_torch(dh.flip(1).contiguous(),
                                  a_next.flip(1).contiguous())
     gacc = rev.flip(1)
-    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    h_prev = torch.cat([torch.zeros_like(hh[:, :1]), hh[:, :-1]], 1)
     assert torch.equal(tu.grad, gacc)
     assert torch.equal(ta.grad, gacc * h_prev)
 
 
 @pytest.mark.gpu
 def test_rglru_empty_backward_counts_no_launch(cuda_device):
-    """An empty batch launches no kernel in either direction, so neither
-    launches nor backward_launches moves: the launch itself counts."""
+    """An empty batch, or an empty time axis in the backward, launches no
+    kernel in either direction, so no counter moves: the launch itself
+    counts."""
     u = torch.zeros((0, 5, 8), device=cuda_device, requires_grad=True)
     a = torch.zeros((0, 5, 8), device=cuda_device, requires_grad=True)
     before = (rs.rglru_scan_cuda.launches,
-              rs.rglru_scan_cuda.backward_launches)
+              rs.rglru_scan_backward_cuda.launches)
     rs.RGLRUScan.apply(u, a).sum().backward()
+    empty = torch.zeros((2, 0, 8), device=cuda_device)
+    du, da = rs.rglru_scan_backward_cuda(empty, empty, empty)
     torch.cuda.synchronize()
     assert u.grad.shape == a.grad.shape == (0, 5, 8)
+    assert du.shape == da.shape == (2, 0, 8)
     assert (rs.rglru_scan_cuda.launches,
-            rs.rglru_scan_cuda.backward_launches) == before
+            rs.rglru_scan_backward_cuda.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["scan", "scan backward", "flash"])
+def test_tma_kernels_launch_from_a_fresh_thread(cuda_device, kernel):
+    """A TMA kernel whose launch is the first CUDA work of its thread (as
+    in autograd's backward thread, or a caller's own thread): the launcher
+    encodes its tensor maps once the runtime has made the card's context
+    current there, and the result equals the same launch on this thread."""
+    import threading
+    if kernel == "flash":
+        args = _qkv(cuda_device, 1, 4, 2, 130, 130, 128, torch.bfloat16, 3)
+        fn = fa.flash_attention_cuda
+    elif kernel == "scan":
+        args = _scan_inputs(cuda_device, 2, 300, 256, True)
+        fn = rs.rglru_scan_cuda
+    else:
+        args = _bwd_inputs(cuda_device, 2, 300, 256)
+        fn = rs.rglru_scan_backward_cuda
+    torch.cuda.synchronize()
+    out = {}
+
+    def run():
+        try:
+            out["got"] = fn(*args)
+            torch.cuda.synchronize()
+        except Exception as exc:          # raised below, on the test's thread
+            out["error"] = exc
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    if "error" in out:
+        raise out["error"]
+    want = fn(*args)
+    torch.cuda.synchronize()
+    for got, ref in zip(*(x if isinstance(x, tuple) else (x,)
+                          for x in (out["got"], want))):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.gpu
@@ -679,14 +778,14 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     gpu_params = _to(params, cuda_device)     # before the step updates params
     want_p, _, want = step(params, init_opt_state(params), {"tokens": toks})
     before = (rs.rglru_scan_cuda.launches,
-              rs.rglru_scan_cuda.backward_launches)
+              rs.rglru_scan_backward_cuda.launches)
     got_p, _, got = step(gpu_params, init_opt_state(gpu_params),
                          {"tokens": toks.to(cuda_device)})
     torch.cuda.synchronize()
     fwd = rs.rglru_scan_cuda.launches - before[0]
-    bwd = rs.rglru_scan_cuda.backward_launches - before[1]
+    bwd = rs.rglru_scan_backward_cuda.launches - before[1]
     n_rglru = sum(r * u.count("rglru") for u, r in cfg.stacks)
-    assert bwd == n_rglru and fwd == 2 * n_rglru + bwd   # remat recomputes
+    assert bwd == n_rglru and fwd == 2 * n_rglru   # remat recomputes
     np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
                                rtol=1e-4, atol=1e-4)
     for g, w in zip(tree_leaves(got_p), tree_leaves(want_p)):

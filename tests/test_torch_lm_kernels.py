@@ -227,6 +227,54 @@ def test_rglru_private_entry_refuses_tma_where_tma_cannot_read(monkeypatch):
             rs.rglru_scan_cuda.launches_by_path) == before
 
 
+def test_rglru_backward_cuda_tensors_never_take_the_twin(monkeypatch):
+    """The backward's dispatcher: a CPU tensor takes the twin without a
+    count, a CUDA tensor the kernel (here: no library, so it raises) and
+    never the twin."""
+    g, a, h = (torch.rand(1, 4, 8) for _ in range(3))
+    before = (rs.rglru_scan_backward_cuda.launches,
+              rs.rglru_scan_cuda.launches)
+    got = rs.rglru_scan_backward(g, a, h)
+    want = rs.rglru_scan_backward_torch(g, a, h)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rs.rglru_scan_backward_cuda(g, a, h)
+    assert (rs.rglru_scan_backward_cuda.launches,
+            rs.rglru_scan_cuda.launches) == before
+
+    def twin(*args, **kw):
+        raise AssertionError("a CUDA tensor took the plain twin")
+
+    def no_library():
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(rs, "rglru_scan_backward_torch", twin)
+    monkeypatch.setattr(rs, "_library", no_library)
+    with pytest.raises(RuntimeError, match="library unavailable"):
+        rs.rglru_scan_backward(_fake(g), _fake(a), _fake(h))
+
+
+@pytest.mark.parametrize("t,w,offset,which,path", [
+    (16, 64, 0, None, "tma"), (1, 100, 0, None, "tma"),
+    (16, 130, 0, None, "unaligned"), (16, 64, 1, 0, "unaligned"),
+    (16, 64, 2, 1, "unaligned"), (16, 64, 3, 2, "unaligned"),
+    (0, 64, 0, None, "unaligned")])
+def test_rglru_backward_path_reads_g_a_and_h(t, w, offset, which, path):
+    """The backward takes the TMA kernel only where TMA can read g, a and
+    h alike; one misaligned base among them sends it to the unaligned
+    kernel, and the private entry refuses TMA there without launching."""
+    views = [_scan_view(t, w, offset if i == which else 0) for i in range(3)]
+    assert rs.scan_path(*views) == path
+    if path == "unaligned":
+        before = dict(rs.rglru_scan_backward_cuda.launches_by_path)
+        fakes = [_fake(v) for v in views]
+        with pytest.raises(ValueError, match="TMA kernel needs"):
+            rs._rglru_scan_backward_launch(*fakes, "tma")
+        with pytest.raises(ValueError, match="path must be one of"):
+            rs._rglru_scan_backward_launch(*fakes, "flipped")
+        assert rs.rglru_scan_backward_cuda.launches_by_path == before
+
+
 @pytest.mark.parametrize("bad", ["dtype", "gqa", "causal-long-q", "window",
                                  "zero-keys"])
 def test_flash_wrapper_rejects_bad_inputs(bad):

@@ -65,8 +65,8 @@ def test_rglru_scan_grads_match_reference(shape):
 
 
 def test_rglru_scan_backward_is_the_twin_on_flipped_time():
-    """The backward's reverse recurrence is the forward scan on
-    time-flipped inputs, bit for bit (what the kernel runs on the card)."""
+    """RGLRUScan's backward on the CPU is the reverse recurrence written
+    out step by step, bit for bit."""
     rng = np.random.default_rng(4)
     u = torch.from_numpy(rng.standard_normal((2, 11, 8)).astype(np.float32))
     a = torch.from_numpy(rng.uniform(0, 1, (2, 11, 8)).astype(np.float32))
@@ -83,6 +83,74 @@ def test_rglru_scan_backward_is_the_twin_on_flipped_time():
     h_prev = torch.cat([torch.zeros((2, 1, 8)), h[:, :-1]], 1)
     assert torch.equal(tu.grad, gacc)
     assert torch.equal(ta.grad, gacc * h_prev)
+
+
+def _flip_backward(g, a, h):
+    """The port's backward before its own kernel: the forward scan's twin
+    on time-flipped g and a_next, flipped back; da = gacc * h_prev."""
+    a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], 1)
+    rev, _ = rs.rglru_scan_torch(g.flip(1).contiguous(),
+                                 a_next.flip(1).contiguous())
+    gacc = rev.flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    return gacc, gacc * h_prev
+
+
+def _shifted_backward(g, a, h):
+    """The backward as the TMA kernel reads it: a shifted one step later
+    and h one step earlier, the rows outside [0, T) read as 0 (a zero-fill
+    box). So a_T is 0 here where the twin takes 1; bit-equal all the same,
+    since gacc_T = +0 and 0 * (+0) = 1 * (+0) = +0."""
+    b, t, w = g.shape
+    a_next = torch.cat([a[:, 1:], torch.zeros((b, min(t, 1), w))], 1)
+    h_prev = torch.cat([torch.zeros((b, min(t, 1), w)), h[:, :-1]], 1)
+    du, acc = torch.empty_like(g), torch.zeros((b, w))
+    for i in reversed(range(t)):
+        acc = a_next[:, i] * acc + g[:, i]
+        du[:, i] = acc
+    return du, du * h_prev
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 8), (2, 64, 8), (2, 65, 8),
+                                   (2, 300, 8), (3, 17, 5), (0, 7, 8),
+                                   (2, 0, 8)])
+def test_rglru_scan_backward_twin_equals_flip_composition(shape):
+    """The backward's twin (a loop over time downward, the kernel's
+    rounding) equals the flip-based composition the port ran before its
+    backward kernel, and the kernel's reading with a_T = 0, torch.equal;
+    empty shapes give empty outputs."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    u, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for _ in range(2))
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, shape).astype(np.float32))
+    h, _ = rs.rglru_scan_torch(u, a)
+    du, da = rs.rglru_scan_backward_torch(g, a, h)
+    assert du.shape == da.shape == shape
+    for want_du, want_da in (_flip_backward(g, a, h),
+                             _shifted_backward(g, a, h)):
+        assert torch.equal(du, want_du) and torch.equal(da, want_da)
+    tu, ta = u.clone().requires_grad_(True), a.clone().requires_grad_(True)
+    rs.RGLRUScan.apply(tu, ta).backward(g)
+    assert torch.equal(tu.grad, du) and torch.equal(ta.grad, da)
+
+
+def test_rglru_scan_backward_op_on_meta_counts_no_flops():
+    """The registered backward gives the shapes on meta, and a flop counter
+    sees it (0 flops, as the forward's op) where autograd runs it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    m = torch.empty((2, 9, 6), device="meta")
+    du, da = rs.rglru_scan_backward(m, m, m)
+    assert du.device.type == da.device.type == "meta"
+    assert du.shape == da.shape == (2, 9, 6)
+    tu = torch.rand((2, 9, 6), requires_grad=True)
+    ta = torch.rand((2, 9, 6), requires_grad=True)
+    with FlopCounterMode(display=False) as fc:
+        rs.RGLRUScan.apply(tu, ta).sum().backward()
+    counts = fc.get_flop_counts()["Global"]
+    assert counts[torch.ops.repro_torch.rglru_scan_backward] == 0
+    assert fc.get_total_flops() == 0
+    with pytest.raises(ValueError, match="must share shape"):
+        rs.rglru_scan_backward(m, m, torch.empty((2, 8, 6), device="meta"))
 
 
 def _fake_cuda(requires_grad=True):

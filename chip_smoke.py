@@ -273,6 +273,15 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    and of ``flash_attention_op`` / ``rglru_scan_op`` (the dispatcher,
    then the same launcher), in turns direct, op, op, direct: CUDA-event
    ms, the launch path's host us and the profiler's host span.
+9c (after phase 9). Flash at the per-rank heads of tensor parallelism
+   over a 16-way ``model`` axis (``FLASH_TP_ARCHS``: H / 16 q heads over
+   Hkv / 16 kv heads, or the one kv head they group into where Hkv does
+   not divide; each layer kind's causal, window and soft-cap; B 1, T = S
+   = 4,096, bf16), each against the twin within ``FLASH_TOL`` and
+   ``BLOCK_REL_TOL``, its card ms beside its bound and beside the
+   whole-head call's on the same card; recorded in flash's
+   ``tp16_shapes`` (its launches, comparisons alone, in
+   ``tp16_launches``, not in ``launches``).
 12. (printed last) A text line with the three redesigned kernels' earlier
    times, copied from PERF.md and marked so, beside this run's; a
    ``{"training": ...}`` line with phases 13 to 16b; a ``{"kernels":
@@ -1840,18 +1849,9 @@ def flash_vs_plain(torch, dev):
                    for shape in ((b, h, tq, hd), (b, hkv, s, hd),
                                  (b, hkv, s, hd)))
         err, tol, rel, rel_tol = flash_check(torch, name, q, k, v, kw)
-        qpos = torch.arange(tq, device=dev)[:, None] + (s - tq)
-        kpos = torch.arange(s, device=dev)[None, :]
-        mask = torch.ones((tq, s), dtype=torch.bool, device=dev)
-        if kw.get("causal", True):
-            mask &= kpos <= qpos
-        if kw.get("window"):
-            mask &= kpos > qpos - kw["window"]
-        pairs = int(mask.sum()) * b * h
-        ops = 4 * hd * pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        op_ms = ops / (BF16_OPS if dtype != torch.float32 else F32_OPS) * 1e3
-        byte_ms = nbytes / HBM_BPS * 1e3
+        bound, bound_by, ops = flash_bound(torch, dev, b, h, tq, s, hd,
+                                           dtype, kw, nbytes)
         ms = median_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw))
         plain_ms = median_ms(torch, lambda: flash_attention_torch(q, k, v,
                                                                   **kw))
@@ -1859,6 +1859,7 @@ def flash_vs_plain(torch, dev):
         if "softcap" not in kw:
             kx, vx = (t[:, :, None].expand(b, hkv, h // hkv, s, hd)
                       .reshape(b, h, s, hd) for t in (k, v))
+            mask = flash_mask(torch, dev, tq, s, kw)
             lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, kx, vx, attn_mask=mask))
         path = kernel_path(dtype, hd)
@@ -1866,18 +1867,135 @@ def flash_vs_plain(torch, dev):
                       "tq": tq, "s": s, "hd": hd, "dtype": dt, **kw,
                       "tol": tol, "block_rel_err": rel,
                       "block_rel_tol": rel_tol, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": max(op_ms, byte_ms),
-                      "bound_by": "operations" if op_ms >= byte_ms
-                      else "bytes", "flop": ops, "bytes": nbytes})
+                      "library_ms": lib_ms, "bound_ms": bound,
+                      "bound_by": bound_by, "flop": ops, "bytes": nbytes})
         lib = "none (softcap)" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"flash {name} ({path}): B={b} H={h} Hkv={hkv} Tq={tq} S={s} "
               f"hd={hd} {dt} {kw}: within {tol} (max abs err {err:.3g}) "
               f"and block relative error {rel:.3g} <= {rel_tol}; "
               f"kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
-              f"{max(op_ms, byte_ms):.4f} ms ({ops / 1e9:.1f} GFLOP)",
+              f"{bound:.4f} ms ({ops / 1e9:.1f} GFLOP)",
               flush=True)
     return cases
+
+
+# Phase 9c: flash at the per-rank heads of each attention family under a
+# 16-way model axis (models/tensor_parallel.py): H / 16 q heads, over Hkv /
+# 16 kv heads where those divide (case A) or the kv heads the rank's q heads
+# group into (case B), each layer kind's mask at B 1, T = S = 4,096, bf16,
+# beside the whole-head call on the same card.  minicpm-2b and arctic
+# (H % 16 != 0, case C) compute every head on every rank: no new shape.
+FLASH_TP = 16
+FLASH_TP_T = 4096
+FLASH_TP_ARCHS = ("recurrentgemma-9b", "internlm2-1.8b", "gemma3-12b",
+                  "gemma2-27b", "qwen3-moe-235b-a22b",
+                  "llama-3.2-vision-11b", "whisper-medium")
+
+
+def tp_heads(cfg, tp: int) -> tuple[int, int]:
+    """(q heads, kv heads) of rank 0 under ``tp`` model ranks, as
+    ``blocks.attention_heads`` splits them (cases A and B)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    nq = h // tp
+    if kv % tp == 0:
+        return nq, kv // tp
+    return nq, len({j // (h // kv) for j in range(nq)})
+
+
+def tp_layer_kinds(cfg) -> list[tuple[str, dict]]:
+    """Each distinct attention mask of ``cfg``'s layers: (kind, options)."""
+    kinds = {b for unit, _ in cfg.stacks for b in unit}
+    cap = {"softcap": cfg.attn_softcap} if cfg.attn_softcap else {}
+    out = []
+    if "local" in kinds:
+        out.append(("local", {"causal": True, "window": cfg.window, **cap}))
+    if kinds & {"attn", "moe", "self+cross"}:
+        out.append(("global", {"causal": True, **cap}))
+    if kinds & {"cross", "self+cross"}:
+        out.append(("cross", {"causal": False, **cap}))
+    if cfg.encoder_stacks:
+        out.append(("encoder", {"causal": False, **cap}))
+    return out
+
+
+def flash_mask(torch, dev, tq, s, kw):
+    """The (Tq, S) mask of flash's options, queries end-aligned."""
+    qpos = torch.arange(tq, device=dev)[:, None] + (s - tq)
+    kpos = torch.arange(s, device=dev)[None, :]
+    mask = torch.ones((tq, s), dtype=torch.bool, device=dev)
+    if kw.get("causal", True):
+        mask &= kpos <= qpos
+    if kw.get("window"):
+        mask &= kpos > qpos - kw["window"]
+    return mask
+
+
+def flash_bound(torch, dev, b, h, tq, s, hd, dtype, kw, nbytes):
+    """(bound ms, what bounds it, FLOPs): the visible (query, key) pairs'
+    4 hd FLOPs each at the card's peak for ``dtype``, or ``nbytes`` at its
+    memory rate, whichever takes longer."""
+    ops = 4 * hd * int(flash_mask(torch, dev, tq, s, kw).sum()) * b * h
+    op_ms = ops / (BF16_OPS if dtype != torch.float32 else F32_OPS) * 1e3
+    byte_ms = nbytes / HBM_BPS * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms
+            else "bytes", ops)
+
+
+def flash_tp_shapes(torch, dev, card) -> list[dict]:
+    """Phase 9c: FLASH_TP_ARCHS' per-rank flash calls against the twin, and
+    their card time beside the whole-head call's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_torch)
+    out = []
+    t = FLASH_TP_T
+    for arch in FLASH_TP_ARCHS:
+        cfg = get_config(arch)
+        nq, nkv = tp_heads(cfg, FLASH_TP)
+        hd = cfg.hd
+        for kind, kw in tp_layer_kinds(cfg):
+            kw = {"window": None, "softcap": None, **kw,
+                  "scale": hd ** -0.5}
+            g = torch.Generator(device=dev).manual_seed(SEED + nq + hd)
+            q, k, v = (torch.randn(shape, generator=g, device=dev)
+                       .to(torch.bfloat16)
+                       for shape in ((1, nq, t, hd), (1, nkv, t, hd),
+                                     (1, nkv, t, hd)))
+            name = f"{arch} {kind} tp{FLASH_TP}"
+            err, tol, rel, rel_tol = flash_check(torch, name, q, k, v, kw)
+            ms = median_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw))
+            plain_ms = median_ms(torch, lambda: flash_attention_torch(
+                q, k, v, **kw), reps=5)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+            bound, by, ops = flash_bound(torch, dev, 1, nq, t, t, hd,
+                                         q.dtype, kw, nbytes)
+            qw, kw_, vw = (torch.randn(shape, generator=g, device=dev)
+                           .to(torch.bfloat16)
+                           for shape in ((1, cfg.n_heads, t, hd),
+                                         (1, cfg.n_kv_heads, t, hd),
+                                         (1, cfg.n_kv_heads, t, hd)))
+            whole_ms = median_ms(torch, lambda: flash_attention_cuda(
+                qw, kw_, vw, **kw))
+            del qw, kw_, vw
+            opts = {k: kw[k] for k in ("causal", "window", "softcap")}
+            out.append({"arch": arch, "layer": kind, "q_heads": nq,
+                        "kv_heads": nkv, "whole_q_heads": cfg.n_heads,
+                        "whole_kv_heads": cfg.n_kv_heads, "hd": hd,
+                        "t": t, **opts, "max_abs_err": err, "tol": tol,
+                        "block_rel_err": rel, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "flop": ops, "whole_ms": whole_ms,
+                        "whole_over_tp": whole_ms / ms})
+            print(f"flash {name}: {nq} / {nkv} heads of {cfg.n_heads} / "
+                  f"{cfg.n_kv_heads}, hd {hd}, T = S = {t}, bf16 {opts}: "
+                  f"within {tol} (max abs err {err:.3g}, block relative "
+                  f"error {rel:.3g} <= {rel_tol}); kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({100 * bound / ms:.0f} %), whole-head call "
+                  f"{whole_ms:.4f} ms ({whole_ms / ms:.2f}x) [{card}]",
+                  flush=True)
+    return out
 
 
 def rglru_vs_plain(torch, dev):
@@ -3521,6 +3639,14 @@ def main() -> int:
                              "fitting_search")
 
     flash_cases = flash_vs_plain(torch, dev)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    flash_tp = flash_tp_shapes(torch, dev, card)
+    flash_tp_launches = flash_attention_cuda.launches
+    print(f"flash at tp {FLASH_TP}: {len(flash_tp)} per-rank shapes, "
+          f"{flash_tp_launches} launches ({time.perf_counter() - t0:.1f} s) "
+          f"[{card}]", flush=True)
     rglru_cases = rglru_vs_plain(torch, dev)
     dispatch = op_dispatch(torch, dev)
     lm_consistency(torch, dev)
@@ -3622,6 +3748,8 @@ def main() -> int:
         "headline": {k: flash_head[k] for k in ("case", "b", "h", "hkv",
                                                 "tq", "s", "hd", "dtype")},
         "cases": flash_cases,
+        "tp16_launches": flash_tp_launches,
+        "tp16_shapes": flash_tp,
     }, {
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",

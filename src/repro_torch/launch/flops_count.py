@@ -20,9 +20,11 @@ Two quantities, as the dry-run records them:
   the same step traced without a mesh at the global shapes.
 * ``cost.flops`` is one rank's count on the mesh, the per-device count
   that the reference's ``cost_analysis`` gives.  It is one rank's trace:
-  its batch is the rank's rows, but every model rank computes the dense
-  products whole (the port has no tensor-parallel products yet), so dense
-  products repeat on every rank of ``model``.
+  its batch is the rank's rows, and the attention and MLP products are
+  its ``model`` share (``models/tensor_parallel.py``); the products the
+  port still computes whole on every ``model`` rank (the embedding and
+  unembedding, the recurrent families, attention whose heads do not
+  divide, k / v where the kv heads do not) repeat there.
 """
 from __future__ import annotations
 

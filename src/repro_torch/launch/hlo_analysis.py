@@ -24,11 +24,15 @@ Two accountants fill the same keys: ``<collective>_bytes`` and
   no trip count is needed, and the raw total equals the total.
 
 The two differ by design.  GSPMD plans its own collectives over the whole
-program; the port's are the ones its code issues: a gather of each
-layer's parameters (``act_ctx.materialize``), again under remat, a
-reduce-scatter of each gradient back into its placement, the reductions of
-``placed_like`` and of the optimizer's norm.  So the port's numbers are
-not held to the reference's.
+program; the port's are the ones its code issues: a gather over the data
+axes of each layer's parameters (``act_ctx.materialize``; the attention and
+MLP weights keep their ``model`` shard), again under remat, the two sums
+over ``model`` a layer of the tensor-parallel attention and MLP
+(``models/tensor_parallel.py``; in the backward, the sums of the gradients
+that enter them), at decode over a ring split by length the gather of the
+q heads and the log-sum-exp combine, a reduce-scatter of each gradient
+back into its placement, the reductions of ``placed_like`` and of the
+optimizer's norm.  So the port's numbers are not held to the reference's.
 
 This module is host code: the dispatch mode is built when a step is
 traced, and nothing here imports torch at module scope.

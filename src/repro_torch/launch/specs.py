@@ -16,11 +16,20 @@ as the output placements say: the next tokens as a DTensor over the rows,
 the caches as DTensors placed as they came, the train step's parameters and
 state in place and its metrics as plain scalars.
 
-One departure from the reference: a cache leaf's batch dim is over the
-data-parallel axes as ``cache_spec`` says, but the kv-head or cache-length
-dim that ``cache_spec`` puts over ``model`` stays replicated, because each
-model rank computes attention whole (tensor-parallel products are not
-ported yet).
+Under the ``2d`` and ``tp`` policies the attention and MLP products are
+tensor-parallel over ``model`` (``models/tensor_parallel.py``), and the
+attention caches (``k``, ``v``, ``pos``, and cross-attention's ``k`` and
+``v``) take the ``model`` entries ``cache_spec`` gives them: kv heads, or
+the ring's (the memory's) length where the heads do not divide.  Three
+departures from the reference remain:
+
+* the recurrent states (RG-LRU ``conv`` and ``h``, the mLSTM's and the
+  sLSTM's) stay whole over ``model``, whose blocks are not tensor-parallel
+  yet: their ``model`` entries are stripped;
+* attention whose q heads do not divide over ``model`` (minicpm-2b's 36,
+  arctic's 56 at 16) computes every head on every model rank with its
+  weights gathered, where GSPMD splits those columns inside a head;
+* ``zero3`` spends ``model`` on the batch, so no cache entry names it.
 """
 from __future__ import annotations
 
@@ -36,11 +45,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.step import make_train_step
-from repro_torch.tree import tree_map
+from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
+                              tree_unflatten)
 
 from . import sharding as sh
 
 META = torch.device("meta")
+# the attention caches' leaves, which keep their model entries
+ATTN_CACHE = ("k", "v", "pos")
 
 
 def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16):
@@ -163,9 +175,12 @@ def make_step_and_specs(arch: str | ModelConfig, shape: str | ShapeSpec,
                                  "loss": repl})
         return step, args, in_pl, out_pl, donate_argnums
 
-    # the cache's model entries stay replicated: see the module docstring
-    c_pl = pl(tree_map(lambda s: sh.strip_axis(s, sh.TP),
-                       sh.cache_shardings(mesh, shapes["caches"], b)))
+    # the recurrent states' model entries are stripped: see the docstring
+    c_pl = pl(tree_unflatten(shapes["caches"], [
+        spec if policy != "zero3" and path.rsplit("/", 1)[-1] in ATTN_CACHE
+        else sh.strip_axis(spec, sh.TP)
+        for path, spec in zip(tree_paths(shapes["caches"]), tree_leaves(
+            sh.cache_shardings(mesh, shapes["caches"], b)))]))
     tok_pl = data_pl(shapes["tokens"])
     if kind == "prefill":
         step = _bind(step, mesh, policy, b, row_pl,

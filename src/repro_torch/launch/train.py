@@ -26,8 +26,9 @@ NCCL on cards, ``gloo`` on the CPU.  Parameters and AdamW state are
 DTensors placed by the sharding rules, each rank takes its rows of every
 global batch, and the step runs under ``activation_sharding(mesh)``: a
 layer gathers its parameters as it runs, and the ``model`` axis splits the
-MoE experts (the dense products are computed on every model rank, where
-GSPMD would split them).  The first rank prints and writes the heartbeat,
+MoE experts and the attention and MLP products (``models/tensor_parallel``;
+the embedding, the unembedding and the recurrent blocks are computed on
+every model rank, where GSPMD would split them).  The first rank prints and writes the heartbeat,
 the metrics and the checkpoints.  f32 matmuls keep torch's default
 precision (no TF32), so ``--dtype float32`` means what it means in the
 reference.

@@ -178,6 +178,43 @@ def local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def model_split_dim(t) -> int | None:
+    """The dim of DTensor ``t`` that its placement splits over a ``model``
+    mesh dim larger than 1, or None."""
+    if not isinstance(t, DTensor) or "model" not in \
+            t.device_mesh.mesh_dim_names:
+        return None
+    i = t.device_mesh.mesh_dim_names.index("model")
+    p = t.placements[i]
+    return p.dim if p.is_shard() and t.device_mesh.size(i) > 1 else None
+
+
+_CACHE_SPLIT = None
+
+
+@contextlib.contextmanager
+def rank_caches(caches):
+    """This rank's shards of ``caches`` (placed DTensors under a mesh) as
+    plain tensors, for a step to compute on; under it, :func:`cache_split`
+    gives each leaf's dim split over ``model``, in the same layout, for
+    the attention blocks to read.  ``caches`` itself without a mesh."""
+    global _CACHE_SPLIT
+    if _MESH is None:
+        yield caches
+        return
+    prev = _CACHE_SPLIT
+    _CACHE_SPLIT = tree_map(model_split_dim, caches)
+    try:
+        yield tree_map(local, caches)
+    finally:
+        _CACHE_SPLIT = prev
+
+
+def cache_split():
+    """The caches' dims over ``model`` (see :func:`rank_caches`), or None."""
+    return _CACHE_SPLIT
+
+
 def distribute(full: torch.Tensor, m, placements) -> DTensor:
     """This rank's shard of ``full`` (every rank holds the same logical
     tensor) as a DTensor over ``m`` with ``placements``; a shard smaller

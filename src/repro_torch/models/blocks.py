@@ -21,6 +21,12 @@ query-chunked ``_attend`` in torch ops.  Decode attention, the one-step
 RG-LRU update, the MoE dispatch and the xLSTM recurrences stay plain torch,
 as the reference keeps them in XLA (a Python loop stands for ``lax.scan``).
 
+Under a mesh the attention, MLP and MoE blocks take their parameters as
+the model holds them (DTensors) and gather them themselves: each keeps the
+``model`` shard of the weights it splits over that axis (the MLP's hidden
+units, attention's heads by :func:`attention_heads`, MoE's experts) and
+sums its partial output over ``model`` (``tensor_parallel``).
+
 Types follow JAX's promotion: :func:`mm` multiplies mixed-type operands in
 the wider type (f32 caches meet bf16 weights at decode), and elementwise ops
 promote as torch does for tensors of one kind, which is the same rule.
@@ -39,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import RGLRUScan
 
-from . import act_ctx
+from . import act_ctx, tensor_parallel
 from .config import ModelConfig
 
 # make(shape, dtype) -> a new N(0, 0.02) parameter; init_params supplies it
@@ -52,6 +58,9 @@ class Ctx:
     pos: torch.Tensor | None = None    # (B, T) absolute positions
     memory: torch.Tensor | None = None  # (B, M, D) cross-attention source
     cache: Any = None                  # per-layer cache dict (prefill/decode)
+    # cache leaf name -> its dim split over ``model`` (tensor_parallel);
+    # None, or a name left out: whole on every model rank
+    split: Optional[dict] = None
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -180,17 +189,176 @@ def _attend_prefill(q, k, v, cfg: ModelConfig, causal: bool,
     return out.transpose(1, 2).reshape(b, t, h * hd).to(v.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """The heads one rank computes: q heads ``[q0, q0 + nq)`` and kv heads
+    ``[k0, k0 + nk)``.  ``split``: the q heads are split over ``model``, so
+    the block's output projection is row-parallel and its result a partial
+    sum."""
+    q0: int
+    nq: int
+    k0: int
+    nk: int
+    split: bool
+
+
+def attention_heads(p: dict, cfg: ModelConfig) -> Heads:
+    """How an attention block with parameters ``p`` (as the model holds
+    them) splits its heads over ``model`` (``tensor_parallel``), in the
+    reference's ``2d`` / ``tp`` placements:
+
+    * A, ``H`` and ``Hkv`` divide over the ``tp`` ranks: each computes its
+      ``H / tp`` q and ``Hkv / tp`` kv heads (``wq`` / ``wk`` / ``wv``
+      column-parallel, ``wo`` row-parallel);
+    * B, ``H`` divides and ``Hkv`` does not: the q heads split as in A, and
+      every rank computes every kv head (``wk`` and ``wv``, which the rule
+      splits inside a head, gathered);
+    * C, ``H`` does not divide: every rank computes every head, its weights
+      gathered.  A departure from GSPMD, which splits those columns inside
+      a head.
+
+    Without tensor parallelism every head is the rank's, as in C."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    tp = tensor_parallel.size()
+    if (tp == 1 or h % tp
+            or tensor_parallel.split_dim("wq", p["wq"]) != 1
+            or tensor_parallel.split_dim("wo", p["wo"]) != 0):
+        return Heads(0, h, 0, kv, False)
+    r = tensor_parallel.rank()
+    nq = h // tp
+    if (kv % tp == 0 and tensor_parallel.split_dim("wk", p["wk"]) == 1
+            and tensor_parallel.split_dim("wv", p["wv"]) == 1):
+        return Heads(r * nq, nq, r * (kv // tp), kv // tp, True)
+    return Heads(r * nq, nq, 0, kv, True)
+
+
+def _attention_params(p: dict, heads: Heads, cfg: ModelConfig) -> dict:
+    """``p`` as local tensors for ``heads``: the split weights keep their
+    ``model`` shard; ``wk`` / ``wv`` gathered where every kv head is
+    computed, and with ``q_norm`` / ``k_norm`` their gradient summed over
+    ``model`` (each rank back-propagates through its own q heads only)."""
+    if not heads.split:
+        return act_ctx.materialize(p)
+    keep = ("wq", "wo") + (("wk", "wv") if heads.nk < cfg.n_kv_heads
+                           else ())
+    return tensor_parallel.shards(p, keep=keep,
+                                  partial=("wk", "wv", "q_norm", "k_norm"))
+
+
+def _kv_for(k, v, heads: Heads, cfg: ModelConfig):
+    """Of k, v ``(B, S, nk, hd)`` holding kv heads ``[k0, k0 + nk)``, the
+    heads that q heads ``[q0, q0 + nq)`` group into, in the grouping
+    ``_attend_dense`` and flash read (q head ``j`` over kv head ``j // (nq /
+    kv)``): a slice where the q heads split evenly over them, else one kv
+    head for each q head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = heads.q0 // g, (heads.q0 + heads.nq - 1) // g + 1
+    if (lo, hi) == (heads.k0, heads.k0 + heads.nk):
+        return k, v
+    if hi - lo == 1 or (heads.q0 % g == 0 and heads.nq % g == 0):
+        sl = slice(lo - heads.k0, hi - heads.k0)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.arange(heads.q0, heads.q0 + heads.nq, device=k.device) // g
+    return k[:, :, idx - heads.k0], v[:, :, idx - heads.k0]
+
+
+def _project_out(att: torch.Tensor, wo: torch.Tensor, heads: Heads
+                 ) -> torch.Tensor:
+    """``att @ wo``; summed over ``model`` where the heads are split."""
+    out = mm(att, wo)
+    return tensor_parallel.reduce(out) if heads.split else out
+
+
+def _split_lo(ctx: Ctx, name: str, buf: torch.Tensor) -> Optional[int]:
+    """Where this rank's share of cache leaf ``name`` begins, where the
+    leaf's length (dim 1) is split over ``model``; else None."""
+    if not ctx.split or ctx.split.get(name) != 1:
+        return None
+    return tensor_parallel.rank() * buf.shape[1]
+
+
+def _ring_split(ctx: Ctx, cache: dict, heads: Heads, cfg: ModelConfig
+                ) -> tuple[int, Optional[int], Optional[int]]:
+    """(the ring's whole length, where this rank's share of k / v begins,
+    where its share of pos begins; None where not split by length).  The
+    cache's kv heads must be split over ``model`` exactly where the block
+    computes its own kv heads (case A)."""
+    by_heads = bool(ctx.split) and ctx.split.get("k") == 2
+    if by_heads != (heads.nk < cfg.n_kv_heads):
+        raise ValueError(f"a cache placed {ctx.split} over 'model' does not "
+                         f"fit attention computing kv heads [{heads.k0}, "
+                         f"{heads.k0 + heads.nk}) of {cfg.n_kv_heads}")
+    lo = _split_lo(ctx, "k", cache["k"])
+    n = cache["k"].shape[1] * (1 if lo is None else tensor_parallel.size())
+    return n, lo, _split_lo(ctx, "pos", cache["pos"]) if "pos" in cache \
+        else None
+
+
+def _whole_positions(cpos: torch.Tensor) -> torch.Tensor:
+    """The ring's positions gathered over ``model``: the mask of a ring
+    whose k and v are split by heads reads every slot's position, and the
+    ``pos`` leaf is split by length (``cache_spec``)."""
+    return tensor_parallel.gather(cpos, 1)
+
+
+def _attend_split_ring(q, k, v, mask, cfg: ModelConfig, heads: Heads
+                       ) -> torch.Tensor:
+    """Decode attention over keys whose slots (a ring's, or the memory's
+    positions) are split by length over ``model``: this rank holds its share
+    of them for every kv head.  It gathers the q heads it lacks (``B T H
+    hd`` activations, never ``wq``), computes every head's attention over
+    its own slots, and the ranks' partials combine by their log-sum-exp:
+    the maxima in one all-reduce, the outputs and sums rescaled to the
+    overall max in another.  A rank with no visible key (an empty or
+    windowed-out share) adds zero.  q: ``(B, T, nq, hd)``; k, v: ``(B,
+    S_loc, Hkv, hd)``; mask: ``(B, T, S_loc)`` or ``(T, S_loc)``.  Returns
+    this rank's heads, ``(B, T, nq * hd)``."""
+    if heads.split:
+        q = tensor_parallel.gather(q, 2)
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, t, kv, h // kv, hd)
+    s = torch.einsum("btkgd,bskd->bkgts", qg.float(),
+                     k.float()) * (cfg.hd ** -0.5)
+    if cfg.attn_softcap is not None:
+        s = torch.tanh(s / cfg.attn_softcap) * cfg.attn_softcap
+    m = (mask if mask.dim() == 3 else mask[None])[:, None, None]
+    s = torch.where(m, s, -1e30)
+    mx = s.amax(dim=-1, keepdim=True)
+    e = torch.where(m, torch.exp(s - mx), 0.0)
+    o = torch.einsum("bkgts,bskd->bkgtd", e, v.float())
+    w = torch.exp(mx - tensor_parallel.all_reduce(mx, dist.ReduceOp.MAX))
+    acc = tensor_parallel.all_reduce(
+        torch.cat([o * w, e.sum(dim=-1, keepdim=True) * w], dim=-1))
+    o, den = acc[..., :hd], acc[..., hd:]
+    out = (o / torch.where(den > 0, den, 1.0)).permute(0, 3, 1, 2, 4)
+    out = out.reshape(b, t, h, hd)[:, :, heads.q0: heads.q0 + heads.nq]
+    return out.reshape(b, t, heads.nq * hd).to(v.dtype)
+
+
 def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
                     causal: bool = True, window: Optional[int] = None,
                     cross: bool = False):
-    """Self- or cross-attention with ring caches for prefill/decode."""
+    """Self- or cross-attention with ring caches for prefill/decode.
+
+    ``p``: the block's parameters as the model holds them (DTensors under
+    a mesh), gathered here for this rank's heads (:func:`attention_heads`).
+    ``ctx.split`` says which cache leaves are split over ``model`` and on
+    which dim (``launch.sharding.cache_spec``): k and v by heads in case A,
+    else by length where the ring divides (a rank writes only the slots it
+    holds, and decode combines the ranks' partial attention,
+    :func:`_attend_split_ring`), and ``pos`` by length where it divides."""
+    heads = attention_heads(p, cfg)
+    p = _attention_params(p, heads, cfg)
+    if heads.split:
+        x = tensor_parallel.copy(x)
     b, t, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = mm(x, p["wq"]).reshape(b, t, h, hd)
+    hd = cfg.hd
+    q = mm(x, p["wq"]).reshape(b, t, heads.nq, hd)
     if cross:
-        return _apply_cross(p, q, cfg, ctx)
-    k = mm(x, p["wk"]).reshape(b, t, kv, hd)
-    v = mm(x, p["wv"]).reshape(b, t, kv, hd)
+        return _apply_cross(p, q, cfg, ctx, heads)
+    k = mm(x, p["wk"]).reshape(b, t, heads.nk, hd)
+    v = mm(x, p["wv"]).reshape(b, t, heads.nk, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -202,82 +370,113 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     if ctx.mode == "train" or ctx.cache is None or ctx.mode == "prefill":
         # batch-uniform positions 0..T-1: the kernel's end-aligned mask, or
         # under autograd the reference's chunked attention on that mask
-        if _needs_grad(q, k, v):
-            att = _attend(q, k, v, _train_mask(t, causal, window, x.device),
-                          cfg)
+        kq, vq = _kv_for(k, v, heads, cfg)
+        if _needs_grad(q, kq, vq):
+            att = _attend(q, kq, vq,
+                          _train_mask(t, causal, window, x.device), cfg)
         else:
-            att = _attend_prefill(q, k, v, cfg, causal, window)
-        out = mm(att, p["wo"])
+            att = _attend_prefill(q, kq, vq, cfg, causal, window)
+        out = _project_out(att, p["wo"], heads)
         if ctx.mode != "prefill" or ctx.cache is None:
             return out, None
         # fill the ring with the last min(T, L) tokens for subsequent decode
         # (a ring cannot hold the full prefill when T > L; queries above
         #  already attended the exact windowed mask)
         cache = ctx.cache
-        L = cache["k"].shape[1]
+        L, lo_k, lo_pos = _ring_split(ctx, cache, heads, cfg)
         tw = min(t, L)
         slots = pos[:, t - tw:] % L
         new_cache = {
-            "k": _ring_write(cache["k"], k[:, t - tw:], slots),
-            "v": _ring_write(cache["v"], v[:, t - tw:], slots),
-            "pos": _ring_write(cache["pos"], pos[:, t - tw:], slots),
+            "k": _ring_write(cache["k"], k[:, t - tw:], slots, lo_k),
+            "v": _ring_write(cache["v"], v[:, t - tw:], slots, lo_k),
+            "pos": _ring_write(cache["pos"], pos[:, t - tw:], slots, lo_pos),
         }
         return out, new_cache
 
     # decode: ring cache (B, L, Kv, hd) + cache positions (B, L)
     cache = ctx.cache
-    L = cache["k"].shape[1]
+    L, lo_k, lo_pos = _ring_split(ctx, cache, heads, cfg)
     slots = pos % L                                          # (B, T)
-    ck = _ring_write(cache["k"], k, slots)
-    cv = _ring_write(cache["v"], v, slots)
-    cpos = _ring_write(cache["pos"], pos, slots)
+    ck = _ring_write(cache["k"], k, slots, lo_k)
+    cv = _ring_write(cache["v"], v, slots, lo_k)
+    cpos = _ring_write(cache["pos"], pos, slots, lo_pos)
     new_cache = {"k": ck, "v": cv, "pos": cpos}
     qp = pos[:, :, None]
-    kp = cpos[:, None, :]                                    # (B,1,L)
+    kp = (_whole_positions(cpos) if lo_pos is not None and lo_k is None
+          else cpos)[:, None, :]                             # (B,1,L)
     mask = kp >= 0
     if causal:
         mask &= kp <= qp
     if window is not None:
         mask &= kp > qp - window
-    return mm(_attend_dense(q, ck, cv, mask, cfg), p["wo"]), new_cache
+    if lo_k is not None:
+        att = _attend_split_ring(q, ck, cv, mask, cfg, heads)
+    else:
+        kq, vq = _kv_for(ck, cv, heads, cfg)
+        att = _attend_dense(q, kq, vq, mask, cfg)
+    return _project_out(att, p["wo"], heads), new_cache
 
 
-def _apply_cross(p: dict, q: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
-    """Cross-attention of q (B, T, H, hd) over the memory: no RoPE, every
+def _apply_cross(p: dict, q: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
+                 heads: Heads):
+    """Cross-attention of q (B, T, nq, hd) over the memory: no RoPE, every
     key visible.  Keys and values are projected from ``ctx.memory`` at
-    prefill and in train mode (and become the cache), and read from the
-    cache at decode; qk-norm, where configured, applies on every read, as
-    the reference applies it."""
+    prefill and in train mode (and become the cache: this rank's share of
+    the memory's positions where the cache is split by length), and read
+    from the cache at decode; qk-norm, where configured, applies on every
+    read, as the reference applies it."""
     b, t = q.shape[:2]
-    kv, hd = cfg.n_kv_heads, cfg.hd
-    if ctx.cache is not None and "k" in ctx.cache and ctx.mode == "decode":
-        k, v = ctx.cache["k"], ctx.cache["v"]
-        new_cache = ctx.cache
+    hd = cfg.hd
+    cache = ctx.cache
+    lo = None if cache is None else _ring_split(ctx, cache, heads, cfg)[1]
+    decode = cache is not None and "k" in cache and ctx.mode == "decode"
+    if decode:
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
     else:
         mem = ctx.memory
-        k = mm(mem, p["wk"]).reshape(b, -1, kv, hd)
-        v = mm(mem, p["wv"]).reshape(b, -1, kv, hd)
+        if heads.split:
+            mem = tensor_parallel.copy(mem)
+        k = mm(mem, p["wk"]).reshape(b, -1, heads.nk, hd)
+        v = mm(mem, p["wv"]).reshape(b, -1, heads.nk, hd)
         new_cache = {"k": k, "v": v}
+        if lo is not None:
+            own = slice(lo, lo + cache["k"].shape[1])
+            new_cache = {"k": k[:, own].contiguous(),
+                         "v": v[:, own].contiguous()}
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if ctx.mode == "decode" or _needs_grad(q, k, v):
-        mask = torch.ones((t, k.shape[1]), dtype=torch.bool, device=q.device)
-        out = _attend(q, k, v, mask, cfg)      # one query at decode: dense
+    mask = torch.ones((t, k.shape[1]), dtype=torch.bool, device=q.device)
+    if decode and lo is not None:
+        out = _attend_split_ring(q, k, v, mask, cfg, heads)
     else:
-        out = _attend_prefill(q, k, v, cfg, causal=False, window=None)
-    return mm(out, p["wo"]), new_cache
+        kq, vq = _kv_for(k, v, heads, cfg)
+        if decode or _needs_grad(q, kq, vq):
+            out = _attend(q, kq, vq, mask, cfg)  # one query at decode: dense
+        else:
+            out = _attend_prefill(q, kq, vq, cfg, causal=False, window=None)
+    return _project_out(out, p["wo"], heads), new_cache
 
 
-def _ring_write(buf: torch.Tensor, vals: torch.Tensor, slots: torch.Tensor
-                ) -> torch.Tensor:
+def _ring_write(buf: torch.Tensor, vals: torch.Tensor, slots: torch.Tensor,
+                lo: Optional[int] = None) -> torch.Tensor:
     """buf: (B, L, ...), vals: (B, T, ...), slots: (B, T) -> a new buffer
     with ``vals`` scattered to ``slots`` (cast to buf's type); ``buf`` is
-    left as it was, as the reference's functional update leaves it."""
-    out = buf.clone()
+    left as it was, as the reference's functional update leaves it.
+    ``lo``: ``buf`` holds only the ring's slots ``[lo, lo + L)`` (a rank's
+    share of a ring split by length), and writes to others are dropped."""
     bi = torch.arange(buf.shape[0], device=buf.device)[:, None]
-    out[bi, slots] = vals.to(buf.dtype)
-    return out
+    if lo is None:
+        out = buf.clone()
+        out[bi, slots] = vals.to(buf.dtype)
+        return out
+    n = buf.shape[1]
+    local = slots - lo
+    out = torch.cat([buf, buf[:, :1]], dim=1)     # slot n takes the drops
+    out[bi, torch.where((local >= 0) & (local < n), local, n)] = \
+        vals.to(buf.dtype)
+    return out[:, :n].contiguous()
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, length: int,
@@ -299,6 +498,19 @@ def init_mlp(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
 
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The gated MLP.  ``p``: as the model holds it (DTensors under a
+    mesh).  Where the rule splits ``wi`` / ``wg`` by columns and ``wo`` by
+    rows over ``model`` (``tensor_parallel``), each model rank computes its
+    ``d_ff / tp`` hidden units and the partial outputs are summed over
+    ``model``; else the weights are gathered whole."""
+    if (tensor_parallel.split_dim("wi", p["wi"]) == 1
+            and tensor_parallel.split_dim("wg", p["wg"]) == 1
+            and tensor_parallel.split_dim("wo", p["wo"]) == 0):
+        w = tensor_parallel.shards(p, keep=("wi", "wg", "wo"))
+        x = tensor_parallel.copy(x)
+        return tensor_parallel.reduce(
+            mm(F.silu(mm(x, w["wg"])) * mm(x, w["wi"]), w["wo"]))
+    p = act_ctx.materialize(p)
     return mm(F.silu(mm(x, p["wg"])) * mm(x, p["wi"]), p["wo"])
 
 
@@ -340,40 +552,8 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
             # would dwarf the few active tokens (the reference's reason)
             and x.shape[1] > 1):
         return _apply_moe_shardmap(p, x, cfg, mesh)
-    return _apply_moe_xla(act_ctx.materialize(p), x, cfg)
-
-
-class _ModelCopy(torch.autograd.Function):
-    """Enter the expert-parallel region: the identity forward (the tokens
-    are the same on every model rank); the backward sums the gradient over
-    ``model``, since each rank's covers only its own experts' share."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _ModelSum(torch.autograd.Function):
-    """Leave it: the partial outputs summed over ``model``; the backward is
-    the identity (each rank already holds the whole output's gradient).
-    ``torch.distributed.nn``'s all-reduce would sum the gradient again."""
-
-    @staticmethod
-    def forward(ctx, y, group):
-        y = y.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+    return _apply_moe_xla({k: v if k == "dense" else act_ctx.materialize(v)
+                           for k, v in p.items()}, x, cfg)
 
 
 def _bucket_and_run(xt, w, ids, wi, wg, wo, n_buckets: int, cap: int,
@@ -416,7 +596,8 @@ def _apply_moe_shardmap(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
     but back-propagates through its own experts' weights only), the local
     tokens routed and bucketed for the rank's experts alone, their outputs
     summed over ``model``.  Capacity is per rank, from its local tokens, as
-    in the reference.  The dense residual runs outside, on every rank."""
+    in the reference.  The dense residual runs outside, tensor-parallel as
+    every MLP (:func:`apply_mlp`)."""
     m = cfg.moe
     b, s, d = x.shape
     tp = act_ctx.axis_size(mesh, "model")
@@ -429,7 +610,7 @@ def _apply_moe_shardmap(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
                                   keep=("model",))
     router = act_ctx.materialize(p["router"], partial=("model",))
     mi = mesh.get_local_rank("model")
-    xt = _ModelCopy.apply(x, group).reshape(-1, d)
+    xt = tensor_parallel.copy(x, group).reshape(-1, d)
     probs = torch.softmax(mm(xt.float(), router.to(x.dtype)), dim=-1)
     w, ids = torch.topk(probs, k, dim=-1)                    # (t_loc, k)
     w = w / torch.sum(w, dim=-1, keepdim=True)
@@ -439,9 +620,9 @@ def _apply_moe_shardmap(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
                             e_loc)
     out = _bucket_and_run(xt, w, ids, experts["wi"], experts["wg"],
                           experts["wo"], e_loc, cap, bucket_of, x.dtype)
-    out = _ModelSum.apply(out, group).reshape(x.shape)
+    out = tensor_parallel.reduce(out, group).reshape(x.shape)
     if m.dense_residual:
-        out = out + apply_mlp(act_ctx.materialize(p["dense"]), x)
+        out = out + apply_mlp(p["dense"], x)
     return out
 
 

@@ -14,7 +14,9 @@ the layers in a Python loop.  Under ``activation_sharding(mesh)`` the
 parameters are DTensors, and each layer gathers its own just before it
 computes (``act_ctx.materialize``; the embedding, unembedding and final
 norms once a call), as the reference's layers read their shards through
-GSPMD; each rank runs its own batch rows.
+GSPMD, except that the attention and MLP blocks keep the ``model`` shard of
+the weights they split (``models/tensor_parallel.py``); each rank runs its
+own batch rows.
 Where autograd records a train-mode forward, each layer runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``)
 unless ``remat=False``.  ``enc_stacks`` and caches have the same layout.
@@ -164,12 +166,14 @@ def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     if btype == "self+cross":
         # whisper's decoder layer: no post-norms, as in the reference
         sub_self = Ctx(ctx.mode, ctx.pos, ctx.memory,
-                       None if ctx.cache is None else ctx.cache["self"])
+                       None if ctx.cache is None else ctx.cache["self"],
+                       None if ctx.split is None else ctx.split["self"])
         h = blocks.rmsnorm(p["ln1"], x, eps)
         h, c_self = blocks.apply_attention(p["attn"], h, cfg, sub_self)
         x = x + scale * h
         sub_x = Ctx(ctx.mode, ctx.pos, ctx.memory,
-                    None if ctx.cache is None else ctx.cache["cross"])
+                    None if ctx.cache is None else ctx.cache["cross"],
+                    None if ctx.split is None else ctx.split["cross"])
         h = blocks.rmsnorm(p["lnc"], x, eps)
         h, c_cross = blocks.apply_attention(p["xattn"], h, cfg, sub_x,
                                             cross=True)
@@ -194,13 +198,20 @@ def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     raise ValueError(btype)
 
 
+_SELF_GATHERED = ("attn", "xattn", "mlp", "moe")
+
+
 def _layer_params(lp: dict) -> dict:
     """One layer's parameters as its blocks compute with them: under a mesh
-    gathered into local tensors (``act_ctx.materialize``), except a MoE
-    block's, which ``blocks.apply_moe`` gathers for the path it takes."""
+    gathered into local tensors (``act_ctx.materialize``), except the
+    attention, MLP and MoE blocks', which ``blocks.apply_attention``,
+    ``apply_mlp`` and ``apply_moe`` gather themselves: each keeps the
+    ``model`` shard of the weights it splits (``models/tensor_parallel``).
+    A checkpointed unit calls this again when it is recomputed, and its
+    blocks split as they did the first time."""
     if act_ctx.mesh() is None:
         return lp
-    return {bk: {k: v if k == "moe" else act_ctx.materialize(v)
+    return {bk: {k: v if k in _SELF_GATHERED else act_ctx.materialize(v)
                  for k, v in bp.items()} for bk, bp in lp.items()}
 
 
@@ -214,16 +225,18 @@ def _top_params(params: Params) -> Params:
 
 
 def _apply_unit(x: torch.Tensor, unit, lp: dict, lc, cfg: ModelConfig,
-                ctx_proto: Ctx):
+                ctx_proto: Ctx, split=None):
     """One repeat of a unit: its blocks in order.  Returns (x, caches).
     Under a mesh its parameters are gathered here, so that a checkpointed
-    layer gathers them again when it is recomputed."""
+    layer gathers them again when it is recomputed.  ``split``: the caches'
+    dims over ``model`` (``act_ctx.cache_split``), in ``lc``'s layout."""
     x = act_ctx.constrain_btd(x)
     lp = _layer_params(lp)
     ncs = {}
     for bi, bt in enumerate(unit):
         ctx = Ctx(ctx_proto.mode, ctx_proto.pos, ctx_proto.memory,
-                  None if lc is None else lc[f"b{bi}"])
+                  None if lc is None else lc[f"b{bi}"],
+                  None if split is None else split[f"b{bi}"])
         x, ncs[f"b{bi}"] = apply_block(bt, lp[f"b{bi}"], x, cfg, ctx)
     return act_ctx.constrain_btd(x), ncs
 
@@ -240,6 +253,7 @@ def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
     unit) runs under ``torch.utils.checkpoint`` and keeps no caches (the
     train mode's, which ``forward`` drops)."""
     new_caches = {}
+    split = None if caches is None else act_ctx.cache_split()
     for si, (unit, r) in enumerate(stacks):
         layers = stack_params[f"s{si}"]
         out = []
@@ -250,7 +264,9 @@ def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
                 ncs = {f"b{bi}": None for bi in range(len(unit))}
             else:
                 lc = None if caches is None else caches[f"s{si}"][li]
-                x, ncs = _apply_unit(x, unit, layers[li], lc, cfg, ctx_proto)
+                ls = None if split is None else split[f"s{si}"][li]
+                x, ncs = _apply_unit(x, unit, layers[li], lc, cfg, ctx_proto,
+                                     ls)
             out.append(ncs)
         new_caches[f"s{si}"] = out
     return x, new_caches

@@ -4,8 +4,11 @@
 Under ``activation_sharding(mesh)`` the parameters and the caches are
 DTensors (``launch.specs.make_step_and_specs`` places them) and the tokens
 are this rank's rows.  A cache leaf's batch dim is over the data-parallel
-axes, so a rank computes on its own rows' caches (``act_ctx.local``), and
-the new caches come back placed as the old ones (``act_ctx.like``).
+axes, and an attention cache's kv heads or length over ``model``
+(``launch.sharding.cache_spec``), so a rank computes on its own shard of
+each cache (``act_ctx.rank_caches``, which also tells the attention blocks
+how each leaf is split), and the new caches come back placed as the old
+ones (``act_ctx.like``).
 """
 from __future__ import annotations
 
@@ -14,19 +17,15 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
 
 
-def _rank_caches(caches):
-    return caches if act_ctx.mesh() is None else \
-        tree_map(act_ctx.local, caches)
-
-
 def _placed_as(old, new):
     return new if act_ctx.mesh() is None else tree_map(act_ctx.like, old, new)
 
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, tokens, caches, memory=None):
-        logits, new = prefill(params, cfg, tokens, _rank_caches(caches),
-                              memory=memory, last_only=True)
+        with act_ctx.rank_caches(caches) as mine:
+            logits, new = prefill(params, cfg, tokens, mine, memory=memory,
+                                  last_only=True)
         return logits[:, -1].argmax(dim=-1).int(), _placed_as(caches, new)
     return prefill_step
 
@@ -34,7 +33,7 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig):
     def decode_fn(params, tokens, pos, caches):
         """tokens: (B,1) current token; pos: (B,) its absolute position."""
-        logits, new = decode_step(params, cfg, tokens, pos,
-                                  _rank_caches(caches))
+        with act_ctx.rank_caches(caches) as mine:
+            logits, new = decode_step(params, cfg, tokens, pos, mine)
         return logits[:, -1].argmax(dim=-1).int(), _placed_as(caches, new)
     return decode_fn

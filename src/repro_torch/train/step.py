@@ -4,8 +4,12 @@ Without a mesh it is one device's step.  Under
 ``activation_sharding(mesh)`` the parameters and the optimizer state are
 DTensors (``launch.sharding``), each rank computes the loss of its own rows
 and its gradients, which the backward reduces into each leaf's placement
-(``act_ctx.materialize``), so the loss a rank differentiates is its mean
-divided by the data-parallel size; the loss reported is the global mean.
+(``act_ctx.materialize``; a weight a tensor-parallel block keeps as its
+``model`` shard is reduce-scattered over the data axes only, and a leaf
+used on a rank's own heads is also summed over ``model``, by
+``act_ctx.placed_like`` where it is replicated), so the loss a rank
+differentiates is its mean divided by the data-parallel size; the loss
+reported is the global mean.
 AdamW then updates each rank's shards in place.
 
 Microbatching (gradient accumulation) is a loop that sums each

@@ -16,6 +16,7 @@ prefill and decode steps bound by ``launch.specs.make_step_and_specs`` on
 the mesh against the same steps without one (the logits each step
 computes, recorded on the way, and its tokens).
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -33,12 +34,15 @@ from repro_torch.data.pipeline import shard_rows
 from repro_torch.configs import ShapeSpec
 from repro_torch.launch.mesh import distribute_tree, place
 from repro_torch.launch.specs import make_step_and_specs
-from repro_torch.launch.sharding import (P, batch_spec, opt_shardings,
-                                         param_shardings, to_placements)
+from repro_torch.launch.hlo_analysis import trace_collectives
+from repro_torch.launch.sharding import (P, batch_spec, cache_shardings,
+                                         opt_shardings, param_shardings,
+                                         to_placements)
 from repro_torch.launch.train import row_shard
 from repro_torch.models import (act_ctx, blocks, decode_step, init_caches,
                                 init_params, prefill)
 from repro_torch.models.config import MoEConfig
+from repro_torch.models import model as model_mod
 from repro_torch.models.model import activation_sharding
 from repro_torch.serve import step as serve_step
 from repro_torch.train import (AdamWConfig, init_opt_state, init_residual,
@@ -228,13 +232,29 @@ def train_case(mesh, arch: str, kw: dict) -> dict:
                                               tree_leaves(y))]
             for k, x, y in (("params", p, ref_p), ("m", o["m"], ref_o["m"]),
                             ("v", o["v"], ref_o["v"]))}
-    noise = 0.0
+    noise, alt_p = 0.0, None
     if n > 1 and (kw.get("microbatches", 1) > 1 or compress):
         alt = dict(kw, microbatches=kw.get("microbatches", 1) * n)
-        alt_p = _no_mesh_run(cfg, opt_cfg, alt, params_copy, 5)
+        alt_p = tree_leaves(_no_mesh_run(cfg, opt_cfg, alt, params_copy, 5))
         noise = max(float((a - b).abs().max()) for a, b in
-                    zip(tree_leaves(alt_p), tree_leaves(ref_p)))
-    return {"no_mesh_spread": noise,
+                    zip(alt_p, tree_leaves(ref_p)))
+    # the elements past max(1e-5, spread) of the no-mesh step, less the
+    # parameters within 1e-5 of the no-mesh step at the mesh's own grouping
+    # of rows (alt_p), which are counted apart
+    bound, outside, on_alt = max(1e-5, noise), 0, 0
+    for k, pairs in full.items():
+        for j, (a, b) in enumerate(pairs):
+            far = (a - b).abs() > bound
+            if k == "params" and alt_p is not None:
+                near = (a - alt_p[j]).abs() <= 1e-5
+                on_alt += int((far & near).sum())
+                far &= ~near
+            outside += int(far.sum())
+    return {"no_mesh_spread": noise, "outside_bound": outside,
+            "past_spread_on_alt": on_alt,
+            "max_abs_vs_alt": None if alt_p is None else max(
+                float((_full(a) - c).abs().max())
+                for a, c in zip(tree_leaves(p), alt_p)),
             "losses": [float(x) for x in losses],
             "ref_losses": [float(x) for x in ref_losses],
             "max_abs_loss": max(float((a - b).abs()) for a, b in
@@ -337,6 +357,214 @@ def serve_case(mesh, arch: str) -> dict:
             "shardmap_calls": len(taken)}
 
 
+# ------------------------------------------------- tensor-parallel blocks
+# config name -> (arch, ModelConfig overrides); at model = 2 the reduced
+# configs split their heads as the three cases of blocks.attention_heads:
+# A 4 / 2 heads (gemma3, qk-norm), B 4 / 1 (recurrentgemma), C 3 heads
+BLOCK_CFGS = {"A": ("gemma3-12b", {}),
+              "B": ("recurrentgemma-9b", {}),
+              "B-cap": ("recurrentgemma-9b", {"attn_softcap": 50.0}),
+              "C": ("gemma3-12b", {"n_heads": 3, "n_kv_heads": 1}),
+              "xA": ("llama-3.2-vision-11b", {}),
+              "xB": ("llama-3.2-vision-11b", {"n_kv_heads": 1})}
+BLOCK_B, BLOCK_T = 4, 16
+# run -> (config, cross, window, ring length, prompt length, decode steps):
+# B's ring of 16 splits by length (8 slots a rank), of 15 stays whole; B's
+# windowed ring of 8 holds 3 prompt tokens, so rank 1's 4 slots are empty
+# for the first decode steps, and wraps at position 8
+SERVE_BLOCKS = {"A": ("A", False, None, 16, 12, 3),
+                "B": ("B", False, None, 16, 12, 3),
+                "B ring": ("B-cap", False, 8, 8, 3, 10),
+                "B whole ring": ("B", False, None, 15, 12, 3),
+                "C": ("C", False, None, 16, 12, 3),
+                "xA": ("xA", True, None, 0, 12, 3),
+                "xB": ("xB", True, None, 0, 12, 3)}
+TRAIN_BLOCKS = ("A", "B", "C")
+
+
+def block_config(name: str, get, reduce):
+    """Config ``name`` of BLOCK_CFGS through ``get`` / ``reduce`` (the
+    port's ``get_config`` / ``reduced``, or the reference's)."""
+    arch, over = BLOCK_CFGS[name]
+    return dataclasses.replace(reduce(get(arch)), **over)
+
+
+def block_inputs(run: str, cfg, steps: int = 0, t: int = BLOCK_T) -> dict:
+    """Numpy inputs of a block run, from a seed of its name: the attention
+    (or, for run "mlp", the MLP) parameters, the prompt ``x``, one input a
+    decode step ``xd``, and the memory of cross-attention."""
+    rng = np.random.default_rng(sum(map(ord, run)))
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def w(*shape):
+        return rng.normal(0.0, shape[0] ** -0.5, shape).astype(np.float32)
+
+    if run == "mlp":
+        p = {"wi": w(d, cfg.d_ff), "wg": w(d, cfg.d_ff), "wo": w(cfg.d_ff, d)}
+    else:
+        p = {"wq": w(d, h * hd), "wk": w(d, kv * hd), "wv": w(d, kv * hd),
+             "wo": w(h * hd, d)}
+        if cfg.qk_norm:
+            p["q_norm"] = rng.normal(0.0, 0.1, hd).astype(np.float32)
+            p["k_norm"] = rng.normal(0.0, 0.1, hd).astype(np.float32)
+    out = {f"p/{k}": v for k, v in p.items()}
+    out["x"] = rng.standard_normal((BLOCK_B, t, d)).astype(np.float32)
+    out["xd"] = rng.standard_normal((max(steps, 1), BLOCK_B, 1, d)).astype(
+        np.float32)
+    if cfg.memory_len:
+        out["memory"] = rng.standard_normal(
+            (BLOCK_B, cfg.memory_len, d)).astype(np.float32)
+    return out
+
+
+def _block_params(arrays, mesh):
+    p = {k[2:]: torch.from_numpy(v) for k, v in arrays.items()
+         if k.startswith("p/")}
+    if mesh is None:
+        return p
+    return place(p, param_shardings(mesh, p), mesh)
+
+
+def _my_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    if mesh is None:
+        return t
+    i, n = row_shard(batch_spec(mesh, t.shape[0], t.dim()), mesh)
+    return t.tensor_split(n)[i].contiguous()
+
+
+def _whole_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    return t if mesh is None else _rows(t, mesh)
+
+
+def _serve_block(mesh, run: str) -> dict:
+    """Prefill then decode steps of one attention block, on ``mesh`` (its
+    parameters and cache placed by the rules) or without one; each step's
+    output and the last caches, whole."""
+    name, cross, window, length, t, steps = SERVE_BLOCKS[run]
+    cfg = block_config(name, get_config, reduced)
+    arrays = block_inputs(run, cfg, steps, t)
+    p = _block_params(arrays, mesh)
+    if cross:
+        shape = (BLOCK_B, cfg.memory_len, cfg.n_kv_heads, cfg.hd)
+        cache = {"k": torch.zeros(shape), "v": torch.zeros(shape)}
+    else:
+        cache = blocks.init_attention_cache(cfg, BLOCK_B, length,
+                                            torch.float32, "cpu")
+    memory = torch.from_numpy(arrays["memory"]) if cross else None
+    if mesh is not None:
+        cache = place(cache, cache_shardings(mesh, cache, BLOCK_B), mesh)
+        memory = None if memory is None else _my_rows(memory, mesh)
+    out = {}
+    with torch.no_grad(), activation_sharding(mesh, batch=BLOCK_B) \
+            if mesh is not None else contextlib.nullcontext():
+        for i in range(steps + 1):
+            x = torch.from_numpy(arrays["x"] if i == 0 else arrays["xd"][i - 1])
+            mode = "prefill" if i == 0 else "decode"
+            pos = torch.arange(t, dtype=torch.int32)[None].expand(
+                BLOCK_B, t) if i == 0 else torch.full(
+                (BLOCK_B, 1), t + i - 1, dtype=torch.int32)
+            with act_ctx.rank_caches(cache) as mine:
+                ctx = blocks.Ctx(mode, _my_rows(pos, mesh), memory, mine,
+                                 act_ctx.cache_split())
+                y, new = blocks.apply_attention(
+                    p, _my_rows(x, mesh), cfg, ctx, window=window,
+                    cross=cross)
+            cache = new if mesh is None else tree_map(act_ctx.like, cache,
+                                                      new)
+            out[f"y{i}"] = _whole_rows(y, mesh).numpy()
+    for k, v in cache.items():
+        out[f"cache/{k}"] = _full(v).numpy()
+    if mesh is not None:
+        out["split"] = np.array([-1 if act_ctx.model_split_dim(cache[k])
+                                 is None else act_ctx.model_split_dim(
+                                     cache[k]) for k in sorted(cache)])
+    return out
+
+
+def _train_block(mesh, run: str) -> dict:
+    """One block's train-mode forward (``mlp``: the MLP) and every gradient
+    of ``sum(y ** 2)``, whole; on a mesh also each gradient's placement as
+    the backward hands it over."""
+    mlp = run == "mlp"
+    cfg = block_config("A" if mlp else run, get_config, reduced)
+    arrays = block_inputs(run, cfg)
+    p = tree_map(lambda v: v.detach().requires_grad_(True),
+                 _block_params(arrays, mesh))
+    x = _my_rows(torch.from_numpy(arrays["x"]), mesh).requires_grad_(True)
+    with activation_sharding(mesh, batch=BLOCK_B) if mesh is not None \
+            else contextlib.nullcontext():
+        y = blocks.apply_mlp(p, x) if mlp else blocks.apply_attention(
+            p, x, cfg, blocks.Ctx("train"))[0]
+    names = list(p)
+    g = torch.autograd.grad(torch.sum(y ** 2), [p[k] for k in names] + [x])
+    out = {"y": _whole_rows(y.detach(), mesh).numpy(),
+           "g/x": _whole_rows(g[-1], mesh).numpy()}
+    for k, gk in zip(names, g[:-1]):
+        if mesh is not None:
+            out[f"placed/{k}"] = np.array(
+                [repr(gk.placements) == repr(p[k].placements)])
+            out[f"gpl/{k}"] = np.array([repr(gk.placements)])
+            gk = act_ctx.placed_like(gk, p[k])
+        out[f"g/{k}"] = _full(gk).numpy()
+    return out
+
+
+def _mlp_forward(mesh) -> dict:
+    """The MLP at a prompt's T and at decode's T = 1, without autograd."""
+    cfg = block_config("A", get_config, reduced)
+    arrays = block_inputs("mlp", cfg)
+    p = _block_params(arrays, mesh)
+    out = {}
+    with torch.no_grad(), activation_sharding(mesh, batch=BLOCK_B) \
+            if mesh is not None else contextlib.nullcontext():
+        for k in ("x", "xd"):
+            x = torch.from_numpy(arrays[k] if k == "x" else arrays[k][0])
+            out[k] = _whole_rows(blocks.apply_mlp(p, _my_rows(x, mesh)),
+                                 mesh).numpy()
+    return out
+
+
+def case_blocks(mesh, d: str) -> dict:
+    """Every block run on the mesh and in one process, written to
+    DIR/block_<run>.npz (``mesh/...`` and ``port/...``) by rank 0."""
+    runs = {**{f"serve {r}": (lambda r=r: (lambda m: _serve_block(m, r)))()
+               for r in SERVE_BLOCKS},
+            **{f"train {r}": (lambda r=r: (lambda m: _train_block(m, r)))()
+               for r in TRAIN_BLOCKS + ("mlp",)},
+            "mlp": _mlp_forward}
+    for run, fn in runs.items():
+        got, want = fn(mesh), fn(None)
+        if dist.get_rank() == 0:
+            np.savez(os.path.join(d, f"block_{run}.npz"),
+                     **{f"mesh/{k}": v for k, v in got.items()},
+                     **{f"port/{k}": v for k, v in want.items()})
+    return {"runs": sorted(runs)}
+
+
+def case_layer_collectives(mesh) -> dict:
+    """One reduced internlm2 layer's forward (prefill, no cache) under
+    ``trace_collectives``: its record, and the all-gather bytes the data
+    gathers of the layer's weights would return (each weight's ``model``
+    shard, gathered over ``data``)."""
+    cfg = reduced(get_config("internlm2-1.8b"))
+    lp = init_params(cfg, seed=0, dtype=torch.float32,
+                     device="cpu")["stacks"]["s0"][0]
+    lp = place(lp, param_shardings(mesh, lp), mesh)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (BLOCK_B, BLOCK_T, cfg.d_model)).astype(np.float32))
+    x = _my_rows(x, mesh)
+    with torch.no_grad(), activation_sharding(mesh, batch=BLOCK_B):
+        _, rec = trace_collectives(
+            model_mod._apply_unit, x, ("attn",), lp, None, cfg,
+            blocks.Ctx("prefill"))
+    gathers = sum(t.to_local().numel() * 4 * act_ctx.axis_size(mesh, "data")
+                  for t in tree_leaves(lp)
+                  if any(pl.is_shard() for pl, n in zip(
+                      t.placements, mesh.mesh_dim_names) if n == "data"))
+    return {"record": rec, "data_gather_bytes": gathers,
+            "rows": x.shape[0], "t": BLOCK_T, "d": cfg.d_model}
+
+
 def _run(mesh, d: str, name: str, cases: dict) -> None:
     res = {k: fn() for k, fn in cases.items()}
     if dist.get_rank() == 0:
@@ -359,7 +587,9 @@ def rank_main(rank: int, world: int, d: str) -> None:
                                                      TRAIN_CASES[a]))
                for a in TRAIN_CASES},
             **{f"serve {a}": (lambda a=a: serve_case(mesh, a))
-               for a in SERVE_ARCHS}})
+               for a in SERVE_ARCHS},
+            "blocks": lambda: case_blocks(mesh, d),
+            "layer collectives": lambda: case_layer_collectives(mesh)})
     finally:
         dist.destroy_process_group()
 
@@ -376,7 +606,8 @@ def one_rank(d: str) -> None:
                                                      TRAIN_CASES[a]))
                for a in TRAIN_CASES},
             **{f"serve {a}": (lambda a=a: serve_case(mesh, a))
-               for a in SERVE_ARCHS}})
+               for a in SERVE_ARCHS},
+            "layer collectives": lambda: case_layer_collectives(mesh)})
     finally:
         dist.destroy_process_group()
 

@@ -1,15 +1,20 @@
 """The port's dry run (``repro_torch.launch.dryrun``):
 ``tests/test_dryrun_cell.py``'s assertions on the port's CLI, in a
 subprocess (the fake process group of 512 ranks is global to a process),
-on the same cell: xlstm-350m decode_32k on the multi-pod mesh; and a
+on the same cell: xlstm-350m decode_32k on the multi-pod mesh; a
 long_500k cell of a full-attention architecture, recorded as skipped with
-the reference's reason."""
+the reference's reason; and internlm2-1.8b's prefill_32k on the single-pod
+mesh, whose per-rank flops are the count written out from its config: the
+products split over ``model`` (q, o, the MLP, the local heads' attention)
+over both mesh axes, the rest (k and v, whose 8 kv heads do not split over
+16, and the unembedding) over ``data`` alone."""
 import json
 import os
 import pathlib
 import subprocess
 import sys
 
+from repro.configs import SHAPES as REF_SHAPES
 from repro.configs import get_config as ref_get_config
 from repro.configs import shape_applicable as ref_shape_applicable
 from repro_torch.launch.dryrun import run_cell
@@ -17,15 +22,20 @@ from repro_torch.launch.dryrun import run_cell
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def test_dryrun_cell_multipod(tmp_path):
+def _dryrun(tmp_path, *args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "xlstm-350m", "--shape", "decode_32k", "--multi-pod", "--out",
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
          str(tmp_path)],
         capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
+    return res
+
+
+def test_dryrun_cell_multipod(tmp_path):
+    res = _dryrun(tmp_path, "--arch", "xlstm-350m", "--shape", "decode_32k",
+                  "--multi-pod")
     rec = json.loads(
         (tmp_path / "xlstm-350m__decode_32k__pod2x16x16.json").read_text())
     assert rec["status"] == "ok"
@@ -49,3 +59,27 @@ def test_long500k_full_attention_cell_skipped(tmp_path):
     saved = json.loads((tmp_path / "internlm2-1.8b__long_500k__pod2x16x16"
                         ".json").read_text())
     assert saved == rec
+
+
+def test_tensor_parallel_prefill_flops_per_rank(tmp_path):
+    _dryrun(tmp_path, "--arch", "internlm2-1.8b", "--shape", "prefill_32k")
+    rec = json.loads((tmp_path / "internlm2-1.8b__prefill_32k__pod16x16"
+                      ".json").read_text())
+    assert rec["status"] == "ok" and rec["n_devices"] == 256
+    cfg, shape = ref_get_config("internlm2-1.8b"), REF_SHAPES["prefill_32k"]
+    d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    dp = tp = 16
+    b, t = shape.global_batch, shape.seq_len
+    layers = sum(r * len(unit) for unit, r in cfg.stacks)
+    assert h % tp == 0 and kv % tp != 0          # case B: q split, kv whole
+    split = layers * (2 * b * t * d * h * hd        # q
+                      + 4 * b * h * t * t * hd      # flash: 4 B H Tq S hd
+                      + 2 * b * t * h * hd * d      # o
+                      + 3 * 2 * b * t * d * f)      # wi, wg, wo
+    rest = (layers * 2 * 2 * b * t * d * kv * hd    # k, v
+            + 2 * b * d * cfg.vocab)                # last position's logits
+    assert rec["cost"]["flops"] == split // (dp * tp) + rest // dp
+    assert rec["cost"]["flops"] < rec["jaxpr_flops_global"] / dp
+    # one rank's collectives: the two sums over model a layer, no more
+    assert rec["collectives"]["all-reduce_count"] == 2 * layers

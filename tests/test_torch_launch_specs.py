@@ -5,7 +5,9 @@ the reference's, and ``make_step_and_specs`` for a reduced config of
 each family (dense, recurrent, MoE, xLSTM, vision, audio) on a one-rank (1, 1) ``gloo`` mesh: train, prefill
 and decode bound under activation sharding, their arguments placed on
 meta, traced, with outputs placed as the output placements say and the
-same flop count as the step without a mesh."""
+same flop count as the step without a mesh; and the caches' placements:
+an attention cache leaf keeps the ``model`` entry ``cache_spec`` gives it,
+a recurrent state none, and under ``zero3`` no leaf names ``model``."""
 import jax
 import pytest
 import torch
@@ -17,9 +19,10 @@ from repro.launch.specs import input_specs as ref_input_specs
 from repro_torch.configs import (ARCHS, SHAPES, ShapeSpec, get_config,
                                  reduced, shape_applicable)
 from repro_torch.launch.flops_count import count_flops
+from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import distribute_tree, make_host_mesh
-from repro_torch.launch.specs import (input_specs, make_step_and_specs,
-                                      param_shapes)
+from repro_torch.launch.specs import (ATTN_CACHE, input_specs,
+                                      make_step_and_specs, param_shapes)
 from repro_torch.tree import tree_leaves, tree_paths
 
 _DTYPES = {"int32": torch.int32, "bfloat16": torch.bfloat16,
@@ -157,3 +160,36 @@ def test_param_shapes_are_bf16_meta():
 def test_reference_configs_are_the_ports():
     for arch in ARCHS:
         assert get_config(arch).d_model == ref_get_config(arch).d_model
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cache_placements_keep_attention_model_entries(mesh, arch):
+    cfg = reduced(get_config(arch))
+    shape = ShapeSpec("test", 16, 2, "decode")
+    model = mesh.mesh_dim_names.index("model")
+    for policy in ("2d", "zero3"):
+        _, args, in_pl, _, _ = make_step_and_specs(cfg, shape, mesh,
+                                                   policy=policy)
+        caches, pls = args[3], in_pl[3]
+        specs = tree_leaves(sh.cache_shardings(mesh, caches, 2))
+        leaves = list(zip(tree_paths(caches), specs, _placements(pls)))
+        assert len(leaves) == len(tree_leaves(caches))
+        for path, spec, pl in leaves:
+            attention = path.rsplit("/", 1)[-1] in ATTN_CACHE
+            want = sh.to_placements(spec if attention and policy == "2d"
+                                    else sh.strip_axis(spec, sh.TP), mesh)
+            assert pl == want, (policy, path)
+            if attention and policy == "2d":
+                assert pl[model].is_shard(), path   # kv heads or length
+            else:
+                assert pl[model].is_replicate(), (policy, path)
+
+
+def _placements(tree) -> list:
+    """The placement lists of a placements tree, in leaf order."""
+    if isinstance(tree, dict):
+        return [p for v in tree.values() for p in _placements(v)]
+    if isinstance(tree, list) and tree and not isinstance(tree[0], (dict,
+                                                                    list)):
+        return [tree]
+    return [p for v in tree for p in _placements(v)]

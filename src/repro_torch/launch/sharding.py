@@ -151,17 +151,6 @@ def param_spec(path, leaf, mesh, policy: str = "2d") -> P:
     return ok((FSDP, None))
 
 
-def model_dim(name: str, leaf, mesh) -> int | None:
-    """The dim of a parameter leaf named ``name`` (its last path key;
-    anything with the global ``.shape``) that :func:`param_spec`'s ``2d``
-    rule puts over ``model``, or None where the rule keeps it whole over
-    ``model``.  A tensor-parallel block asks this before it keeps a
-    weight's ``model`` shard (``models/tensor_parallel.py``)."""
-    spec = param_spec(name, leaf, mesh)
-    return next((d for d, e in enumerate(spec)
-                 if e == TP or (isinstance(e, tuple) and TP in e)), None)
-
-
 def strip_axis(spec: P, axis: str) -> P:
     """``spec`` with mesh axis ``axis`` taken out of every entry."""
     out = []

@@ -40,6 +40,7 @@ from repro_torch.tree import tree_map
 _MESH = None
 _DP_AXES = ("pod", "data")
 _BATCH: int | None = None
+_MODEL = 1
 
 
 @contextlib.contextmanager
@@ -49,13 +50,15 @@ def activation_sharding(mesh, dp_axes=("pod", "data"), batch=None):
     it.  ``batch``: their global batch, where the caller knows it; the
     rows each rank holds are then checked against it, and expert
     parallelism tests it as the reference tests its global batch."""
-    global _MESH, _DP_AXES, _BATCH
-    prev = (_MESH, _DP_AXES, _BATCH)
+    global _MESH, _DP_AXES, _BATCH, _MODEL
+    prev = (_MESH, _DP_AXES, _BATCH, _MODEL)
     _MESH, _DP_AXES, _BATCH = mesh, tuple(dp_axes), batch
+    _MODEL = axis_size(mesh, "model") if mesh is not None and "model" in \
+        mesh.mesh_dim_names and "model" not in _DP_AXES else 1
     try:
         yield
     finally:
-        _MESH, _DP_AXES, _BATCH = prev
+        _MESH, _DP_AXES, _BATCH, _MODEL = prev
 
 
 @contextlib.contextmanager
@@ -74,6 +77,13 @@ def split_batch(n: int):
 
 def mesh():
     return _MESH
+
+
+def model_size() -> int:
+    """The size of the installed mesh's ``model`` axis where it splits
+    products (``models/tensor_parallel``), else 1: no mesh, no such axis,
+    or ``model`` a data-parallel axis (the ``zero3`` policy's batch)."""
+    return _MODEL
 
 
 def axis_size(m, axis: str) -> int:
@@ -187,32 +197,6 @@ def model_split_dim(t) -> int | None:
     i = t.device_mesh.mesh_dim_names.index("model")
     p = t.placements[i]
     return p.dim if p.is_shard() and t.device_mesh.size(i) > 1 else None
-
-
-_CACHE_SPLIT = None
-
-
-@contextlib.contextmanager
-def rank_caches(caches):
-    """This rank's shards of ``caches`` (placed DTensors under a mesh) as
-    plain tensors, for a step to compute on; under it, :func:`cache_split`
-    gives each leaf's dim split over ``model``, in the same layout, for
-    the attention blocks to read.  ``caches`` itself without a mesh."""
-    global _CACHE_SPLIT
-    if _MESH is None:
-        yield caches
-        return
-    prev = _CACHE_SPLIT
-    _CACHE_SPLIT = tree_map(model_split_dim, caches)
-    try:
-        yield tree_map(local, caches)
-    finally:
-        _CACHE_SPLIT = prev
-
-
-def cache_split():
-    """The caches' dims over ``model`` (see :func:`rank_caches`), or None."""
-    return _CACHE_SPLIT
 
 
 def distribute(full: torch.Tensor, m, placements) -> DTensor:

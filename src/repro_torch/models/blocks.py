@@ -25,7 +25,9 @@ Under a mesh the attention, MLP and MoE blocks take their parameters as
 the model holds them (DTensors) and gather them themselves: each keeps the
 ``model`` shard of the weights it splits over that axis (the MLP's hidden
 units, attention's heads by :func:`attention_heads`, MoE's experts) and
-sums its partial output over ``model`` (``tensor_parallel``).
+sums its partial output over ``model`` (``tensor_parallel``).  Attention
+takes its caches placed too, and reads from their placements which share
+of each leaf is its own.
 
 Types follow JAX's promotion: :func:`mm` multiplies mixed-type operands in
 the wider type (f32 caches meet bf16 weights at decode), and elementwise ops
@@ -34,12 +36,14 @@ promote as torch does for tensors of one kind, which is the same rule.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
@@ -58,9 +62,6 @@ class Ctx:
     pos: torch.Tensor | None = None    # (B, T) absolute positions
     memory: torch.Tensor | None = None  # (B, M, D) cross-attention source
     cache: Any = None                  # per-layer cache dict (prefill/decode)
-    # cache leaf name -> its dim split over ``model`` (tensor_parallel);
-    # None, or a name left out: whole on every model rank
-    split: Optional[dict] = None
 
 
 def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -205,7 +206,8 @@ class Heads:
 def attention_heads(p: dict, cfg: ModelConfig) -> Heads:
     """How an attention block with parameters ``p`` (as the model holds
     them) splits its heads over ``model`` (``tensor_parallel``), in the
-    reference's ``2d`` / ``tp`` placements:
+    reference's ``2d`` / ``tp`` placements, read from those of ``wq``,
+    ``wo``, ``wk`` and ``wv``:
 
     * A, ``H`` and ``Hkv`` divide over the ``tp`` ranks: each computes its
       ``H / tp`` q and ``Hkv / tp`` kv heads (``wq`` / ``wk`` / ``wv``
@@ -218,16 +220,22 @@ def attention_heads(p: dict, cfg: ModelConfig) -> Heads:
       a head.
 
     Without tensor parallelism every head is the rank's, as in C."""
-    h, kv = cfg.n_heads, cfg.n_kv_heads
     tp = tensor_parallel.size()
-    if (tp == 1 or h % tp
-            or tensor_parallel.split_dim("wq", p["wq"]) != 1
-            or tensor_parallel.split_dim("wo", p["wo"]) != 0):
+    if tp == 1:
+        return _heads(cfg.n_heads, cfg.n_kv_heads, 1, 0, False, False)
+    dim = act_ctx.model_split_dim
+    return _heads(cfg.n_heads, cfg.n_kv_heads, tp, tensor_parallel.rank(),
+                  dim(p["wq"]) == 1 and dim(p["wo"]) == 0,
+                  dim(p["wk"]) == 1 and dim(p["wv"]) == 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _heads(h: int, kv: int, tp: int, r: int, q_split: bool,
+           kv_split: bool) -> Heads:
+    if not q_split or h % tp:
         return Heads(0, h, 0, kv, False)
-    r = tensor_parallel.rank()
     nq = h // tp
-    if (kv % tp == 0 and tensor_parallel.split_dim("wk", p["wk"]) == 1
-            and tensor_parallel.split_dim("wv", p["wv"]) == 1):
+    if kv_split and kv % tp == 0:
         return Heads(r * nq, nq, r * (kv // tp), kv // tp, True)
     return Heads(r * nq, nq, 0, kv, True)
 
@@ -269,29 +277,32 @@ def _project_out(att: torch.Tensor, wo: torch.Tensor, heads: Heads
     return tensor_parallel.reduce(out) if heads.split else out
 
 
-def _split_lo(ctx: Ctx, name: str, buf: torch.Tensor) -> Optional[int]:
-    """Where this rank's share of cache leaf ``name`` begins, where the
-    leaf's length (dim 1) is split over ``model``; else None."""
-    if not ctx.split or ctx.split.get(name) != 1:
-        return None
-    return tensor_parallel.rank() * buf.shape[1]
+def _local_cache(cache: dict, heads: Heads, cfg: ModelConfig):
+    """``cache`` as this rank's shard of each leaf: (the local leaves, the
+    ring's whole length, where this rank's share of k / v begins along it,
+    where its share of pos begins; None where not split by length).
 
-
-def _ring_split(ctx: Ctx, cache: dict, heads: Heads, cfg: ModelConfig
-                ) -> tuple[int, Optional[int], Optional[int]]:
-    """(the ring's whole length, where this rank's share of k / v begins,
-    where its share of pos begins; None where not split by length).  The
-    cache's kv heads must be split over ``model`` exactly where the block
-    computes its own kv heads (case A)."""
-    by_heads = bool(ctx.split) and ctx.split.get("k") == 2
-    if by_heads != (heads.nk < cfg.n_kv_heads):
-        raise ValueError(f"a cache placed {ctx.split} over 'model' does not "
+    Under tensor parallelism the leaves come placed (DTensors, by
+    ``launch.sharding.cache_spec``), and their placements say which share
+    is this rank's: the kv heads (dim 2) exactly where the block computes
+    its own (case A), else the length (dim 1) where it divides."""
+    if tensor_parallel.size() == 1:
+        local = {k: act_ctx.local(v) for k, v in cache.items()}
+        return local, local["k"].shape[1], None, None
+    if not isinstance(cache["k"], DTensor):
+        raise ValueError("under tensor parallelism attention takes its "
+                         "caches placed (DTensors), not their local shards")
+    dims = {k: act_ctx.model_split_dim(v) for k, v in cache.items()}
+    if (dims["k"] == 2) != (heads.nk < cfg.n_kv_heads):
+        raise ValueError(f"a cache split over 'model' on {dims} does not "
                          f"fit attention computing kv heads [{heads.k0}, "
                          f"{heads.k0 + heads.nk}) of {cfg.n_kv_heads}")
-    lo = _split_lo(ctx, "k", cache["k"])
-    n = cache["k"].shape[1] * (1 if lo is None else tensor_parallel.size())
-    return n, lo, _split_lo(ctx, "pos", cache["pos"]) if "pos" in cache \
-        else None
+    local = {k: act_ctx.local(v) for k, v in cache.items()}
+    r, n = tensor_parallel.rank(), local["k"].shape[1]
+    lo_k = r * n if dims["k"] == 1 else None
+    lo_pos = r * local["pos"].shape[1] if dims.get("pos") == 1 else None
+    return local, n if lo_k is None else n * tensor_parallel.size(), \
+        lo_k, lo_pos
 
 
 def _whole_positions(cpos: torch.Tensor) -> torch.Tensor:
@@ -341,12 +352,12 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
                     cross: bool = False):
     """Self- or cross-attention with ring caches for prefill/decode.
 
-    ``p``: the block's parameters as the model holds them (DTensors under
-    a mesh), gathered here for this rank's heads (:func:`attention_heads`).
-    ``ctx.split`` says which cache leaves are split over ``model`` and on
-    which dim (``launch.sharding.cache_spec``): k and v by heads in case A,
-    else by length where the ring divides (a rank writes only the slots it
-    holds, and decode combines the ranks' partial attention,
+    ``p`` and ``ctx.cache``: the block's parameters and caches as the model
+    holds them (DTensors under a mesh).  The parameters are gathered here
+    for this rank's heads (:func:`attention_heads`); of the caches the rank
+    computes on its shard (:func:`_local_cache`): k and v by heads in case
+    A, else by length where the ring divides (a rank writes only the slots
+    it holds, and decode combines the ranks' partial attention,
     :func:`_attend_split_ring`), and ``pos`` by length where it divides."""
     heads = attention_heads(p, cfg)
     p = _attention_params(p, heads, cfg)
@@ -382,8 +393,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
         # fill the ring with the last min(T, L) tokens for subsequent decode
         # (a ring cannot hold the full prefill when T > L; queries above
         #  already attended the exact windowed mask)
-        cache = ctx.cache
-        L, lo_k, lo_pos = _ring_split(ctx, cache, heads, cfg)
+        cache, L, lo_k, lo_pos = _local_cache(ctx.cache, heads, cfg)
         tw = min(t, L)
         slots = pos[:, t - tw:] % L
         new_cache = {
@@ -394,8 +404,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
         return out, new_cache
 
     # decode: ring cache (B, L, Kv, hd) + cache positions (B, L)
-    cache = ctx.cache
-    L, lo_k, lo_pos = _ring_split(ctx, cache, heads, cfg)
+    cache, L, lo_k, lo_pos = _local_cache(ctx.cache, heads, cfg)
     slots = pos % L                                          # (B, T)
     ck = _ring_write(cache["k"], k, slots, lo_k)
     cv = _ring_write(cache["v"], v, slots, lo_k)
@@ -427,8 +436,9 @@ def _apply_cross(p: dict, q: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
     read, as the reference applies it."""
     b, t = q.shape[:2]
     hd = cfg.hd
-    cache = ctx.cache
-    lo = None if cache is None else _ring_split(ctx, cache, heads, cfg)[1]
+    cache, lo = ctx.cache, None
+    if cache is not None:
+        cache, _, lo, _ = _local_cache(cache, heads, cfg)
     decode = cache is not None and "k" in cache and ctx.mode == "decode"
     if decode:
         k, v = cache["k"], cache["v"]
@@ -503,9 +513,9 @@ def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     rows over ``model`` (``tensor_parallel``), each model rank computes its
     ``d_ff / tp`` hidden units and the partial outputs are summed over
     ``model``; else the weights are gathered whole."""
-    if (tensor_parallel.split_dim("wi", p["wi"]) == 1
-            and tensor_parallel.split_dim("wg", p["wg"]) == 1
-            and tensor_parallel.split_dim("wo", p["wo"]) == 0):
+    dim = act_ctx.model_split_dim
+    if (tensor_parallel.size() > 1 and dim(p["wi"]) == 1
+            and dim(p["wg"]) == 1 and dim(p["wo"]) == 0):
         w = tensor_parallel.shards(p, keep=("wi", "wg", "wo"))
         x = tensor_parallel.copy(x)
         return tensor_parallel.reduce(

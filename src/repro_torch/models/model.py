@@ -16,7 +16,9 @@ computes (``act_ctx.materialize``; the embedding, unembedding and final
 norms once a call), as the reference's layers read their shards through
 GSPMD, except that the attention and MLP blocks keep the ``model`` shard of
 the weights they split (``models/tensor_parallel.py``); each rank runs its
-own batch rows.
+own batch rows.  The caches come placed too: an attention block reads from
+their placements which shard of each leaf is its own, a recurrent block
+takes its rows of its states (``_block_cache``).
 Where autograd records a train-mode forward, each layer runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``)
 unless ``remat=False``.  ``enc_stacks`` and caches have the same layout.
@@ -35,7 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.index.engine import resolve_device
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 from . import act_ctx, blocks
 from .act_ctx import activation_sharding  # noqa: F401  (as the reference)
@@ -166,14 +168,12 @@ def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     if btype == "self+cross":
         # whisper's decoder layer: no post-norms, as in the reference
         sub_self = Ctx(ctx.mode, ctx.pos, ctx.memory,
-                       None if ctx.cache is None else ctx.cache["self"],
-                       None if ctx.split is None else ctx.split["self"])
+                       None if ctx.cache is None else ctx.cache["self"])
         h = blocks.rmsnorm(p["ln1"], x, eps)
         h, c_self = blocks.apply_attention(p["attn"], h, cfg, sub_self)
         x = x + scale * h
         sub_x = Ctx(ctx.mode, ctx.pos, ctx.memory,
-                    None if ctx.cache is None else ctx.cache["cross"],
-                    None if ctx.split is None else ctx.split["cross"])
+                    None if ctx.cache is None else ctx.cache["cross"])
         h = blocks.rmsnorm(p["lnc"], x, eps)
         h, c_cross = blocks.apply_attention(p["xattn"], h, cfg, sub_x,
                                             cross=True)
@@ -215,6 +215,19 @@ def _layer_params(lp: dict) -> dict:
                  for k, v in bp.items()} for bk, bp in lp.items()}
 
 
+_ATTENTION = ("attn", "local", "enc", "moe", "cross", "self+cross")
+
+
+def _block_cache(btype: str, c):
+    """One block's caches as it computes with them: under a mesh the
+    attention blocks take them placed (DTensors) and find their own shards
+    (``blocks.apply_attention``), the recurrent blocks this rank's rows of
+    their states as local tensors."""
+    if c is None or act_ctx.mesh() is None or btype in _ATTENTION:
+        return c
+    return tree_map(act_ctx.local, c)
+
+
 def _top_params(params: Params) -> Params:
     """``params`` with the embedding, unembedding and final norms gathered
     under a mesh (the stacks are gathered a layer at a time)."""
@@ -225,18 +238,16 @@ def _top_params(params: Params) -> Params:
 
 
 def _apply_unit(x: torch.Tensor, unit, lp: dict, lc, cfg: ModelConfig,
-                ctx_proto: Ctx, split=None):
+                ctx_proto: Ctx):
     """One repeat of a unit: its blocks in order.  Returns (x, caches).
     Under a mesh its parameters are gathered here, so that a checkpointed
-    layer gathers them again when it is recomputed.  ``split``: the caches'
-    dims over ``model`` (``act_ctx.cache_split``), in ``lc``'s layout."""
+    layer gathers them again when it is recomputed."""
     x = act_ctx.constrain_btd(x)
     lp = _layer_params(lp)
     ncs = {}
     for bi, bt in enumerate(unit):
         ctx = Ctx(ctx_proto.mode, ctx_proto.pos, ctx_proto.memory,
-                  None if lc is None else lc[f"b{bi}"],
-                  None if split is None else split[f"b{bi}"])
+                  None if lc is None else _block_cache(bt, lc[f"b{bi}"]))
         x, ncs[f"b{bi}"] = apply_block(bt, lp[f"b{bi}"], x, cfg, ctx)
     return act_ctx.constrain_btd(x), ncs
 
@@ -253,7 +264,6 @@ def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
     unit) runs under ``torch.utils.checkpoint`` and keeps no caches (the
     train mode's, which ``forward`` drops)."""
     new_caches = {}
-    split = None if caches is None else act_ctx.cache_split()
     for si, (unit, r) in enumerate(stacks):
         layers = stack_params[f"s{si}"]
         out = []
@@ -264,9 +274,7 @@ def _run_stacks(stack_params, stacks, x, cfg: ModelConfig, ctx_proto: Ctx,
                 ncs = {f"b{bi}": None for bi in range(len(unit))}
             else:
                 lc = None if caches is None else caches[f"s{si}"][li]
-                ls = None if split is None else split[f"s{si}"][li]
-                x, ncs = _apply_unit(x, unit, layers[li], lc, cfg, ctx_proto,
-                                     ls)
+                x, ncs = _apply_unit(x, unit, layers[li], lc, cfg, ctx_proto)
             out.append(ncs)
         new_caches[f"s{si}"] = out
     return x, new_caches

@@ -16,8 +16,9 @@ Megatron's pair of them:
   whole output's gradient.
 
 :func:`shards` hands a block its weights with the ``model`` shard kept
-where the rule splits them (``launch.sharding.model_dim``), gathered over
-the data-parallel axes as ``act_ctx.materialize`` gathers every weight;
+where their placements split them (``act_ctx.model_split_dim``; the
+placements are ``launch.sharding.param_spec``'s rule), gathered over the
+data-parallel axes as ``act_ctx.materialize`` gathers every weight;
 their gradients go back into their own placement with a reduce-scatter
 over ``data`` only.  A weight a block needs whole but uses on its own
 heads only (``wk`` / ``wv`` where the kv heads do not divide, ``q_norm``,
@@ -32,7 +33,6 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Shard
 
 from . import act_ctx
 
@@ -41,10 +41,7 @@ AXIS = "model"
 
 def size() -> int:
     """The ``model`` ranks a block splits its products over (1: none)."""
-    m = act_ctx.mesh()
-    if m is None or AXIS not in m.mesh_dim_names or AXIS in act_ctx.dp_axes():
-        return 1
-    return act_ctx.axis_size(m, AXIS)
+    return act_ctx.model_size()
 
 
 def rank() -> int:
@@ -54,23 +51,6 @@ def rank() -> int:
 
 def group():
     return act_ctx.mesh().get_group(AXIS)
-
-
-def split_dim(name: str, t) -> int | None:
-    """The dim of parameter leaf ``t`` (named ``name``) that this rank holds
-    a ``model`` shard of under the sharding rule, or None (tensor
-    parallelism off, a plain tensor, or a leaf the rule keeps whole).  A
-    DTensor placed otherwise than the rule says raises."""
-    if size() == 1 or not isinstance(t, DTensor):
-        return None
-    from repro_torch.launch.sharding import model_dim
-    dim = model_dim(name, t, t.device_mesh)
-    held = t.placements[t.device_mesh.mesh_dim_names.index(AXIS)]
-    want = Shard(dim) if dim is not None else None
-    if (held if held.is_shard() else None) != want:
-        raise ValueError(f"{name} {tuple(t.shape)} is placed {held} over "
-                         f"{AXIS!r}; the sharding rule says {want}")
-    return dim
 
 
 def shards(p: dict, keep: tuple = (), partial: tuple = ()) -> dict:

@@ -66,17 +66,26 @@ def init_opt_state(params: Any) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+_NORM_CHUNK = 1 << 24
+
+
 @torch.no_grad()
 def global_norm(tree: Any) -> torch.Tensor:
     """The norm of the logical tree: over DTensor leaves, each rank sums
     the squares of the shards it counts (one replica of each) and the sums
-    are reduced over the ranks."""
+    are reduced over the ranks.  The squares are summed in f64, so that
+    the norm, and the clip scale made from it, do not depend on how the
+    leaves are sharded (f32 sums in another order round otherwise)."""
     leaves = tree_leaves(tree)
     dev = act_ctx.local(leaves[0]).device
-    sq = sum((torch.sum(torch.square(act_ctx.local(leaf).float()))
-              for leaf in leaves if act_ctx.counts_once(leaf)),
-             torch.zeros((), dtype=torch.float32, device=dev))
-    return torch.sqrt(act_ctx.reduce_logical(leaves, sq))
+    sq = torch.zeros((), dtype=torch.float64, device=dev)
+    for leaf in leaves:
+        if act_ctx.counts_once(leaf):
+            # a chunk at a time: the f64 sum casts its input
+            for c in torch.square(act_ctx.local(leaf).float()).reshape(
+                    -1).split(_NORM_CHUNK):
+                sq = sq + torch.sum(c, dtype=torch.float64)
+    return torch.sqrt(act_ctx.reduce_logical(leaves, sq)).float()
 
 
 @torch.no_grad()

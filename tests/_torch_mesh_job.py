@@ -47,6 +47,7 @@ from repro_torch.models.model import activation_sharding
 from repro_torch.serve import step as serve_step
 from repro_torch.train import (AdamWConfig, init_opt_state, init_residual,
                                make_train_step)
+from repro_torch.train import step as train_step_mod
 from repro_torch.tree import tree_leaves, tree_map, tree_paths
 
 EP_ARCHS = {"qwen3-moe-235b-a22b": False, "arctic-480b": True}
@@ -159,18 +160,79 @@ def case_ep(mesh, d: str, arch: str) -> dict:
                 for name, a, b in zip(names, g, g_sp)}}
 
 
-def _no_mesh_run(cfg, opt_cfg, kw: dict, params, states: int):
-    """TRAIN_STEPS steps without a mesh from a copy of ``params``."""
+@contextlib.contextmanager
+def _mesh_order(n: int, tp: int):
+    """Under it, the no-mesh train step groups its sums as a mesh of ``n``
+    data ranks and ``tp`` model ranks groups them, with the same products:
+
+    * each microbatch's loss is the mean of the losses of its ``n`` blocks
+      of rows (``shard_rows``' blocks, one a data rank), each block its own
+      forward, so that a weight's gradient is the sum of the blocks' (the
+      mesh's reduction over ``data``);
+    * each attention and MLP block is summed over ``tp`` parts in rank
+      order, as the model ranks sum theirs: the MLP's hidden units and
+      attention's q heads in ``tp`` slices, the kv heads too where they
+      divide (else every part reads them all), each part's output through
+      its rows of ``wo``, and each part's gradient of its input summed
+      apart before the parts' are (``tensor_parallel.copy``)."""
+    attention, mlp = blocks.apply_attention, blocks.apply_mlp
+    loss = train_step_mod.loss_fn
+
+    def cols(w, i):
+        c = w.shape[-1] // tp
+        return w[:, i * c:(i + 1) * c]
+
+    def split_mlp(p, x):
+        out = None
+        for i in range(tp):
+            y = mlp({"wi": cols(p["wi"], i), "wg": cols(p["wg"], i),
+                     "wo": cols(p["wo"].T, i).T}, x.view_as(x))
+            out = y if out is None else out + y
+        return out
+
+    def split_attention(p, x, cfg, ctx, **kw):
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        assert ctx.mode == "train" and h % tp == 0, (ctx.mode, h)
+        nk = kv // tp if kv % tp == 0 else kv
+        part = dataclasses.replace(cfg, n_heads=h // tp, n_kv_heads=nk,
+                                   head_dim=cfg.hd)
+        out = None
+        for i in range(tp):
+            pi = dict(p, wq=cols(p["wq"], i), wo=cols(p["wo"].T, i).T)
+            if nk < kv:
+                pi.update(wk=cols(p["wk"], i), wv=cols(p["wv"], i))
+            y = attention(pi, x.view_as(x), part, ctx, **kw)[0]
+            out = y if out is None else out + y
+        return out, None
+
+    def block_loss(params, cfg, tokens, memory=None):
+        assert memory is None
+        return sum(loss(params, cfg, t) for t in tokens.tensor_split(n)) / n
+
+    blocks.apply_attention, blocks.apply_mlp = split_attention, split_mlp
+    train_step_mod.loss_fn = block_loss
+    try:
+        yield
+    finally:
+        blocks.apply_attention, blocks.apply_mlp = attention, mlp
+        train_step_mod.loss_fn = loss
+
+
+def _no_mesh_run(cfg, opt_cfg, kw: dict, params, states: int,
+                 order=contextlib.nullcontext):
+    """TRAIN_STEPS steps without a mesh from a copy of ``params``, under
+    ``order()`` (:func:`_mesh_order`)."""
     p = tree_map(torch.clone, params)
     o = init_opt_state(p)
     if kw.get("compress"):
         o["residual"] = init_residual(p)
     step = make_train_step(cfg, opt_cfg, **kw)
     rng = np.random.default_rng(states)
-    for _ in range(TRAIN_STEPS):
-        toks = rng.integers(2, cfg.vocab, size=(TRAIN_B, TRAIN_T1)
-                            ).astype(np.int32)
-        p, o, _ = step(p, o, {"tokens": torch.from_numpy(toks)})
+    with order():
+        for _ in range(TRAIN_STEPS):
+            toks = rng.integers(2, cfg.vocab, size=(TRAIN_B, TRAIN_T1)
+                                ).astype(np.int32)
+            p, o, _ = step(p, o, {"tokens": torch.from_numpy(toks)})
     return p
 
 
@@ -178,9 +240,10 @@ def train_case(mesh, arch: str, kw: dict) -> dict:
     """Three steps under the mesh against the same three without one, from
     the same parameters: losses and every parameter and moment.  Where the
     step microbatches or compresses, also the spread of the no-mesh step
-    itself between two orderings of the same sums: ``microbatches`` and
-    ``microbatches`` times the data-parallel shards (the mesh's grouping of
-    rows into per-rank products)."""
+    itself between two orderings of the same sums: its own, and the mesh's
+    (:func:`_mesh_order`: the rows grouped into the data ranks' products,
+    and the attention and MLP products into the model ranks' partial
+    sums)."""
     cfg = reduced(get_config(arch))
     compress = kw.get("compress", False)
     opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
@@ -232,29 +295,13 @@ def train_case(mesh, arch: str, kw: dict) -> dict:
                                               tree_leaves(y))]
             for k, x, y in (("params", p, ref_p), ("m", o["m"], ref_o["m"]),
                             ("v", o["v"], ref_o["v"]))}
-    noise, alt_p = 0.0, None
+    noise = 0.0
     if n > 1 and (kw.get("microbatches", 1) > 1 or compress):
-        alt = dict(kw, microbatches=kw.get("microbatches", 1) * n)
-        alt_p = tree_leaves(_no_mesh_run(cfg, opt_cfg, alt, params_copy, 5))
+        alt_p = _no_mesh_run(cfg, opt_cfg, kw, params_copy, 5, lambda: (
+            _mesh_order(n, act_ctx.axis_size(mesh, "model"))))
         noise = max(float((a - b).abs().max()) for a, b in
-                    zip(alt_p, tree_leaves(ref_p)))
-    # the elements past max(1e-5, spread) of the no-mesh step, less the
-    # parameters within 1e-5 of the no-mesh step at the mesh's own grouping
-    # of rows (alt_p), which are counted apart
-    bound, outside, on_alt = max(1e-5, noise), 0, 0
-    for k, pairs in full.items():
-        for j, (a, b) in enumerate(pairs):
-            far = (a - b).abs() > bound
-            if k == "params" and alt_p is not None:
-                near = (a - alt_p[j]).abs() <= 1e-5
-                on_alt += int((far & near).sum())
-                far &= ~near
-            outside += int(far.sum())
-    return {"no_mesh_spread": noise, "outside_bound": outside,
-            "past_spread_on_alt": on_alt,
-            "max_abs_vs_alt": None if alt_p is None else max(
-                float((_full(a) - c).abs().max())
-                for a, c in zip(tree_leaves(p), alt_p)),
+                    zip(tree_leaves(alt_p), tree_leaves(ref_p)))
+    return {"no_mesh_spread": noise,
             "losses": [float(x) for x in losses],
             "ref_losses": [float(x) for x in ref_losses],
             "max_abs_loss": max(float((a - b).abs()) for a, b in
@@ -463,12 +510,9 @@ def _serve_block(mesh, run: str) -> dict:
             pos = torch.arange(t, dtype=torch.int32)[None].expand(
                 BLOCK_B, t) if i == 0 else torch.full(
                 (BLOCK_B, 1), t + i - 1, dtype=torch.int32)
-            with act_ctx.rank_caches(cache) as mine:
-                ctx = blocks.Ctx(mode, _my_rows(pos, mesh), memory, mine,
-                                 act_ctx.cache_split())
-                y, new = blocks.apply_attention(
-                    p, _my_rows(x, mesh), cfg, ctx, window=window,
-                    cross=cross)
+            ctx = blocks.Ctx(mode, _my_rows(pos, mesh), memory, cache)
+            y, new = blocks.apply_attention(p, _my_rows(x, mesh), cfg, ctx,
+                                            window=window, cross=cross)
             cache = new if mesh is None else tree_map(act_ctx.like, cache,
                                                       new)
             out[f"y{i}"] = _whole_rows(y, mesh).numpy()
@@ -538,7 +582,29 @@ def case_blocks(mesh, d: str) -> dict:
             np.savez(os.path.join(d, f"block_{run}.npz"),
                      **{f"mesh/{k}": v for k, v in got.items()},
                      **{f"port/{k}": v for k, v in want.items()})
-    return {"runs": sorted(runs)}
+    return {"runs": sorted(runs), "plain_caches": _plain_caches(mesh)}
+
+
+def _plain_caches(mesh) -> str:
+    """What attention says when it is handed its ring's local shards (case
+    B, a ring split by length) instead of the placed cache: the error's
+    text, or "" where it computes."""
+    name, _, window, length, t, _ = SERVE_BLOCKS["B"]
+    cfg = block_config(name, get_config, reduced)
+    p = _block_params(block_inputs("B", cfg, 1, t), mesh)
+    cache = blocks.init_attention_cache(cfg, BLOCK_B, length, torch.float32,
+                                        "cpu")
+    cache = place(cache, cache_shardings(mesh, cache, BLOCK_B), mesh)
+    pos = torch.full((BLOCK_B, 1), t, dtype=torch.int32)
+    with torch.no_grad(), activation_sharding(mesh, batch=BLOCK_B):
+        try:
+            blocks.apply_attention(
+                p, _my_rows(torch.zeros(BLOCK_B, 1, cfg.d_model), mesh), cfg,
+                blocks.Ctx("decode", _my_rows(pos, mesh), None,
+                           tree_map(act_ctx.local, cache)), window=window)
+        except ValueError as e:
+            return str(e)
+    return ""
 
 
 def case_layer_collectives(mesh) -> dict:

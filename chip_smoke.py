@@ -278,10 +278,23 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    Hkv / 16 kv heads, or the one kv head they group into where Hkv does
    not divide; each layer kind's causal, window and soft-cap; B 1, T = S
    = 4,096, bf16), each against the twin within ``FLASH_TOL`` and
-   ``BLOCK_REL_TOL``, its card ms beside its bound and beside the
-   whole-head call's on the same card; recorded in flash's
-   ``tp16_shapes`` (its launches, comparisons alone, in
-   ``tp16_launches``, not in ``launches``).
+   ``BLOCK_REL_TOL``, its card ms beside its bound, beside the whole-head
+   call's on the same card and, where there is no soft-cap, beside
+   ``scaled_dot_product_attention``'s on the same inputs (kv heads
+   expanded, the same boolean mask); recorded in flash's ``tp16_shapes``
+   (its launches, comparisons alone, in ``tp16_launches``, not in
+   ``launches``).
+9d (after phase 9). The RG-LRU scan at a rank's channels under a 16-way
+   ``model`` axis (``RGLRU_TP_SHAPES``: recurrentgemma-9b's W = 4,096 split
+   to 256, f32): the forward kernel at B 4, T 4,096 with h0 and at the
+   prefill_32k rank's B 2, T 32,768; the backward kernel at the training
+   shape's B 2, T 2,048 and at the train_4k rank's B 16, T 4,096 (g, a and
+   the forward kernel's states).  Each ``torch.equal`` to its twin on the
+   card, its ``scan_path``, its CUDA-event ms beside its bound (forward:
+   read u, a, h0, write the states and h_last; backward: read g, a, h,
+   write du, da) and the twin's, and the whole-width call's ms on the same
+   card; recorded in the scan's ``tp16_shapes`` (launches, comparisons
+   alone, by direction in ``tp16_launches``, not in ``launches``).
 12. (printed last) A text line with the three redesigned kernels' earlier
    times, copied from PERF.md and marked so, beside this run's; a
    ``{"training": ...}`` line with phases 13 to 16b; a ``{"kernels":
@@ -1944,7 +1957,10 @@ def flash_bound(torch, dev, b, h, tq, s, hd, dtype, kw, nbytes):
 
 def flash_tp_shapes(torch, dev, card) -> list[dict]:
     """Phase 9c: FLASH_TP_ARCHS' per-rank flash calls against the twin, and
-    their card time beside the whole-head call's."""
+    their card time beside the whole-head call's and, without a soft-cap,
+    SDPA's on the same inputs (the kv heads expanded to the q heads, the
+    same boolean mask)."""
+    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_torch)
@@ -1978,23 +1994,114 @@ def flash_tp_shapes(torch, dev, card) -> list[dict]:
             whole_ms = median_ms(torch, lambda: flash_attention_cuda(
                 qw, kw_, vw, **kw))
             del qw, kw_, vw
+            lib_ms = None
+            if not kw["softcap"]:
+                kx, vx = (x[:, :, None].expand(1, nkv, nq // nkv, t, hd)
+                          .reshape(1, nq, t, hd) for x in (k, v))
+                mask = flash_mask(torch, dev, t, t, kw)
+                lib_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, kx, vx, attn_mask=mask, scale=kw["scale"]))
+                del kx, vx, mask
             opts = {k: kw[k] for k in ("causal", "window", "softcap")}
             out.append({"arch": arch, "layer": kind, "q_heads": nq,
                         "kv_heads": nkv, "whole_q_heads": cfg.n_heads,
                         "whole_kv_heads": cfg.n_kv_heads, "hd": hd,
                         "t": t, **opts, "max_abs_err": err, "tol": tol,
                         "block_rel_err": rel, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": by, "flop": ops, "whole_ms": whole_ms,
-                        "whole_over_tp": whole_ms / ms})
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bound, "bound_by": by, "flop": ops,
+                        "whole_ms": whole_ms, "whole_over_tp": whole_ms / ms})
+            lib = "none (soft-cap)" if lib_ms is None else \
+                f"{lib_ms:.4f} ms"
             print(f"flash {name}: {nq} / {nkv} heads of {cfg.n_heads} / "
                   f"{cfg.n_kv_heads}, hd {hd}, T = S = {t}, bf16 {opts}: "
                   f"within {tol} (max abs err {err:.3g}, block relative "
                   f"error {rel:.3g} <= {rel_tol}); kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"plain {plain_ms:.4f} ms, sdpa {lib}, bound {bound:.4f} ms "
                   f"({100 * bound / ms:.0f} %), whole-head call "
                   f"{whole_ms:.4f} ms ({whole_ms / ms:.2f}x) [{card}]",
                   flush=True)
+    return out
+
+
+# Phase 9d: the RG-LRU scan at a rank's channels under a 16-way model axis
+# (blocks.apply_rglru splits recurrentgemma-9b's W = 4,096 into 256 a rank):
+# (direction, name, B, T, W, h0), the rank's rows of each cell's batch over
+# data 16 (prefill_32k 32 -> 2, train_4k 256 -> 16), each beside the
+# whole-width call on the same card.
+RGLRU_TP = 16
+RGLRU_TP_SHAPES = (
+    ("forward", "headline", 4, 4096, 4096, True),
+    ("forward", "prefill_32k rank", 2, 32768, 4096, False),
+    ("backward", "training", 2, 2048, 4096, False),
+    ("backward", "train_4k rank", 16, 4096, 4096, False))
+
+
+def rglru_tp_shapes(torch, dev, card) -> list[dict]:
+    """Phase 9d: the scan's forward and backward kernels at RGLRU_TP_SHAPES'
+    per-rank width W / RGLRU_TP, each ``torch.equal`` to its twin on the
+    card, its path, its CUDA-event ms beside its bound and the twin's, and
+    the whole-width call's ms on the same card."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan_backward_cuda,
+                                                rglru_scan_backward_torch,
+                                                rglru_scan_cuda,
+                                                rglru_scan_torch, scan_path)
+    out = []
+    for i, (way, name, b, t, w, with_h0) in enumerate(RGLRU_TP_SHAPES):
+        wl = w // RGLRU_TP
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31 + i)
+
+        def inputs(width):
+            u = torch.randn((b, t, width), generator=gen, device=dev)
+            a = torch.rand((b, t, width), generator=gen, device=dev)
+            h0 = torch.randn((b, width), generator=gen, device=dev) \
+                if with_h0 else None
+            if way == "forward":
+                return (u, a, h0)
+            g = torch.randn((b, t, width), generator=gen, device=dev)
+            return (g, a, rglru_scan_cuda(u, a)[0])
+
+        args = inputs(wl)
+        kernel, twin = (rglru_scan_cuda, rglru_scan_torch) if way == \
+            "forward" else (rglru_scan_backward_cuda,
+                            rglru_scan_backward_torch)
+        path = scan_path(*args[:2]) if way == "forward" else scan_path(*args)
+        got, want = kernel(*args), twin(*args)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        if not all(map(torch.equal, got, want)):
+            raise AssertionError(f"rglru {way} tp{RGLRU_TP} {name}: kernel "
+                                 f"({path}) != twin (max abs err {err})")
+        del got, want
+        ms = median_ms(torch, lambda: kernel(*args))
+        plain_ms = median_ms(torch, lambda: twin(*args), reps=3, warmup=1)
+        n = b * t * wl
+        if way == "forward":
+            nbytes, ops = (3 * n + (2 if with_h0 else 1) * b * wl) * 4, 2 * n
+        else:
+            nbytes, ops = 5 * n * 4, 3 * n
+        byte_ms, op_ms = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+        bound = max(byte_ms, op_ms)
+        del args
+        whole = inputs(w)
+        whole_ms = median_ms(torch, lambda: kernel(*whole))
+        del whole
+        torch.cuda.empty_cache()
+        res = {"direction": way, "case": name, "b": b, "t": t, "w": wl,
+               "whole_w": w, "h0": with_h0, "path": path,
+               "max_abs_err": err, "equal": True, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+               "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+               "bytes": nbytes, "share": bound / ms, "whole_ms": whole_ms,
+               "whole_over_tp": whole_ms / ms}
+        out.append(res)
+        print(f"rglru {way} tp{RGLRU_TP} {name}: B={b} T={t} W={wl} of {w} "
+              f"f32 {'with' if with_h0 else 'no'} h0: path {path}, "
+              f"torch.equal to the twin; kernel {ms:.4f} ms, plain (the "
+              f"twin's loop) {plain_ms:.2f} ms, library none, bound "
+              f"{bound:.4f} ms ({res['bound_by']}: {nbytes} bytes), "
+              f"{res['share']:.1%} of bound; whole-width call {whole_ms:.4f} "
+              f"ms ({whole_ms / ms:.2f}x) [{card}]", flush=True)
     return out
 
 
@@ -3648,6 +3755,16 @@ def main() -> int:
           f"{flash_tp_launches} launches ({time.perf_counter() - t0:.1f} s) "
           f"[{card}]", flush=True)
     rglru_cases = rglru_vs_plain(torch, dev)
+    from repro_torch.kernels.rglru_scan import (rglru_scan_backward_cuda,
+                                                rglru_scan_cuda)
+    rglru_scan_cuda.launches = rglru_scan_backward_cuda.launches = 0
+    t0 = time.perf_counter()
+    scan_tp = rglru_tp_shapes(torch, dev, card)
+    scan_tp_launches = {"forward": rglru_scan_cuda.launches,
+                        "backward": rglru_scan_backward_cuda.launches}
+    print(f"scan at tp {RGLRU_TP}: {len(scan_tp)} per-rank shapes, "
+          f"{scan_tp_launches} launches ({time.perf_counter() - t0:.1f} s) "
+          f"[{card}]", flush=True)
     dispatch = op_dispatch(torch, dev)
     lm_consistency(torch, dev)
     torch.cuda.empty_cache()
@@ -3787,6 +3904,8 @@ def main() -> int:
                                           "burst_ms", "unaligned_ms",
                                           "share")},
         "headline": {k: rglru_cases[0][k] for k in ("b", "t", "w", "path")},
+        "tp16_launches": scan_tp_launches,
+        "tp16_shapes": scan_tp,
         "cases": [{k: c[k] for k in ("case", "b", "t", "w", "h0", "path",
                                      "max_abs_err", "ms", "burst_ms",
                                      "host_us", "unaligned_ms",

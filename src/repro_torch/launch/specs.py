@@ -16,19 +16,20 @@ as the output placements say: the next tokens as a DTensor over the rows,
 the caches as DTensors placed as they came, the train step's parameters and
 state in place and its metrics as plain scalars.
 
-Under the ``2d`` and ``tp`` policies the attention and MLP products are
-tensor-parallel over ``model`` (``models/tensor_parallel.py``), and the
-attention caches (``k``, ``v``, ``pos``, and cross-attention's ``k`` and
-``v``) take the ``model`` entries ``cache_spec`` gives them: kv heads, or
-the ring's (the memory's) length where the heads do not divide.  Three
-departures from the reference remain:
+Under the ``2d`` and ``tp`` policies the attention, MLP and RG-LRU
+products and the vocabulary are tensor-parallel over ``model``
+(``models/tensor_parallel.py``), and the attention caches (``k``, ``v``,
+``pos``, and cross-attention's ``k`` and ``v``) and the RG-LRU's states
+(``conv``, ``h``) take the ``model`` entries ``cache_spec`` gives them: kv
+heads, or the ring's (the memory's) length where the heads do not divide;
+the states' channels.  Three departures from the reference remain:
 
-* the recurrent states (RG-LRU ``conv`` and ``h``, the mLSTM's and the
-  sLSTM's) stay whole over ``model``, whose blocks are not tensor-parallel
-  yet: their ``model`` entries are stripped;
+* the xLSTM states (the mLSTM's ``C``, ``n``, ``m``, the sLSTM's ``c``,
+  ``n``, ``m``) stay whole over ``model``, whose blocks are not
+  tensor-parallel yet: their ``model`` entries are stripped;
 * attention whose q heads do not divide over ``model`` (minicpm-2b's 36,
-  arctic's 56 at 16) computes every head on every model rank with its
-  weights gathered, where GSPMD splits those columns inside a head;
+  arctic's 56 at 16; case C) computes every head on every model rank with
+  its weights gathered, where GSPMD splits those columns inside a head;
 * ``zero3`` spends ``model`` on the batch, so no cache entry names it.
 """
 from __future__ import annotations
@@ -51,8 +52,8 @@ from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
 from . import sharding as sh
 
 META = torch.device("meta")
-# the attention caches' leaves, which keep their model entries
-ATTN_CACHE = ("k", "v", "pos")
+# the cache leaves that keep their model entries: attention's, the RG-LRU's
+SPLIT_CACHE = ("k", "v", "pos", "conv", "h")
 
 
 def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16):
@@ -95,6 +96,18 @@ def input_specs(arch: str | ModelConfig, shape: str | ShapeSpec
     # decode: one new token against a cache of seq_len
     return "decode", {"tokens": ints(b, 1), "pos": ints(b),
                       "caches": cache_shapes(cfg, b, t)}
+
+
+def cache_specs(mesh, caches, batch: int, policy: str = "2d"):
+    """The caches' specs as the bound steps place them: ``cache_spec``'s,
+    with the ``model`` entries stripped from the xLSTM states and, under
+    ``zero3``, from every leaf (see the module docstring).  ``mesh``: a
+    ``DeviceMesh`` or an abstract one (``launch.sharding.MeshShape``)."""
+    return tree_unflatten(caches, [
+        spec if policy != "zero3" and path.rsplit("/", 1)[-1] in SPLIT_CACHE
+        else sh.strip_axis(spec, sh.TP)
+        for path, spec in zip(tree_paths(caches), tree_leaves(
+            sh.cache_shardings(mesh, caches, batch)))])
 
 
 def _bind(fn, mesh, policy: str, batch: int, row_pl: list,
@@ -175,12 +188,7 @@ def make_step_and_specs(arch: str | ModelConfig, shape: str | ShapeSpec,
                                  "loss": repl})
         return step, args, in_pl, out_pl, donate_argnums
 
-    # the recurrent states' model entries are stripped: see the docstring
-    c_pl = pl(tree_unflatten(shapes["caches"], [
-        spec if policy != "zero3" and path.rsplit("/", 1)[-1] in ATTN_CACHE
-        else sh.strip_axis(spec, sh.TP)
-        for path, spec in zip(tree_paths(shapes["caches"]), tree_leaves(
-            sh.cache_shardings(mesh, shapes["caches"], b)))]))
+    c_pl = pl(cache_specs(mesh, shapes["caches"], b, policy))
     tok_pl = data_pl(shapes["tokens"])
     if kind == "prefill":
         step = _bind(step, mesh, policy, b, row_pl,

@@ -21,13 +21,14 @@ query-chunked ``_attend`` in torch ops.  Decode attention, the one-step
 RG-LRU update, the MoE dispatch and the xLSTM recurrences stay plain torch,
 as the reference keeps them in XLA (a Python loop stands for ``lax.scan``).
 
-Under a mesh the attention, MLP and MoE blocks take their parameters as
-the model holds them (DTensors) and gather them themselves: each keeps the
-``model`` shard of the weights it splits over that axis (the MLP's hidden
-units, attention's heads by :func:`attention_heads`, MoE's experts) and
-sums its partial output over ``model`` (``tensor_parallel``).  Attention
-takes its caches placed too, and reads from their placements which share
-of each leaf is its own.
+Under a mesh the attention, MLP, MoE and RG-LRU blocks take their
+parameters as the model holds them (DTensors) and gather them themselves:
+each keeps the ``model`` shard of the weights it splits over that axis (the
+MLP's hidden units, attention's heads by :func:`attention_heads`, MoE's
+experts, the RG-LRU's channels) and sums its partial output over ``model``
+(``tensor_parallel``).  Attention and the RG-LRU take their caches placed
+too, and read from their placements which share of each leaf is their
+own.
 
 Types follow JAX's promotion: :func:`mm` multiplies mixed-type operands in
 the wider type (f32 caches meet bf16 weights at decode), and elementwise ops
@@ -309,7 +310,7 @@ def _whole_positions(cpos: torch.Tensor) -> torch.Tensor:
     """The ring's positions gathered over ``model``: the mask of a ring
     whose k and v are split by heads reads every slot's position, and the
     ``pos`` leaf is split by length (``cache_spec``)."""
-    return tensor_parallel.gather(cpos, 1)
+    return tensor_parallel.all_gather(cpos, 1)
 
 
 def _attend_split_ring(q, k, v, mask, cfg: ModelConfig, heads: Heads
@@ -325,7 +326,7 @@ def _attend_split_ring(q, k, v, mask, cfg: ModelConfig, heads: Heads
     S_loc, Hkv, hd)``; mask: ``(B, T, S_loc)`` or ``(T, S_loc)``.  Returns
     this rank's heads, ``(B, T, nq * hd)``."""
     if heads.split:
-        q = tensor_parallel.gather(q, 2)
+        q = tensor_parallel.all_gather(q, 2)
     b, t, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, t, kv, h // kv, hd)
@@ -671,23 +672,78 @@ def init_rglru(cfg: ModelConfig, dense: Dense, dtype: torch.dtype,
             "wo": dense((w, d), dtype)}
 
 
+def _rglru_split(p: dict) -> bool:
+    """Whether the RG-LRU block with parameters ``p`` (as the model holds
+    them) splits its channels over ``model``: its placements split ``wx`` /
+    ``wy`` by columns and ``wo`` by rows (``param_spec``'s rule, where the
+    width divides)."""
+    dim = act_ctx.model_split_dim
+    return (tensor_parallel.size() > 1 and dim(p["wx"]) == 1
+            and dim(p["wy"]) == 1 and dim(p["wo"]) == 0)
+
+
+def _rglru_state(cache: dict, split: bool) -> dict:
+    """The block's states as this rank's local tensors.  Split over
+    ``model``, the states come placed (``cache_spec``: their channels over
+    ``model``), and a rank's are its channels; plain tensors raise there,
+    since their shape cannot say whether they are a shard."""
+    if not split:
+        return {k: act_ctx.local(v) for k, v in cache.items()}
+    if not all(isinstance(v, DTensor) for v in cache.values()):
+        raise ValueError("under tensor parallelism the RG-LRU takes its "
+                         "caches placed (DTensors), not their local shards")
+    dims = {k: act_ctx.model_split_dim(v) for k, v in cache.items()}
+    if dims != {k: v.dim() - 1 for k, v in cache.items()}:
+        raise ValueError(f"RG-LRU states split over 'model' on {dims}, not "
+                         f"on their channels")
+    return {k: act_ctx.local(v) for k, v in cache.items()}
+
+
 def apply_rglru(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
-    """RecurrentGemma recurrent block: proj -> causal conv -> RG-LRU -> gate."""
+    """RecurrentGemma recurrent block: proj -> causal conv -> RG-LRU -> gate.
+
+    ``p`` and ``ctx.cache``: as the model holds them (DTensors under a
+    mesh).  Where :func:`_rglru_split`, rank ``r`` of ``tp`` computes
+    channels ``[r Wl, (r + 1) Wl)``, ``Wl = W / tp``: ``wx`` / ``wy`` keep
+    their column shard and ``wo`` its row shard, the conv's taps and
+    ``a_log`` are sliced, and the scan runs on ``(B, T, Wl)``; the states
+    are the rank's channels.  The gates ``wga`` / ``wgx`` are dense ``W x W``
+    and not split by their placements, so each channel's gate reads the
+    whole conv output: the ranks' conv outputs are all-gathered
+    (``tensor_parallel.all_gather``) and multiplied by the gates' ``Wl``
+    columns, gathered whole with their gradient summed over ``model``.  The
+    other way, a partial product ``conv_r @ wg[rows]`` reduce-scattered to
+    the rank's columns, moves the two gates' ``2 W`` columns where the
+    gather moves ``W``, and would sum each gate's dot product over ranks.
+    The output's partial sums over ``wo``'s rows meet over ``model``."""
+    split = _rglru_split(p)
+    w = tensor_parallel.shards(p, keep=("wx", "wy", "wo"),
+                               partial=("conv", "a_log", "wga", "wgx")) \
+        if split else act_ctx.materialize(p)
+    conv_w, a_log, wga, wgx = w["conv"], w["a_log"], w["wga"], w["wgx"]
+    if split:
+        x = tensor_parallel.copy(x)
+        n = w["wx"].shape[1]
+        cols = slice(tensor_parallel.rank() * n,
+                     (tensor_parallel.rank() + 1) * n)
+        conv_w, a_log, wga, wgx = (conv_w[:, cols], a_log[cols],
+                                   wga[:, cols], wgx[:, cols])
     t = x.shape[1]
-    u = mm(x, p["wx"])                                       # (B,T,W)
-    gate = F.gelu(mm(x, p["wy"]), approximate="tanh")        # jax.nn.gelu
-    cache = ctx.cache or {}
+    u = mm(x, w["wx"])                                       # (B,T,W)
+    gate = F.gelu(mm(x, w["wy"]), approximate="tanh")        # jax.nn.gelu
+    cache = _rglru_state(ctx.cache, split) if ctx.cache else {}
     cw = cfg.conv_width
     if ctx.mode == "decode" and "conv" in cache:
         hist = torch.cat([cache["conv"], u], dim=1)          # (B, cw-1+T, W)
     else:
         hist = F.pad(u, (0, 0, cw - 1, 0))
-    conv = sum(hist[:, i: i + t] * p["conv"][i][None, None]
+    conv = sum(hist[:, i: i + t] * conv_w[i][None, None]
                for i in range(cw))
-    ga = torch.sigmoid(mm(conv, p["wga"]))
-    gx = torch.sigmoid(mm(conv, p["wgx"]))
+    whole = tensor_parallel.all_gather(conv, -1) if split else conv
+    ga = torch.sigmoid(mm(whole, wga))
+    gx = torch.sigmoid(mm(whole, wgx))
     c = 8.0
-    log_a = -c * F.softplus(p["a_log"])[None, None] * ga.float()
+    log_a = -c * F.softplus(a_log)[None, None] * ga.float()
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - a ** 2, min=1e-12))
     un = (gx * conv).float() * mult
@@ -699,8 +755,8 @@ def apply_rglru(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
         h = hs[:, -1].clone()          # the cache keeps (B, W), not hs
     new_cache = {"conv": hist[:, -(cw - 1):] if cw > 1 else hist[:, :0],
                  "h": h} if ctx.mode != "train" else None
-    y = mm(hs.to(x.dtype) * gate, p["wo"])
-    return y, new_cache
+    y = mm(hs.to(x.dtype) * gate, w["wo"])
+    return (tensor_parallel.reduce(y) if split else y), new_cache
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,

@@ -14,11 +14,21 @@ the layers in a Python loop.  Under ``activation_sharding(mesh)`` the
 parameters are DTensors, and each layer gathers its own just before it
 computes (``act_ctx.materialize``; the embedding, unembedding and final
 norms once a call), as the reference's layers read their shards through
-GSPMD, except that the attention and MLP blocks keep the ``model`` shard of
-the weights they split (``models/tensor_parallel.py``); each rank runs its
-own batch rows.  The caches come placed too: an attention block reads from
-their placements which shard of each leaf is its own, a recurrent block
-takes its rows of its states (``_block_cache``).
+GSPMD, except that the attention, MLP, MoE and RG-LRU blocks keep the
+``model`` shard of the weights they split, and the embedding and
+unembedding their share of the vocabulary (``models/tensor_parallel.py``);
+each rank runs its own batch rows.  The caches come placed too: the
+attention and RG-LRU blocks read from their placements which shard of each
+leaf is their own, the xLSTM blocks take their rows of their states
+(``_block_cache``).
+
+Under a vocabulary split over ``model`` (a mesh whose ``model`` axis is
+larger than 1 and divides the vocabulary) the logits that :func:`forward`,
+:func:`prefill` and :func:`decode_step` return are this rank's columns,
+ids ``[lo, lo + V / tp)``: they are never gathered.  Their callers take
+the shard: ``serve/step.py`` picks through ``tensor_parallel.argmax``, and
+:func:`loss_fn` computes its own chunks' logits and
+``tensor_parallel.vocab_cross_entropy``.  Elsewhere the logits are whole.
 Where autograd records a train-mode forward, each layer runs under
 ``torch.utils.checkpoint`` (the reference's per-layer ``jax.checkpoint``)
 unless ``remat=False``.  ``enc_stacks`` and caches have the same layout.
@@ -39,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.index.engine import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
-from . import act_ctx, blocks
+from . import act_ctx, blocks, tensor_parallel
 from .act_ctx import activation_sharding  # noqa: F401  (as the reference)
 from .blocks import Ctx
 from .config import ModelConfig
@@ -198,15 +208,16 @@ def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     raise ValueError(btype)
 
 
-_SELF_GATHERED = ("attn", "xattn", "mlp", "moe")
+_SELF_GATHERED = ("attn", "xattn", "mlp", "moe", "rec")
 
 
 def _layer_params(lp: dict) -> dict:
     """One layer's parameters as its blocks compute with them: under a mesh
     gathered into local tensors (``act_ctx.materialize``), except the
-    attention, MLP and MoE blocks', which ``blocks.apply_attention``,
-    ``apply_mlp`` and ``apply_moe`` gather themselves: each keeps the
-    ``model`` shard of the weights it splits (``models/tensor_parallel``).
+    attention, MLP, MoE and RG-LRU blocks', which ``blocks.apply_attention``,
+    ``apply_mlp``, ``apply_moe`` and ``apply_rglru`` gather themselves: each
+    keeps the ``model`` shard of the weights it splits
+    (``models/tensor_parallel``).
     A checkpointed unit calls this again when it is recomputed, and its
     blocks split as they did the first time."""
     if act_ctx.mesh() is None:
@@ -215,26 +226,48 @@ def _layer_params(lp: dict) -> dict:
                  for k, v in bp.items()} for bk, bp in lp.items()}
 
 
-_ATTENTION = ("attn", "local", "enc", "moe", "cross", "self+cross")
+_PLACED_CACHES = ("attn", "local", "enc", "moe", "cross", "self+cross",
+                  "rglru")
 
 
 def _block_cache(btype: str, c):
     """One block's caches as it computes with them: under a mesh the
-    attention blocks take them placed (DTensors) and find their own shards
-    (``blocks.apply_attention``), the recurrent blocks this rank's rows of
-    their states as local tensors."""
-    if c is None or act_ctx.mesh() is None or btype in _ATTENTION:
+    attention and RG-LRU blocks take them placed (DTensors) and find their
+    own shards (``blocks.apply_attention``, ``apply_rglru``), the xLSTM
+    blocks this rank's rows of their states as local tensors."""
+    if c is None or act_ctx.mesh() is None or btype in _PLACED_CACHES:
         return c
     return tree_map(act_ctx.local, c)
 
 
+# the vocabulary's dim of each leaf that holds it
+_VOCAB_DIM = {"embed": 0, "unembed": 1}
+
+
 def _top_params(params: Params) -> Params:
     """``params`` with the embedding, unembedding and final norms gathered
-    under a mesh (the stacks are gathered a layer at a time)."""
+    under a mesh (the stacks are gathered a layer at a time).  Where their
+    placements split the vocabulary over ``model`` (``tensor_parallel``),
+    ``embed`` and ``unembed`` keep that shard: rows of ``embed``, columns
+    of ``unembed``."""
     if act_ctx.mesh() is None:
         return params
-    return {k: v if k in ("stacks", "enc_stacks") else act_ctx.materialize(v)
-            for k, v in params.items()}
+    keep = tuple(k for k, dim in _VOCAB_DIM.items() if k in params
+                 and tensor_parallel.size() > 1
+                 and act_ctx.model_split_dim(params[k]) == dim)
+    top = {k: v for k, v in params.items()
+           if k not in ("stacks", "enc_stacks")}
+    return {**params, **tensor_parallel.shards(top, keep=keep)}
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    """The tokens' rows of ``embed``: through ``tensor_parallel``'s lookup
+    where this rank holds a share of the vocabulary."""
+    table = params["embed"]
+    lo = tensor_parallel.vocab_offset(table.shape[0], cfg.vocab)
+    return table[tokens] if lo is None else \
+        tensor_parallel.vocab_lookup(tokens, table, lo)
 
 
 def _apply_unit(x: torch.Tensor, unit, lp: dict, lc, cfg: ModelConfig,
@@ -285,7 +318,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             memory: Optional[torch.Tensor] = None, mode: str = "train",
             pos: Optional[torch.Tensor] = None, caches=None, enc_caches=None,
             remat: bool = True, return_hidden: bool = False):
-    """Returns (logits, new_caches).  tokens: (B, T) integer.
+    """Returns (logits, new_caches).  tokens: (B, T) integer.  Under a
+    vocabulary split the logits are this rank's columns (the module
+    docstring names their callers).
 
     ``memory``: precomputed frontend embeddings (B, M, D), vision patches
     (vlm) or audio frames (audio); run through the encoder stacks, in
@@ -297,7 +332,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``remat`` changes nothing."""
     b, t = tokens.shape
     params = _top_params(params)
-    x = params["embed"][tokens]
+    x = _embed(params, cfg, tokens)
     if cfg.emb_scale is not None:
         x = x * torch.tensor(cfg.emb_scale, dtype=x.dtype, device=x.device)
     x = act_ctx.constrain_btd(x)
@@ -329,7 +364,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def unembed(params: Params, cfg: ModelConfig, x: torch.Tensor
             ) -> torch.Tensor:
+    """The logits of hidden states ``x``: this rank's columns where it holds
+    a share of the vocabulary (its ``x`` entering the split region through
+    ``tensor_parallel.copy``), else all of them."""
     un = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    if un.shape[1] != cfg.vocab:
+        x = tensor_parallel.copy(x)
     logits = blocks.mm(x, un)
     if cfg.logit_scale is not None:
         logits = logits * cfg.logit_scale
@@ -344,6 +384,10 @@ LOSS_CHUNK = 512  # sequence chunk for the vocab projection + xent
 def _chunk_nll(params: Params, cfg: ModelConfig, h_c: torch.Tensor,
                y_c: torch.Tensor, w_c: torch.Tensor) -> torch.Tensor:
     logits = unembed(params, cfg, act_ctx.constrain_btd(h_c)).float()
+    lo = tensor_parallel.vocab_offset(logits.shape[-1], cfg.vocab)
+    if lo is not None:
+        nll = tensor_parallel.vocab_cross_entropy(logits, y_c, lo)
+        return torch.sum(nll * w_c[None, :])
     if act_ctx.mesh() is not None and "model" not in act_ctx.dp_axes():
         logits = act_ctx.constrain(logits,
                                    (act_ctx.dp_axes(), None, "model"))
@@ -358,7 +402,9 @@ def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Next-token cross entropy (the reference's ``loss_fn``), chunked over
     the sequence so that the (B, C, V) logits of only one chunk are ever
     live: each chunk's unembedding and log-softmax run under
-    ``torch.utils.checkpoint``.  Labels are the tokens rolled by one; the
+    ``torch.utils.checkpoint``.  Under a vocabulary split a chunk's logits
+    are this rank's columns, and ``tensor_parallel.vocab_cross_entropy``
+    combines the ranks' shares.  Labels are the tokens rolled by one; the
     last position, which has no next token, weighs 0; the mean is over
     ``b * (t - 1)``."""
     b, t1 = tokens.shape
@@ -421,7 +467,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step.  tokens: (B, 1); pos: (B,) absolute positions.
     Cross-attention reads its keys and values from the caches prefill
     wrote, so ``memory`` is not needed here (given, with encoder stacks,
-    it runs the encoder again, as the reference does)."""
+    it runs the encoder again, as the reference does).  Its logits are
+    :func:`forward`'s: this rank's columns under a vocabulary split."""
     return forward(params, cfg, tokens, memory=memory, mode="decode",
                    pos=pos[:, None], caches=caches, enc_caches=enc_out)
 
@@ -429,7 +476,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, caches,
             memory=None, last_only: bool = False):
     """last_only=True returns only the final position's logits (the serving
-    path: a full (B, T, 256k-vocab) logits tensor is never needed)."""
+    path: a full (B, T, 256k-vocab) logits tensor is never needed); this
+    rank's columns of them under a vocabulary split, as :func:`forward`'s."""
     params = _top_params(params)
     hidden, new_caches = forward(params, cfg, tokens, memory=memory,
                                  mode="prefill", caches=caches,

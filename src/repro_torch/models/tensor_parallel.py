@@ -1,5 +1,6 @@
 """Tensor parallelism over the mesh's ``model`` axis: the collectives and
-the parameter hook that the attention, MLP and MoE blocks share.
+the parameter hook that the attention, MLP, MoE and RG-LRU blocks and the
+model's vocabulary share.
 
 The reference asks GSPMD to split the attention and MLP products by its
 ``2d`` and ``tp`` rules (``launch.sharding.param_spec``): ``wq`` / ``wk`` /
@@ -23,6 +24,16 @@ their gradients go back into their own placement with a reduce-scatter
 over ``data`` only.  A weight a block needs whole but uses on its own
 heads only (``wk`` / ``wv`` where the kv heads do not divide, ``q_norm``,
 ``k_norm``) is gathered with its gradient partial over ``model``.
+
+The vocabulary splits as ``param_spec`` places ``embed`` ``(model, data)``
+and ``unembed`` ``(data, model)``: a rank holds the rows (columns) of ids
+``[lo, lo + V / tp)``.  :func:`vocab_lookup` embeds ids through that shard,
+:func:`vocab_cross_entropy` is Megatron's cross entropy over logits split
+by columns, and :func:`argmax` is the greedy pick over them; none gathers
+a ``(.., V)`` tensor.  :func:`all_gather` joins activations split along a
+dim (the RG-LRU's conv output, which its dense gates read whole; at decode
+over a ring split by length, attention's q heads and the ring's
+positions).
 
 Tensor parallelism runs where a mesh is installed whose ``model`` axis is
 larger than 1 and is not a data-parallel axis (the ``zero3`` policy spends
@@ -108,18 +119,115 @@ def reduce(y: torch.Tensor, grp=None) -> torch.Tensor:
     return _Reduce.apply(y, grp if grp is not None else group())
 
 
-# ------------------------------------------------- serving-only collectives
-# Decode runs without autograd, so these are plain collectives.
-def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Every model rank's ``x`` concatenated along ``dim``, in rank order
-    (one all-gather over ``model``)."""
-    n = size()
-    x = x.movedim(dim, 0).contiguous()
-    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=group())
-    return out.movedim(0, dim)
+class _AllGather(torch.autograd.Function):
+    """Every model rank's ``x`` joined along ``dim`` in rank order; the
+    backward sums the whole gradient over ``model`` and hands each rank
+    its own slice (a reduce-scatter), since each rank uses the whole on
+    its own share of the work."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        xs = x.movedim(dim, 0).contiguous()
+        out = xs.new_empty((n * xs.shape[0], *xs.shape[1:]))
+        dist.all_gather_into_tensor(out, xs, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        gs = g.movedim(ctx.dim, 0).contiguous()
+        out = gs.new_empty((gs.shape[0] // n, *gs.shape[1:]))
+        dist.reduce_scatter_tensor(out, gs, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
 
 
+def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``dim``, in rank order,
+    under autograd (see :class:`_AllGather`)."""
+    return _AllGather.apply(x, dim % x.dim(), group())
+
+
+# ------------------------------------------------------------ the vocabulary
+def vocab_offset(local: int, vocab: int) -> int | None:
+    """Where this rank's share of a vocabulary of ``vocab`` ids begins, when
+    it holds ``local`` of them: None where it holds them all (no mesh,
+    ``model`` 1, or a vocabulary that ``model`` does not divide, which
+    ``param_spec`` leaves whole)."""
+    return None if local == vocab else rank() * local
+
+
+def vocab_lookup(ids: torch.Tensor, table: torch.Tensor, offset: int
+                 ) -> torch.Tensor:
+    """``embed[ids]`` where this rank holds rows ``[offset, offset + n)`` of
+    ``embed`` as ``table``: the ids it owns looked up, the rest zero, then
+    the sum over ``model``.  Each id has one owner, so the sum adds zeros
+    to its row and the result is the whole table's row exactly."""
+    local = ids.long() - offset
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(own, local, 0)]
+    return reduce(torch.where(own[..., None], rows, 0))
+
+
+class _VocabCrossEntropy(torch.autograd.Function):
+    """Megatron's cross entropy over logits split by columns over ``model``:
+    the max over every rank's columns (an all-reduce MAX), the sum of
+    exponentials over them and the target's logit from its owner (one
+    all-reduce SUM of both).  Returns each position's negative log
+    likelihood, the same on every model rank.  The backward is the rank's
+    columns of ``softmax - onehot``, from the saved softmax."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset, group):
+        mx = logits.amax(dim=-1)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - mx[..., None])
+        local = labels.long() - offset
+        own = (local >= 0) & (local < logits.shape[-1])
+        idx = torch.where(own, local, 0)[..., None]
+        target = torch.where(own, torch.gather(logits, -1, idx)[..., 0], 0.0)
+        sums = torch.stack([e.sum(dim=-1), target])
+        dist.all_reduce(sums, group=group)
+        e /= sums[0][..., None]
+        ctx.save_for_backward(e, idx, own)
+        return torch.log(sums[0]) + mx - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, own = ctx.saved_tensors
+        grad = p.clone()
+        grad.scatter_add_(-1, idx, -own[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        offset: int) -> torch.Tensor:
+    """``-log_softmax(whole logits)[labels]`` for each position, where this
+    rank holds the logits' columns ``[offset, offset + n)`` as ``logits``
+    (f32, ``(..., n)``); ``labels`` are global ids."""
+    return _VocabCrossEntropy.apply(logits, labels, offset, group())
+
+
+def argmax(logits: torch.Tensor, offset: int) -> torch.Tensor:
+    """``torch.argmax`` over the last dim of logits split by columns over
+    ``model``, this rank's ``[offset, offset + n)`` given: the largest value
+    and, where ranks tie, the lowest global id, as ``torch.argmax`` takes
+    the first of equal maxima.  One all-reduce MAX of a key that orders by
+    value, then by the id reversed: the value's f32 bits mapped to an
+    integer of the same order in the high 32 bits, ``2^32 - 1 - id`` in the
+    low ones.  -0.0 is counted as +0.0, as ``torch.argmax`` compares them
+    equal."""
+    i = logits.argmax(dim=-1)
+    v = torch.gather(logits, -1, i[..., None])[..., 0].float()
+    bits = (v + 0.0).view(torch.int32).long()      # + 0.0: -0.0 -> +0.0
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    key = key * 2 ** 32 + (2 ** 32 - 1 - (i + offset))
+    dist.all_reduce(key, op=dist.ReduceOp.MAX, group=group())
+    return 2 ** 32 - 1 - (key & (2 ** 32 - 1))
+
+
+# Decode runs without autograd, so this is a plain collective.
 def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``x`` reduced over ``model`` (a new tensor)."""
     x = x.clone(memory_format=torch.contiguous_format)

@@ -4,17 +4,22 @@
 
 Four ``gloo`` ranks on a 2 x 2 ("data", "model") mesh (a ``FileStore``
 under DIR), then one rank on a 1 x 1 mesh, each on one torch thread.  Reads
-DIR/ep_<arch>.npz (the reference's MoE parameters and an input), writes
-DIR/mesh_2x2.json and DIR/mesh_1x1.json (rank 0's results) and
-DIR/ep_<arch>_out.npy (the expert-parallel output, gathered).  Imports the
-port only.
+DIR/ep_<arch>.npz (the reference's MoE parameters and an input) and
+DIR/vocab_<case>.npz (a reference model's parameters and tokens), writes
+DIR/mesh_2x2.json and DIR/mesh_1x1.json (rank 0's results),
+DIR/ep_<arch>_out.npy (the expert-parallel output, gathered) and
+DIR/vocab_<case>_out.npz (that model's logits, loss and gradients on the
+mesh).  Imports the port only.
 
 Cases: ``to_placements`` round trips; expert-parallel MoE (values and every
 gradient against the single-process ``_apply_moe_xla``); three train steps
 of ``make_train_step`` under the mesh against the same steps without one;
 prefill and decode steps bound by ``launch.specs.make_step_and_specs`` on
 the mesh against the same steps without one (the logits each step
-computes, recorded on the way, and its tokens).
+computes, recorded on the way, and its tokens); the vocabulary split over
+``model`` (a reference model's logits, loss and gradients; the greedy
+pick's ties); the blocks' tensor parallelism, attention's, the MLP's and
+the RG-LRU's; a layer's collectives.
 """
 import contextlib
 import dataclasses
@@ -39,8 +44,9 @@ from repro_torch.launch.sharding import (P, batch_spec, cache_shardings,
                                          opt_shardings, param_shardings,
                                          to_placements)
 from repro_torch.launch.train import row_shard
-from repro_torch.models import (act_ctx, blocks, decode_step, init_caches,
-                                init_params, prefill)
+from repro_torch.models import (act_ctx, blocks, decode_step, forward,
+                                init_caches, init_params, loss_fn,
+                                params_from_jax, prefill, tensor_parallel)
 from repro_torch.models.config import MoEConfig
 from repro_torch.models import model as model_mod
 from repro_torch.models.model import activation_sharding
@@ -48,7 +54,7 @@ from repro_torch.serve import step as serve_step
 from repro_torch.train import (AdamWConfig, init_opt_state, init_residual,
                                make_train_step)
 from repro_torch.train import step as train_step_mod
-from repro_torch.tree import tree_leaves, tree_map, tree_paths
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 EP_ARCHS = {"qwen3-moe-235b-a22b": False, "arctic-480b": True}
 EP_B = 4
@@ -62,17 +68,25 @@ TRAIN_CASES = {"internlm2-1.8b": {"microbatches": 2},
 TRAIN_B, TRAIN_T1, TRAIN_STEPS = 4, 17, 3
 SERVE_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b")
 SERVE_B, SERVE_T, SERVE_LEN, SERVE_STEPS = 4, 12, 16, 3
+# case -> (arch, vocab): tied and untied at a vocabulary 2 divides, and
+# one it does not, which stays whole
+VOCAB_CASES = {"tied": ("recurrentgemma-9b", 512),
+               "untied": ("internlm2-1.8b", 512),
+               "odd": ("recurrentgemma-9b", 513)}
+VOCAB_B, VOCAB_T1 = 4, 17
 
 
 def _full(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def _rows(t: torch.Tensor, mesh) -> torch.Tensor:
+def _rows(t: torch.Tensor, mesh, cols: int | None = None) -> torch.Tensor:
     """A tensor whose rows are split over ``data`` (and the same on every
-    model rank), gathered whole."""
-    return DTensor.from_local(t.contiguous(), mesh,
-                              [Shard(0), Replicate()]).full_tensor()
+    model rank, or split over ``model`` along dim ``cols``), gathered
+    whole."""
+    return DTensor.from_local(t.contiguous(), mesh, [
+        Shard(0), Replicate() if cols is None else Shard(cols)]
+    ).full_tensor()
 
 
 def ep_moe_config(arch: str):
@@ -160,6 +174,60 @@ def case_ep(mesh, d: str, arch: str) -> dict:
                 for name, a, b in zip(names, g, g_sp)}}
 
 
+class _Gathered(torch.autograd.Function):
+    """``tensor_parallel.all_gather`` of ``tp`` ranks' parts in one
+    process: each part's whole, and each part's gradient the sum of the
+    wholes' gradients in rank order, sliced."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        whole = torch.cat(parts, dim=-1)
+        return tuple(whole.clone() for _ in parts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        total = gs[0]
+        for g in gs[1:]:
+            total = total + g
+        return total.tensor_split(len(gs), dim=-1)
+
+
+class _PartsNll(torch.autograd.Function):
+    """``tensor_parallel.vocab_cross_entropy``'s arithmetic over ``tp``
+    ranks' column slices of the logits in one process: the max over the
+    parts, the sums of exponentials and the target's logits summed in rank
+    order; the backward each part's ``softmax - onehot``."""
+
+    @staticmethod
+    def forward(ctx, labels, *parts):
+        n = parts[0].shape[-1]
+        mx = parts[0].amax(dim=-1)
+        for q in parts[1:]:
+            mx = torch.maximum(mx, q.amax(dim=-1))
+        total, target, saved = None, None, []
+        for i, q in enumerate(parts):
+            e = torch.exp(q - mx[..., None])
+            local = labels.long() - i * n
+            own = (local >= 0) & (local < n)
+            idx = torch.where(own, local, 0)[..., None]
+            t = torch.where(own, torch.gather(q, -1, idx)[..., 0], 0.0)
+            total = e.sum(dim=-1) if total is None else total + e.sum(dim=-1)
+            target = t if target is None else target + t
+            saved.append((e, idx, own))
+        ctx.saved = [(e / total[..., None], idx, own)
+                     for e, idx, own in saved]
+        return torch.log(total) + mx - target
+
+    @staticmethod
+    def backward(ctx, g):
+        out = []
+        for p, idx, own in ctx.saved:
+            grad = p.clone()
+            grad.scatter_add_(-1, idx, -own[..., None].to(grad.dtype))
+            out.append(grad * g[..., None])
+        return (None, *out)
+
+
 @contextlib.contextmanager
 def _mesh_order(n: int, tp: int):
     """Under it, the no-mesh train step groups its sums as a mesh of ``n``
@@ -169,18 +237,56 @@ def _mesh_order(n: int, tp: int):
       of rows (``shard_rows``' blocks, one a data rank), each block its own
       forward, so that a weight's gradient is the sum of the blocks' (the
       mesh's reduction over ``data``);
-    * each attention and MLP block is summed over ``tp`` parts in rank
-      order, as the model ranks sum theirs: the MLP's hidden units and
-      attention's q heads in ``tp`` slices, the kv heads too where they
-      divide (else every part reads them all), each part's output through
-      its rows of ``wo``, and each part's gradient of its input summed
-      apart before the parts' are (``tensor_parallel.copy``)."""
+    * each attention, MLP and RG-LRU block is summed over ``tp`` parts in
+      rank order, as the model ranks sum theirs: the MLP's hidden units,
+      attention's q heads and the RG-LRU's channels in ``tp`` slices, the
+      kv heads too where they divide (else every part reads them all), the
+      RG-LRU's gates reading every part's conv output, each part's output
+      through its rows of ``wo``, and each part's gradient of its input
+      summed apart before the parts' are (``tensor_parallel.copy``);
+    * each loss chunk's logits are ``tp`` column slices, combined as
+      ``tensor_parallel.vocab_cross_entropy`` combines the ranks': the max
+      over the slices, the sums of exponentials and the target's logit
+      summed over them."""
     attention, mlp = blocks.apply_attention, blocks.apply_mlp
+    rglru, chunk_nll = blocks.apply_rglru, model_mod._chunk_nll
     loss = train_step_mod.loss_fn
 
     def cols(w, i):
         c = w.shape[-1] // tp
-        return w[:, i * c:(i + 1) * c]
+        return w[..., i * c:(i + 1) * c]
+
+    def split_rglru(p, x, cfg, ctx):
+        assert ctx.mode == "train", ctx.mode
+        xs = [x.view_as(x) for _ in range(tp)]
+        t, cw = x.shape[1], cfg.conv_width
+        convs = []
+        for i in range(tp):
+            u = blocks.mm(xs[i], cols(p["wx"], i))
+            hist = torch.nn.functional.pad(u, (0, 0, cw - 1, 0))
+            convs.append(sum(hist[:, j: j + t] * cols(p["conv"], i)[j]
+                             for j in range(cw)))
+        wholes = _Gathered.apply(*convs)
+        out = None
+        for i in range(tp):
+            gate = torch.nn.functional.gelu(blocks.mm(xs[i], cols(p["wy"], i)),
+                                            approximate="tanh")
+            ga = torch.sigmoid(blocks.mm(wholes[i], cols(p["wga"], i)))
+            gx = torch.sigmoid(blocks.mm(wholes[i], cols(p["wgx"], i)))
+            a = torch.exp(-8.0 * torch.nn.functional.softplus(
+                cols(p["a_log"], i))[None, None] * ga.float())
+            mult = torch.sqrt(torch.clamp(1.0 - a ** 2, min=1e-12))
+            hs = blocks.RGLRUScan.apply((gx * convs[i]).float() * mult, a)
+            y = blocks.mm(hs.to(x.dtype) * gate, cols(p["wo"].T, i).T)
+            out = y if out is None else out + y
+        return out, None
+
+    def split_nll(params, cfg, h_c, y_c, w_c):
+        assert cfg.logit_scale is None and cfg.final_softcap is None
+        un = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        parts = [blocks.mm(h_c.view_as(h_c), cols(un, i)).float()
+                 for i in range(tp)]
+        return torch.sum(_PartsNll.apply(y_c, *parts) * w_c[None, :])
 
     def split_mlp(p, x):
         out = None
@@ -210,11 +316,13 @@ def _mesh_order(n: int, tp: int):
         return sum(loss(params, cfg, t) for t in tokens.tensor_split(n)) / n
 
     blocks.apply_attention, blocks.apply_mlp = split_attention, split_mlp
+    blocks.apply_rglru, model_mod._chunk_nll = split_rglru, split_nll
     train_step_mod.loss_fn = block_loss
     try:
         yield
     finally:
         blocks.apply_attention, blocks.apply_mlp = attention, mlp
+        blocks.apply_rglru, model_mod._chunk_nll = rglru, chunk_nll
         train_step_mod.loss_fn = loss
 
 
@@ -363,9 +471,11 @@ def _serve_run(cfg, params, tokens, caches, mesh):
     finally:
         serve_step.prefill = inner["prefill"]
         serve_step.decode_step = inner["decode_step"]
+    cols = [x.shape[-1] for x in logits]
     if mesh is not None:
-        logits = [_rows(x, mesh) for x in logits]
-    return logits, toks
+        logits = [_rows(x, mesh, None if x.shape[-1] == cfg.vocab else 1)
+                  for x in logits]
+    return logits, toks, cols
 
 
 def serve_case(mesh, arch: str) -> dict:
@@ -380,7 +490,7 @@ def serve_case(mesh, arch: str) -> dict:
         return init_caches(cfg, SERVE_B, SERVE_LEN, dtype=torch.float32,
                            device="cpu")
 
-    want_l, want_t = _serve_run(cfg, params, tokens, caches(), None)
+    want_l, want_t, _ = _serve_run(cfg, params, tokens, caches(), None)
     taken = []
     inner = blocks._apply_moe_shardmap
 
@@ -390,10 +500,11 @@ def serve_case(mesh, arch: str) -> dict:
 
     blocks._apply_moe_shardmap = counted
     try:
-        got_l, got_t = _serve_run(cfg, params, tokens, caches(), mesh)
+        got_l, got_t, got_cols = _serve_run(cfg, params, tokens, caches(),
+                                            mesh)
     finally:
         blocks._apply_moe_shardmap = inner
-    return {"steps": len(got_l),
+    return {"steps": len(got_l), "logit_cols": got_cols,
             "max_abs_logits": max(float((a - b).abs().max())
                                   for a, b in zip(got_l, want_l)),
             "max_logit": max(float(b.abs().max()) for b in want_l),
@@ -402,6 +513,74 @@ def serve_case(mesh, arch: str) -> dict:
             "logits_equal": all(torch.equal(a, b)
                                 for a, b in zip(got_l, want_l)),
             "shardmap_calls": len(taken)}
+
+
+# ------------------------------------------------------------ the vocabulary
+def _unflatten(flat: dict) -> dict:
+    """``{"a/b/c": array}`` as nested dicts."""
+    tree: dict = {}
+    for key, v in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def case_vocab(mesh, d: str, case: str) -> dict:
+    """A reference model's parameters (DIR/vocab_<case>.npz, converted by
+    ``params_from_jax``) placed on the mesh: the train-mode logits, gathered
+    from the ranks' rows and columns, the loss (the mean over every rank's
+    rows) and every gradient, whole, written by rank 0 to
+    DIR/vocab_<case>_out.npz; the shapes of the vocabulary's local tensors."""
+    arch, vocab = VOCAB_CASES[case]
+    cfg = reduced(get_config(arch), vocab=vocab)
+    arrays = np.load(os.path.join(d, f"vocab_{case}.npz"))
+    params = params_from_jax(_unflatten({k[2:]: arrays[k] for k in arrays
+                                         if k.startswith("p/")}), cfg, "cpu")
+    p = place(params, param_shardings(mesh, params), mesh)
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(p)]
+    p = tree_unflatten(p, leaves)
+    toks = _my_rows(torch.from_numpy(arrays["tokens"]), mesh)
+    with activation_sharding(mesh, batch=VOCAB_B):
+        top = model_mod._top_params(p)
+        shapes = {k: list(top[k].shape) for k in ("embed", "unembed")
+                  if k in top}
+        with torch.no_grad():
+            logits, _ = forward(p, cfg, toks)
+        loss = loss_fn(p, cfg, toks)
+        grads = torch.autograd.grad(loss / act_ctx.dp_size(), leaves)
+        loss = act_ctx.mean_over_ranks(loss.detach())
+    split = logits.shape[-1] != cfg.vocab
+    out = {"logits": _rows(logits, mesh, 2 if split else None).numpy(),
+           "loss": loss.numpy()}
+    for path, g, t in zip(tree_paths(p), grads, leaves):
+        out[f"g{path}"] = _full(act_ctx.placed_like(g, t)).numpy()
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(d, f"vocab_{case}_out.npz"), **out)
+    return {"local_shapes": shapes, "logit_cols": logits.shape[-1]}
+
+
+def case_argmax(mesh) -> dict:
+    """``tensor_parallel.argmax`` over rows built to tie across the model
+    ranks, against ``torch.argmax`` on the whole rows: a tie between ranks
+    (the lower id wins), a tie inside a rank, the larger value on rank 1,
+    -0.0 against +0.0 and -inf everywhere but one id."""
+    v, tp = 8, act_ctx.axis_size(mesh, "model")
+    ninf = -float("inf")
+    rows = torch.tensor([
+        [0.0, 1.0, 3.0, 0.0, 2.0, 1.0, 3.0, 0.0],
+        [1.0, 3.0, 3.0, 0.0, 1.0, 2.0, 0.0, 2.5],
+        [0.0, 1.0, 2.0, 0.0, 1.0, 5.0, 0.0, 5.0],
+        [ninf, -0.0, ninf, ninf, 0.0, ninf, ninf, ninf],
+        [ninf, ninf, ninf, ninf, ninf, ninf, 7.0, ninf],
+        [-2.0, -1.0, -3.0, -1.0, -1.0, -4.0, -2.0, -5.0]])
+    with activation_sharding(mesh):
+        n = v // tp
+        lo = tensor_parallel.rank() * n
+        got = tensor_parallel.argmax(rows[:, lo: lo + n].contiguous(), lo)
+    return {"got": got.tolist(), "want": rows.argmax(dim=-1).tolist()}
 
 
 # ------------------------------------------------- tensor-parallel blocks
@@ -438,8 +617,9 @@ def block_config(name: str, get, reduce):
 
 def block_inputs(run: str, cfg, steps: int = 0, t: int = BLOCK_T) -> dict:
     """Numpy inputs of a block run, from a seed of its name: the attention
-    (or, for run "mlp", the MLP) parameters, the prompt ``x``, one input a
-    decode step ``xd``, and the memory of cross-attention."""
+    (or, for run "mlp", the MLP's, for a run "rglru..." the RG-LRU's)
+    parameters, the prompt ``x``, one input a decode step ``xd``, and the
+    memory of cross-attention."""
     rng = np.random.default_rng(sum(map(ord, run)))
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
@@ -448,6 +628,11 @@ def block_inputs(run: str, cfg, steps: int = 0, t: int = BLOCK_T) -> dict:
 
     if run == "mlp":
         p = {"wi": w(d, cfg.d_ff), "wg": w(d, cfg.d_ff), "wo": w(cfg.d_ff, d)}
+    elif run.startswith("rglru"):
+        wd = int(cfg.rglru_expand * d)
+        p = {"wx": w(d, wd), "wy": w(d, wd), "conv": w(cfg.conv_width, wd),
+             "a_log": rng.normal(0.5, 0.5, wd).astype(np.float32),
+             "wgx": w(wd, wd), "wga": w(wd, wd), "wo": w(wd, d)}
     else:
         p = {"wq": w(d, h * hd), "wk": w(d, kv * hd), "wv": w(d, kv * hd),
              "wo": w(h * hd, d)}
@@ -553,6 +738,70 @@ def _train_block(mesh, run: str) -> dict:
     return out
 
 
+RGLRU_T, RGLRU_STEPS = 12, 3
+
+
+def _rglru_cache(cfg, mesh):
+    cache = blocks.init_rglru_cache(cfg, BLOCK_B, torch.float32, "cpu")
+    if mesh is None:
+        return cache
+    return place(cache, cache_shardings(mesh, cache, BLOCK_B), mesh)
+
+
+def _serve_rglru(mesh) -> dict:
+    """The RG-LRU block (recurrentgemma reduced, config "B") at prefill
+    then RGLRU_STEPS decode steps, on ``mesh`` (its parameters and states
+    placed by the rules) or without one; each output and the last states,
+    whole, and on a mesh each state's dim over ``model``."""
+    cfg = block_config("B", get_config, reduced)
+    arrays = block_inputs("rglru", cfg, RGLRU_STEPS, RGLRU_T)
+    p = _block_params(arrays, mesh)
+    cache = _rglru_cache(cfg, mesh)
+    out = {}
+    with torch.no_grad(), activation_sharding(mesh, batch=BLOCK_B) \
+            if mesh is not None else contextlib.nullcontext():
+        for i in range(RGLRU_STEPS + 1):
+            x = torch.from_numpy(arrays["x"] if i == 0
+                                 else arrays["xd"][i - 1])
+            ctx = blocks.Ctx("prefill" if i == 0 else "decode", None, None,
+                             cache)
+            y, new = blocks.apply_rglru(p, _my_rows(x, mesh), cfg, ctx)
+            cache = new if mesh is None else tree_map(act_ctx.like, cache,
+                                                      new)
+            out[f"y{i}"] = _whole_rows(y, mesh).numpy()
+    for k, v in cache.items():
+        out[f"cache/{k}"] = _full(v).numpy()
+    if mesh is not None:
+        out["split"] = np.array([act_ctx.model_split_dim(cache[k])
+                                 for k in sorted(cache)])
+    return out
+
+
+def _train_rglru(mesh) -> dict:
+    """The RG-LRU block's train-mode forward and every gradient of
+    ``sum(y ** 2)``, whole, as :func:`_train_block`."""
+    cfg = block_config("B", get_config, reduced)
+    arrays = block_inputs("rglru", cfg)
+    p = tree_map(lambda v: v.detach().requires_grad_(True),
+                 _block_params(arrays, mesh))
+    x = _my_rows(torch.from_numpy(arrays["x"]), mesh).requires_grad_(True)
+    with activation_sharding(mesh, batch=BLOCK_B) if mesh is not None \
+            else contextlib.nullcontext():
+        y = blocks.apply_rglru(p, x, cfg, blocks.Ctx("train"))[0]
+    names = list(p)
+    g = torch.autograd.grad(torch.sum(y ** 2), [p[k] for k in names] + [x])
+    out = {"y": _whole_rows(y.detach(), mesh).numpy(),
+           "g/x": _whole_rows(g[-1], mesh).numpy()}
+    for k, gk in zip(names, g[:-1]):
+        if mesh is not None:
+            out[f"placed/{k}"] = np.array(
+                [repr(gk.placements) == repr(p[k].placements)])
+            out[f"gpl/{k}"] = np.array([repr(gk.placements)])
+            gk = act_ctx.placed_like(gk, p[k])
+        out[f"g/{k}"] = _full(gk).numpy()
+    return out
+
+
 def _mlp_forward(mesh) -> dict:
     """The MLP at a prompt's T and at decode's T = 1, without autograd."""
     cfg = block_config("A", get_config, reduced)
@@ -575,14 +824,32 @@ def case_blocks(mesh, d: str) -> dict:
                for r in SERVE_BLOCKS},
             **{f"train {r}": (lambda r=r: (lambda m: _train_block(m, r)))()
                for r in TRAIN_BLOCKS + ("mlp",)},
-            "mlp": _mlp_forward}
+            "mlp": _mlp_forward, "serve rglru": _serve_rglru,
+            "train rglru": _train_rglru}
     for run, fn in runs.items():
         got, want = fn(mesh), fn(None)
         if dist.get_rank() == 0:
             np.savez(os.path.join(d, f"block_{run}.npz"),
                      **{f"mesh/{k}": v for k, v in got.items()},
                      **{f"port/{k}": v for k, v in want.items()})
-    return {"runs": sorted(runs), "plain_caches": _plain_caches(mesh)}
+    return {"runs": sorted(runs), "plain_caches": _plain_caches(mesh),
+            "plain_rglru_caches": _plain_rglru_caches(mesh)}
+
+
+def _plain_rglru_caches(mesh) -> str:
+    """What the RG-LRU says when it is handed its states' local shards (its
+    channels) instead of the placed states: the error's text, or ""."""
+    cfg = block_config("B", get_config, reduced)
+    p = _block_params(block_inputs("rglru", cfg, 1, RGLRU_T), mesh)
+    cache = tree_map(act_ctx.local, _rglru_cache(cfg, mesh))
+    with torch.no_grad(), activation_sharding(mesh, batch=BLOCK_B):
+        try:
+            blocks.apply_rglru(
+                p, _my_rows(torch.zeros(BLOCK_B, 1, cfg.d_model), mesh), cfg,
+                blocks.Ctx("decode", None, None, cache))
+        except ValueError as e:
+            return str(e)
+    return ""
 
 
 def _plain_caches(mesh) -> str:
@@ -607,28 +874,35 @@ def _plain_caches(mesh) -> str:
     return ""
 
 
-def case_layer_collectives(mesh) -> dict:
-    """One reduced internlm2 layer's forward (prefill, no cache) under
-    ``trace_collectives``: its record, and the all-gather bytes the data
-    gathers of the layer's weights would return (each weight's ``model``
-    shard, gathered over ``data``)."""
-    cfg = reduced(get_config("internlm2-1.8b"))
+# layer -> (arch, stack, unit) of a reduced config
+LAYERS = {"attn": ("internlm2-1.8b", "s0", ("attn",)),
+          "rglru": ("recurrentgemma-9b", "s1", ("rglru",))}
+
+
+def case_layer_collectives(mesh, layer: str) -> dict:
+    """One reduced layer's forward (prefill, no cache; LAYERS) under
+    ``trace_collectives``: its record, and the data gathers of the layer's
+    weights, their count and the bytes they return (each weight's
+    ``model`` shard, gathered over ``data``)."""
+    arch, stack, unit = LAYERS[layer]
+    cfg = reduced(get_config(arch))
     lp = init_params(cfg, seed=0, dtype=torch.float32,
-                     device="cpu")["stacks"]["s0"][0]
+                     device="cpu")["stacks"][stack][0]
     lp = place(lp, param_shardings(mesh, lp), mesh)
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (BLOCK_B, BLOCK_T, cfg.d_model)).astype(np.float32))
     x = _my_rows(x, mesh)
     with torch.no_grad(), activation_sharding(mesh, batch=BLOCK_B):
         _, rec = trace_collectives(
-            model_mod._apply_unit, x, ("attn",), lp, None, cfg,
+            model_mod._apply_unit, x, unit, lp, None, cfg,
             blocks.Ctx("prefill"))
+    sharded = [t for t in tree_leaves(lp) if any(
+        pl.is_shard() for pl, n in zip(t.placements, mesh.mesh_dim_names)
+        if n == "data")]
     gathers = sum(t.to_local().numel() * 4 * act_ctx.axis_size(mesh, "data")
-                  for t in tree_leaves(lp)
-                  if any(pl.is_shard() for pl, n in zip(
-                      t.placements, mesh.mesh_dim_names) if n == "data"))
-    return {"record": rec, "data_gather_bytes": gathers,
-            "rows": x.shape[0], "t": BLOCK_T, "d": cfg.d_model}
+                  for t in sharded)
+    return {"record": rec, "data_gathers": len(sharded),
+            "data_gather_bytes": gathers, "rows": x.shape[0], "t": BLOCK_T}
 
 
 def _run(mesh, d: str, name: str, cases: dict) -> None:
@@ -654,8 +928,12 @@ def rank_main(rank: int, world: int, d: str) -> None:
                for a in TRAIN_CASES},
             **{f"serve {a}": (lambda a=a: serve_case(mesh, a))
                for a in SERVE_ARCHS},
+            **{f"vocab {c}": (lambda c=c: case_vocab(mesh, d, c))
+               for c in VOCAB_CASES},
+            "argmax": lambda: case_argmax(mesh),
             "blocks": lambda: case_blocks(mesh, d),
-            "layer collectives": lambda: case_layer_collectives(mesh)})
+            **{f"{k} layer collectives": (
+                lambda k=k: case_layer_collectives(mesh, k)) for k in LAYERS}})
     finally:
         dist.destroy_process_group()
 
@@ -673,7 +951,8 @@ def one_rank(d: str) -> None:
                for a in TRAIN_CASES},
             **{f"serve {a}": (lambda a=a: serve_case(mesh, a))
                for a in SERVE_ARCHS},
-            "layer collectives": lambda: case_layer_collectives(mesh)})
+            **{f"{k} layer collectives": (
+                lambda k=k: case_layer_collectives(mesh, k)) for k in LAYERS}})
     finally:
         dist.destroy_process_group()
 

@@ -1,13 +1,17 @@
 """The port's dry run (``repro_torch.launch.dryrun``):
 ``tests/test_dryrun_cell.py``'s assertions on the port's CLI, in a
 subprocess (the fake process group of 512 ranks is global to a process),
-on the same cell: xlstm-350m decode_32k on the multi-pod mesh; a
+on the same cell: xlstm-350m decode_32k on the multi-pod mesh, whose
+rank counts its rows' share of the flops and of the unembedding its share
+of the vocabulary's columns too; a
 long_500k cell of a full-attention architecture, recorded as skipped with
 the reference's reason; and internlm2-1.8b's prefill_32k on the single-pod
 mesh, whose per-rank flops are the count written out from its config: the
-products split over ``model`` (q, o, the MLP, the local heads' attention)
-over both mesh axes, the rest (k and v, whose 8 kv heads do not split over
-16, and the unembedding) over ``data`` alone."""
+products split over ``model`` (q, o, the MLP, the local heads' attention,
+and the last position's logits over the vocabulary's columns) over both
+mesh axes, the rest (k and v, whose 8 kv heads do not split over 16) over
+``data`` alone; and whose all-reduces are the two sums over ``model`` a
+layer, the embedding lookup's sum and the greedy pick's combine."""
 import json
 import os
 import pathlib
@@ -43,8 +47,14 @@ def test_dryrun_cell_multipod(tmp_path):
     assert rec["jaxpr_flops_global"] > 0
     assert rec["collectives"]["wire_bytes"] > 0
     assert rec["memory"]["temp_size_in_bytes"] > 0
-    # one rank's count: its 128 / 32 rows of the global batch
-    assert rec["cost"]["flops"] * 32 == rec["jaxpr_flops_global"]
+    # one rank's count: its 128 / 32 rows of the global batch, and of the
+    # unembedding (2 b d V) its share of the vocabulary's columns, 50,304 /
+    # 16 (the xLSTM blocks are not split over model)
+    cfg, shape = ref_get_config("xlstm-350m"), REF_SHAPES["decode_32k"]
+    assert cfg.vocab % 16 == 0
+    unembed = 2 * shape.global_batch * cfg.d_model * cfg.vocab
+    assert rec["cost"]["flops"] == \
+        (rec["jaxpr_flops_global"] - unembed) // 32 + unembed // (32 * 16)
     assert rec["memory"]["alias_size_in_bytes"] > 0
     assert rec["compile_s"] == 0.0
     assert "[ok] xlstm-350m__decode_32k__pod2x16x16" in res.stdout
@@ -73,13 +83,15 @@ def test_tensor_parallel_prefill_flops_per_rank(tmp_path):
     b, t = shape.global_batch, shape.seq_len
     layers = sum(r * len(unit) for unit, r in cfg.stacks)
     assert h % tp == 0 and kv % tp != 0          # case B: q split, kv whole
-    split = layers * (2 * b * t * d * h * hd        # q
-                      + 4 * b * h * t * t * hd      # flash: 4 B H Tq S hd
-                      + 2 * b * t * h * hd * d      # o
-                      + 3 * 2 * b * t * d * f)      # wi, wg, wo
-    rest = (layers * 2 * 2 * b * t * d * kv * hd    # k, v
-            + 2 * b * d * cfg.vocab)                # last position's logits
+    assert cfg.vocab % tp == 0                   # the vocabulary splits
+    split = (layers * (2 * b * t * d * h * hd       # q
+                       + 4 * b * h * t * t * hd     # flash: 4 B H Tq S hd
+                       + 2 * b * t * h * hd * d     # o
+                       + 3 * 2 * b * t * d * f)     # wi, wg, wo
+             + 2 * b * d * cfg.vocab)               # last position's logits
+    rest = layers * 2 * 2 * b * t * d * kv * hd     # k, v
     assert rec["cost"]["flops"] == split // (dp * tp) + rest // dp
     assert rec["cost"]["flops"] < rec["jaxpr_flops_global"] / dp
-    # one rank's collectives: the two sums over model a layer, no more
-    assert rec["collectives"]["all-reduce_count"] == 2 * layers
+    # one rank's collectives: the two sums over model a layer, the
+    # embedding lookup's sum and the greedy pick's combine, no more
+    assert rec["collectives"]["all-reduce_count"] == 2 * layers + 2

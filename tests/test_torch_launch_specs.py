@@ -6,8 +6,10 @@ each family (dense, recurrent, MoE, xLSTM, vision, audio) on a one-rank (1, 1) `
 and decode bound under activation sharding, their arguments placed on
 meta, traced, with outputs placed as the output placements say and the
 same flop count as the step without a mesh; and the caches' placements:
-an attention cache leaf keeps the ``model`` entry ``cache_spec`` gives it,
-a recurrent state none, and under ``zero3`` no leaf names ``model``."""
+an attention cache leaf and an RG-LRU state keep the ``model`` entry
+``cache_spec`` gives them, an xLSTM state none, and under ``zero3`` no
+leaf names ``model``; recurrentgemma-9b's and xlstm-350m's states at full
+size on an abstract (16, 16) mesh."""
 import jax
 import pytest
 import torch
@@ -21,7 +23,8 @@ from repro_torch.configs import (ARCHS, SHAPES, ShapeSpec, get_config,
 from repro_torch.launch.flops_count import count_flops
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import distribute_tree, make_host_mesh
-from repro_torch.launch.specs import (ATTN_CACHE, input_specs,
+from repro_torch.launch.specs import (SPLIT_CACHE, cache_shapes,
+                                      cache_specs, input_specs,
                                       make_step_and_specs, param_shapes)
 from repro_torch.tree import tree_leaves, tree_paths
 
@@ -175,14 +178,48 @@ def test_cache_placements_keep_attention_model_entries(mesh, arch):
         leaves = list(zip(tree_paths(caches), specs, _placements(pls)))
         assert len(leaves) == len(tree_leaves(caches))
         for path, spec, pl in leaves:
-            attention = path.rsplit("/", 1)[-1] in ATTN_CACHE
-            want = sh.to_placements(spec if attention and policy == "2d"
+            split = path.rsplit("/", 1)[-1] in SPLIT_CACHE
+            want = sh.to_placements(spec if split and policy == "2d"
                                     else sh.strip_axis(spec, sh.TP), mesh)
             assert pl == want, (policy, path)
-            if attention and policy == "2d":
-                assert pl[model].is_shard(), path   # kv heads or length
+            if split and policy == "2d":
+                # kv heads or length; the RG-LRU's channels
+                assert pl[model].is_shard(), path
             else:
                 assert pl[model].is_replicate(), (policy, path)
+
+
+@pytest.mark.parametrize("arch", ("recurrentgemma-9b", "xlstm-350m"))
+def test_recurrent_state_model_entries(arch):
+    """The bound steps' cache specs on the single-pod mesh (data 16, model
+    16) at decode_32k's batch of 128: the RG-LRU's ``conv`` (B, cw - 1, W)
+    and ``h`` (B, W) keep their channels over ``model``, as ``cache_spec``
+    gives them; the xLSTM states, whose blocks are not split yet, keep no
+    ``model`` entry (``cache_spec`` gives their last dims one)."""
+    mesh = sh.MeshShape(("data", "model"), (16, 16))
+    caches = cache_shapes(get_config(arch), 128, 16)
+    given = tree_leaves(sh.cache_shardings(mesh, caches, 128))
+    names, stripped = set(), set()
+    for path, spec, full in zip(tree_paths(caches), tree_leaves(
+            cache_specs(mesh, caches, 128)), given):
+        name = path.rsplit("/", 1)[-1]
+        names.add(name)
+        if name in ("conv", "h"):
+            assert spec == full == sh.P(
+                ("data",), *[None] * (len(spec) - 2), "model"), path
+        elif name in ("k", "v", "pos"):
+            assert spec == full, path
+        else:
+            assert "model" not in spec, path
+            if "model" in full:
+                stripped.add(name)
+    assert names == ({"conv", "h", "k", "v", "pos"}
+                     if arch == "recurrentgemma-9b"
+                     else {"C", "n", "m", "c"})
+    # the sLSTM's (B, d) states and the mLSTM's C, n (the mLSTM's m, (B,
+    # 4 heads), has none to strip)
+    assert stripped == (set() if arch == "recurrentgemma-9b"
+                        else {"C", "n", "m", "c"})
 
 
 def _placements(tree) -> list:

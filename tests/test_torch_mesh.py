@@ -40,7 +40,23 @@
   process, every gradient back in its parameter's placement; and one
   reduced internlm2 layer's collectives: two all-reduces of its rows'
   activations (attention and MLP) and the data gathers of its weights, no
-  gather over ``model``; none at all on 1 x 1.
+  gather over ``model``; none at all on 1 x 1;
+* the vocabulary split over ``model``: a reference model's parameters
+  (reduced recurrentgemma, tied, and internlm2, untied, vocab 512),
+  converted by ``params_from_jax`` and placed on 2 x 2, give the
+  reference's train-mode logits, ``loss_fn`` and every gradient within
+  1e-4 (of the leaf's max for gradients), with no rank holding the whole
+  ``embed`` / ``unembed`` or logits; at a vocab of 513, which 2 does not
+  divide, the vocabulary stays whole with the same numbers; the served
+  logits are each rank's columns (the model's contract) and whole on 1 x
+  1; ``tensor_parallel.argmax`` breaks ties across ranks as
+  ``torch.argmax`` does;
+* the RG-LRU block over ``model``: prefill, decode (states placed by
+  ``cache_spec``, their channels over ``model``) and the train-mode
+  gradients against the reference's ``apply_rglru`` within ``rtol 2e-4,
+  atol 2e-5``; plain states under ``model`` 2 raise; one reduced
+  recurrentgemma RG-LRU layer's collectives: the conv output's gather over
+  ``model``, the block's and the MLP's sums, the data gathers.
 """
 import dataclasses
 import json
@@ -57,7 +73,11 @@ import pytest
 from repro.configs import get_config as ref_get_config
 from repro.configs import reduced as ref_reduced
 from repro.models import blocks as ref_blocks
+from repro.models import model as ref_model
 from repro.models.config import MoEConfig as RefMoEConfig
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import params_from_jax
+from repro_torch.tree import tree_leaves, tree_paths
 
 import _torch_mesh_job as J
 
@@ -66,7 +86,7 @@ JOB = ROOT / "tests" / "_torch_mesh_job.py"
 EP_ARCHS = {"qwen3-moe-235b-a22b": False, "arctic-480b": True}
 TRAIN_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b")
 SERVE_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b")
-JOB_TIMEOUT = 180
+JOB_TIMEOUT = 300
 
 
 def _ref_ep(arch: str):
@@ -80,14 +100,32 @@ def _ref_ep(arch: str):
     return cfg, p, x
 
 
+def _flat(tree) -> dict:
+    return {"/".join(k.key for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _ref_vocab(case: str):
+    """The reference's reduced config of a VOCAB_CASES case, its f32
+    parameters from key 0 and seeded numpy tokens."""
+    arch, vocab = J.VOCAB_CASES[case]
+    cfg = ref_reduced(ref_get_config(arch), vocab=vocab)
+    p = ref_model.init_params(cfg, jax.random.key(0), dtype=jnp.float32)
+    toks = np.random.default_rng(11).integers(
+        2, vocab, size=(J.VOCAB_B, J.VOCAB_T1)).astype(np.int32)
+    return cfg, p, toks
+
+
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh")
     for arch in EP_ARCHS:
         _, p, x = _ref_ep(arch)
-        flat = {"/".join(k.key for k in path): np.asarray(leaf)
-                for path, leaf in jax.tree_util.tree_leaves_with_path(p)}
-        np.savez(d / f"ep_{arch}.npz", x=x, **flat)
+        np.savez(d / f"ep_{arch}.npz", x=x, **_flat(p))
+    for case in J.VOCAB_CASES:
+        _, p, toks = _ref_vocab(case)
+        np.savez(d / f"vocab_{case}.npz", tokens=toks,
+                 **{f"p/{k}": v for k, v in _flat(p).items()})
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, str(JOB), str(d)], env=env,
@@ -164,6 +202,9 @@ def test_prefill_decode_on_2x2_match_no_mesh(job, arch):
     # qwen3's prefill MoE takes expert parallelism (2 layers); decode at
     # T = 1 stays on the single-device dispatch, as the reference rules
     assert res["shardmap_calls"] == (2 if "moe" in arch else 0)
+    # the model's contract: under a vocabulary split the steps' logits are
+    # this rank's columns (512 over 2), never gathered
+    assert res["logit_cols"] == [256] * 4, res["logit_cols"]
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
@@ -171,6 +212,46 @@ def test_prefill_decode_on_1x1_equal_no_mesh(job, arch):
     res = job["mesh_1x1.json"][f"serve {arch}"]
     assert res["tokens_equal"] and res["logits_equal"], res
     assert res["shardmap_calls"] == 0
+    assert res["logit_cols"] == [512] * 4, res["logit_cols"]
+
+
+# ------------------------------------------------------------ the vocabulary
+@pytest.mark.parametrize("case", list(J.VOCAB_CASES))
+def test_vocab_parallel_matches_reference(job, case):
+    res = job["mesh_2x2.json"][f"vocab {case}"]
+    arch, vocab = J.VOCAB_CASES[case]
+    ref_cfg, p, toks = _ref_vocab(case)
+    d = ref_cfg.d_model
+    # no rank holds the whole vocabulary where 2 divides it
+    cols = vocab // 2 if vocab % 2 == 0 else vocab
+    want_shapes = {"embed": [cols, d]}
+    if not ref_cfg.tie_embeddings:
+        want_shapes["unembed"] = [d, cols]
+    assert res["local_shapes"] == want_shapes
+    assert res["logit_cols"] == cols
+    got = np.load(job["dir"] / f"vocab_{case}_out.npz")
+    t = jnp.asarray(toks)
+    logits, _ = jax.jit(lambda p, t: ref_model.forward(p, ref_cfg, t))(p, t)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, t: ref_model.loss_fn(p, ref_cfg, t)))(p, t)
+    np.testing.assert_allclose(got["logits"], np.asarray(logits), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got["loss"], np.asarray(loss), rtol=1e-4,
+                               atol=1e-4)
+    cfg = reduced(get_config(arch), vocab=vocab)
+    want = params_from_jax(jax.tree.map(np.asarray, grads), cfg, "cpu")
+    paths = tree_paths(want)
+    assert sorted(f"g{path}" for path in paths) == sorted(
+        k for k in got.files if k.startswith("g/"))
+    for path, w in zip(paths, tree_leaves(want)):
+        w = w.numpy()
+        err = np.abs(got[f"g{path}"] - w).max()
+        assert err <= 1e-4 * max(np.abs(w).max(), 1e-12), (path, err)
+
+
+def test_vocab_parallel_argmax_ties(job):
+    res = job["mesh_2x2.json"]["argmax"]
+    assert res["got"] == res["want"] == [2, 1, 5, 1, 6, 1]
 
 
 # ------------------------------------------------- tensor-parallel blocks
@@ -302,21 +383,104 @@ def test_tp_mlp_prefill_decode(job):
     _close_to_both(got, want)
 
 
-def test_tp_layer_collectives_on_2x2(job):
-    res = job["mesh_2x2.json"]["layer collectives"]
+def _layer_collectives(job, layer: str) -> None:
+    res = job["mesh_2x2.json"][f"{layer} layer collectives"]
     rec = res["record"]
-    # the attention's and the MLP's sums over model, of the rank's rows
+    cfg = ref_reduced(ref_get_config(J.LAYERS[layer][0]))
+    rows, t, d = res["rows"], res["t"], cfg.d_model
+    # the attention's (the RG-LRU's) and the MLP's sums over model, of the
+    # rank's rows
     assert rec["all-reduce_count"] == 2
-    assert rec["all-reduce_bytes"] == 2 * res["rows"] * res["t"] * res["d"] * 4
-    # the weights gathered over data only: each keeps its model shard
-    assert rec["all-gather_count"] == 7
-    assert rec["all-gather_bytes"] == res["data_gather_bytes"]
+    assert rec["all-reduce_bytes"] == 2 * rows * t * d * 4
+    # the weights gathered over data only: each keeps its model shard; the
+    # RG-LRU's conv output (rows, t, W / 2) gathered over model to its W
+    # channels, which its dense gates read
+    extra = {"attn": (0, 0),
+             "rglru": (1, rows * t * int(cfg.rglru_expand * d) * 4)}[layer]
+    # the 2-d weights, whose dims divide over data 2: attention's wq, wk,
+    # wv, wo or the RG-LRU's wx, wy, conv, wgx, wga, wo, and the MLP's wi,
+    # wg, wo (the norms and a_log are 1-d and replicated)
+    n_data = {"attn": 7, "rglru": 9}[layer]
+    assert res["data_gathers"] == n_data
+    assert rec["all-gather_count"] == n_data + extra[0]
+    assert rec["all-gather_bytes"] == res["data_gather_bytes"] + extra[1]
     assert rec["total_collective_bytes"] == \
         rec["all-reduce_bytes"] + rec["all-gather_bytes"]
 
 
-def test_tp_layer_collectives_on_1x1_none(job):
-    rec = job["mesh_1x1.json"]["layer collectives"]["record"]
+def _no_collectives(job, layer: str) -> None:
+    rec = job["mesh_1x1.json"][f"{layer} layer collectives"]["record"]
     assert rec["total_collective_bytes"] == 0
     assert sum(rec[f"{c}_count"] for c in ("all-reduce", "all-gather",
                                            "reduce-scatter")) == 0
+
+
+def test_tp_layer_collectives_on_2x2(job):
+    _layer_collectives(job, "attn")
+
+
+def test_tp_layer_collectives_on_1x1_none(job):
+    _no_collectives(job, "attn")
+
+
+def test_tp_rglru_layer_collectives_on_2x2(job):
+    _layer_collectives(job, "rglru")
+
+
+def test_tp_rglru_layer_collectives_on_1x1_none(job):
+    _no_collectives(job, "rglru")
+
+
+# ---------------------------------------------------------------- the RG-LRU
+def _ref_rglru_inputs(**kw):
+    return _ref_inputs("rglru", "B", **kw)
+
+
+def test_tp_rglru_prefill_decode(job):
+    got = np.load(job["dir"] / "block_serve rglru.npz")
+    # conv (B, cw - 1, W) and h (B, W): their channels over model
+    assert list(got["mesh/split"]) == [2, 1]
+    cfg, arrays, p = _ref_rglru_inputs(steps=J.RGLRU_STEPS, t=J.RGLRU_T)
+    cache = ref_blocks.init_rglru_cache(cfg, J.BLOCK_B, jnp.float32)
+
+    def step(mode):
+        return jax.jit(lambda p, x, c: ref_blocks.apply_rglru(
+            p, x, cfg, ref_blocks.Ctx(mode, None, None, c)))
+
+    prefill, decode = step("prefill"), step("decode")
+    want = {}
+    for i in range(J.RGLRU_STEPS + 1):
+        x = arrays["x"] if i == 0 else arrays["xd"][i - 1]
+        y, cache = (prefill if i == 0 else decode)(p, jnp.asarray(x), cache)
+        want[f"y{i}"] = np.asarray(y)
+    want.update({f"cache/{k}": np.asarray(v) for k, v in cache.items()})
+    _close_to_both(got, want)
+
+
+def test_tp_rglru_train_gradients(job):
+    got = np.load(job["dir"] / "block_train rglru.npz")
+    cfg, arrays, p = _ref_rglru_inputs()
+
+    def f(p, x):
+        return ref_blocks.apply_rglru(p, x, cfg, ref_blocks.Ctx("train"))[0]
+
+    x = jnp.asarray(arrays["x"])
+    gp, gx = jax.jit(jax.grad(lambda p, x: jnp.sum(f(p, x) ** 2),
+                              (0, 1)))(p, x)
+    want = {"y": np.asarray(jax.jit(f)(p, x)), "g/x": np.asarray(gx)}
+    want.update({f"g/{k}": np.asarray(v) for k, v in gp.items()})
+    # the split weights' and the gathered ones' gradients come back placed;
+    # a_log, replicated, partial over data and over model (each rank
+    # back-propagates through its own channels), which ``placed_like`` sums
+    for k in gp:
+        if k == "a_log":
+            assert str(got["mesh/gpl/a_log"][0]) == \
+                "(Partial(sum), Partial(sum))"
+        else:
+            assert bool(got[f"mesh/placed/{k}"][0]), k
+    _close_to_both(got, want)
+
+
+def test_tp_rglru_refuses_plain_caches(job):
+    said = job["mesh_2x2.json"]["blocks"]["plain_rglru_caches"]
+    assert "caches placed (DTensors)" in said, said

@@ -244,8 +244,9 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    the single-device dispatch, as the reference does; expert parallelism
    waits for several cards.
 17. serve_mesh, on the same one-rank NCCL group: recurrentgemma-9b and
-   internlm2-1.8b at full width and depth and qwen3-moe-235b-a22b at phase
-   11b's 11 layers, bf16, each on a (data 1, model 1) mesh: parameters
+   internlm2-1.8b at full width and depth, qwen3-moe-235b-a22b at phase
+   11b's 11 layers and xlstm-350m at phase 11b's 2 of its 6 repeats,
+   bf16, each on a (data 1, model 1) mesh: parameters
    and caches placed by ``launch.specs.make_step_and_specs``'s placements
    (the caches' batch over the data axes), prefill at B 4, T 4,096 and 8
    greedy decode ticks through the steps it binds, against the same steps
@@ -254,13 +255,14 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    algorithms, both ways).  It prints prefill tokens/s, the median tick
    and the peak beside the no-mesh run's and PERF.md §5's (copied).
    Flash and the scan are counted from 0 just before each model's run on
-   the mesh and read just after it: flash must launch for every model, the
-   scan for recurrentgemma-9b only, each as often as in the run without
-   the mesh (counted the same way).
+   the mesh and read just after it: flash must launch for every model with
+   attention (not xlstm-350m), the scan for recurrentgemma-9b only, each
+   as often as in the run without the mesh (counted the same way).
 18. dryrun: (a) ``python -m repro_torch.launch.dryrun --arch xlstm-350m
    --shape decode_32k --multi-pod`` in a subprocess (a fake group of 512
-   ranks, meta tensors): status ok, its memory, flops and wire bytes
-   printed; (b) internlm2-1.8b's train step (B 8, T 256 + 1), a prefill
+   ranks, meta tensors): status ok, one rank's GiB (its arguments' shards
+   and the traced temp), flops, wire bytes and collective counts printed
+   (the xLSTM split over ``model`` 16); (b) internlm2-1.8b's train step (B 8, T 256 + 1), a prefill
    (B 8, T 256) and a decode step (B 8 over a 4,096 cache), bf16
    parameters, each built by ``make_step_and_specs`` on a one-rank (pod 1,
    data 1, model 1) mesh, traced on meta, then run on the card under
@@ -3288,13 +3290,17 @@ def train_moe(torch, card) -> dict:
 # no-mesh numbers for the same models, copied (H100 80GB HBM3, 700 W):
 # prefill tokens/s at B 4, T 4,096; the batcher's median decode tick.
 SERVE_MESH = (("recurrentgemma-9b", None), ("internlm2-1.8b", None),
-              ("qwen3-moe-235b-a22b", 11))
+              ("qwen3-moe-235b-a22b", 11), ("xlstm-350m", 2))
 SERVE_MESH_TICKS = 8
 PERF_NO_MESH = {"recurrentgemma-9b": "25,792 tokens/s, tick 70.2 ms",
                 "internlm2-1.8b": "101,692 tokens/s, tick 48.9 ms, peak "
                                   "7.7 GiB",
                 "qwen3-moe-235b-a22b": "41,645 tokens/s, tick 36.8 ms, "
-                                       "peak 59.9 GiB"}
+                                       "peak 59.9 GiB",
+                "xlstm-350m": "4,507 / 3,143 tokens/s (batcher tick 26.4 "
+                              "/ 19.9 ms, peak 2.9 / 3.0 GiB)"}
+# the block types that attend (flash at prefill)
+ATTENTION_BLOCKS = {"attn", "local", "enc", "moe", "cross", "self+cross"}
 
 
 def serve_steps(torch, dev, cfg, params, toks, mesh, specs):
@@ -3356,8 +3362,9 @@ def serve_mesh(torch, dev, card) -> dict:
     ``index_add_`` otherwise adds in a racing order).  Flash and the scan
     are counted from 0 just before each model's run on the mesh and read
     just after it, and again around the run after it without the mesh:
-    on the mesh flash must launch for every model, the scan exactly for
-    the recurrent one, and each as often as without the mesh."""
+    on the mesh flash must launch exactly for the models that attend, the
+    scan exactly for the RG-LRU one, and each as often as without the
+    mesh."""
     import gc
     import warnings
     from torch.distributed.device_mesh import init_device_mesh
@@ -3438,14 +3445,15 @@ def serve_mesh(torch, dev, card) -> dict:
               f" (without it: flash {launches['no mesh']['flash']}, scan "
               f"{launches['no mesh']['scan']}) [{card}]", flush=True)
         recurrent = any("rglru" in unit for unit, _ in cfg.stacks)
-        if (launches["mesh"]["flash"] <= 0
+        attends = any(ATTENTION_BLOCKS & set(unit) for unit, _ in cfg.stacks)
+        if ((launches["mesh"]["flash"] > 0) != attends
                 or (launches["mesh"]["scan"] > 0) != recurrent
                 or launches["mesh"] != launches["no mesh"]):
             raise AssertionError(
                 f"serve_mesh {arch}: launches on the mesh {launches['mesh']}"
-                f", without it {launches['no mesh']}: flash must launch on "
-                f"the mesh, the scan exactly where the model is recurrent, "
-                f"and both as often as without the mesh")
+                f", without it {launches['no mesh']}: flash must launch "
+                f"exactly where the model attends, the scan exactly where "
+                f"it has the RG-LRU, and both as often as without the mesh")
         del params, runs, specs, warm
         gc.collect()
         torch.cuda.empty_cache()
@@ -3455,8 +3463,8 @@ def serve_mesh(torch, dev, card) -> dict:
     res["scan_launches"] = sum(res[a]["launches_serve_mesh"]["scan"]
                                for a in archs)
     print(f"serve_mesh: {res['flash_launches']} flash and "
-          f"{res['scan_launches']} scan launches on the mesh, the three "
-          f"models", flush=True)
+          f"{res['scan_launches']} scan launches on the mesh, the "
+          f"{len(archs)} models", flush=True)
     return res
 
 
@@ -3489,10 +3497,14 @@ def dryrun_cli(card) -> dict:
     if rec["status"] != "ok" or rec["n_devices"] != 512:
         raise AssertionError(f"dryrun record: {rec}")
     mem, coll = rec["memory"], rec["collectives"]
-    print(f"dryrun xlstm-350m decode_32k pod2x16x16: status ok, "
-          f"{rec['n_devices']} ranks, per-rank flops "
-          f"{rec['cost']['flops']:.4e}, global {rec['jaxpr_flops_global']:.4e}"
-          f", wire bytes {coll['wire_bytes']}, memory argument "
+    gib = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 2 ** 30
+    counts = {c: coll[f"{c}_count"] for c in ("all-reduce", "all-gather",
+                                              "reduce-scatter", "all-to-all")}
+    print(f"dryrun xlstm-350m decode_32k pod2x16x16 (the xLSTM split over "
+          f"model 16): status ok, {rec['n_devices']} ranks, per-rank GiB "
+          f"{gib:.3f}, flops {rec['cost']['flops']:.4e}, global "
+          f"{rec['jaxpr_flops_global']:.4e}, wire bytes {coll['wire_bytes']}"
+          f", collectives {counts}, memory argument "
           f"{mem['argument_size_in_bytes']} output "
           f"{mem['output_size_in_bytes']} temp {mem['temp_size_in_bytes']} "
           f"alias {mem['alias_size_in_bytes']} bytes; traced in "

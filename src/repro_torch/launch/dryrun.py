@@ -14,20 +14,24 @@ records, in the reference's keys, into ``<out>/<cell>.json``:
   recomputation included: the same step traced without a mesh at the
   global shapes (``flops_count``);
 * ``cost.flops``: one rank's products on the mesh (``flops_count``): the
-  attention, MLP and RG-LRU products and the unembedding split over
-  ``model`` count a rank's share; the xLSTM blocks, attention whose q
-  heads do not divide over ``model`` (minicpm-2b, arctic), the k / v
-  projections where the kv heads do not divide and the unembedding of a
-  vocabulary ``model`` does not divide (minicpm-2b, whisper-medium) still
-  repeat on every ``model`` rank;
+  attention, MLP, RG-LRU and xLSTM products and the unembedding split
+  over ``model`` count a rank's share; attention whose q heads do not
+  divide over ``model`` (minicpm-2b, arctic), the k / v projections where
+  the kv heads do not divide, the unembedding of a vocabulary ``model``
+  does not divide (minicpm-2b, whisper-medium) and the sLSTM's ``up`` /
+  ``down`` (xlstm-350m's width 1,365) still repeat on every ``model``
+  rank;
 * ``collectives``: the collectives one rank issues, counted as they are
   dispatched (``hlo_analysis.trace_collectives``; the port's gathers and
   reductions, not GSPMD's plan): among them the two sums over ``model`` a
   layer (attention or the RG-LRU, and the MLP), the RG-LRU's gather of its
-  conv output, the embedding lookup's sum, the loss's two all-reduces a
-  chunk or the greedy pick's one, and, at decode over a ring split by
-  length, the gather of the q heads and the two all-reduces of the
-  combine;
+  conv output, the mLSTM's gathers (its ``u``; its q and k where a rank
+  holds part of a head) and sum, the sLSTM's reduce-scatter and gather,
+  the all-to-alls that move the mLSTM's states between their placement
+  and the layout it computes in, the embedding lookup's sum, the loss's
+  two all-reduces a chunk or the greedy pick's one, and, at decode over a
+  ring split by length, the gather of the q heads and the two all-reduces
+  of the combine;
 * ``memory``: ``argument_size_in_bytes`` and ``output_size_in_bytes``, the
   bytes of this rank's shards of the arguments and outputs;
   ``alias_size_in_bytes``, those of the arguments the step consumes (the

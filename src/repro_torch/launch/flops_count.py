@@ -20,11 +20,13 @@ Two quantities, as the dry-run records them:
   the same step traced without a mesh at the global shapes.
 * ``cost.flops`` is one rank's count on the mesh, the per-device count
   that the reference's ``cost_analysis`` gives.  It is one rank's trace:
-  its batch is the rank's rows, and the attention and MLP products are
-  its ``model`` share (``models/tensor_parallel.py``); the products the
-  port still computes whole on every ``model`` rank (the embedding and
-  unembedding, the recurrent families, attention whose heads do not
-  divide, k / v where the kv heads do not) repeat there.
+  its batch is the rank's rows, and the attention, MLP, RG-LRU and xLSTM
+  products and the unembedding are its ``model`` share
+  (``models/tensor_parallel.py``); the products the port still computes
+  whole on every ``model`` rank (attention whose heads do not divide, k /
+  v where the kv heads do not, a vocabulary ``model`` does not divide, the
+  sLSTM's ``up`` / ``down`` where ``model`` does not divide their width)
+  repeat there.
 """
 from __future__ import annotations
 

@@ -228,9 +228,12 @@ def trace_collectives(step, *args, **kwargs):
             out = func(*a, **(kw or {}))
             kind = op_kind(func.namespace, func._opname)
             if kind is not None:
-                calls.append((kind, sum(
-                    t.numel() * t.element_size() for t in leaves(out)
-                    if isinstance(t, torch.Tensor))))
+                # c10d::alltoall_base_ returns its Work alone: count the
+                # output buffer it fills, its first argument
+                ts = [t for t in leaves(out) if isinstance(t, torch.Tensor)] \
+                    or a[:1]
+                calls.append((kind, sum(t.numel() * t.element_size()
+                                        for t in ts)))
             return out
 
     with _Accountant():

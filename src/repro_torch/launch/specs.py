@@ -16,17 +16,17 @@ as the output placements say: the next tokens as a DTensor over the rows,
 the caches as DTensors placed as they came, the train step's parameters and
 state in place and its metrics as plain scalars.
 
-Under the ``2d`` and ``tp`` policies the attention, MLP and RG-LRU
+Under the ``2d`` and ``tp`` policies the attention, MLP, RG-LRU and xLSTM
 products and the vocabulary are tensor-parallel over ``model``
-(``models/tensor_parallel.py``), and the attention caches (``k``, ``v``,
-``pos``, and cross-attention's ``k`` and ``v``) and the RG-LRU's states
-(``conv``, ``h``) take the ``model`` entries ``cache_spec`` gives them: kv
-heads, or the ring's (the memory's) length where the heads do not divide;
-the states' channels.  Three departures from the reference remain:
+(``models/tensor_parallel.py``), and every cache takes the ``model``
+entries ``cache_spec`` gives it: the attention caches (``k``, ``v``,
+``pos``, and cross-attention's ``k`` and ``v``) their kv heads, or the
+ring's (the memory's) length where the heads do not divide; the RG-LRU's
+states (``conv``, ``h``) and the sLSTM's (``c``, ``n``, ``m``) their
+channels; the mLSTM's ``C`` every head's value rows, its ``n`` every
+head's k entries and its ``m`` its heads where ``model`` divides them.
+Two departures from the reference remain:
 
-* the xLSTM states (the mLSTM's ``C``, ``n``, ``m``, the sLSTM's ``c``,
-  ``n``, ``m``) stay whole over ``model``, whose blocks are not
-  tensor-parallel yet: their ``model`` entries are stripped;
 * attention whose q heads do not divide over ``model`` (minicpm-2b's 36,
   arctic's 56 at 16; case C) computes every head on every model rank with
   its weights gathered, where GSPMD splits those columns inside a head;
@@ -46,14 +46,11 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.step import make_train_step
-from repro_torch.tree import (tree_leaves, tree_map, tree_paths,
-                              tree_unflatten)
+from repro_torch.tree import tree_map
 
 from . import sharding as sh
 
 META = torch.device("meta")
-# the cache leaves that keep their model entries: attention's, the RG-LRU's
-SPLIT_CACHE = ("k", "v", "pos", "conv", "h")
 
 
 def param_shapes(cfg: ModelConfig, dtype=torch.bfloat16):
@@ -100,14 +97,13 @@ def input_specs(arch: str | ModelConfig, shape: str | ShapeSpec
 
 def cache_specs(mesh, caches, batch: int, policy: str = "2d"):
     """The caches' specs as the bound steps place them: ``cache_spec``'s,
-    with the ``model`` entries stripped from the xLSTM states and, under
-    ``zero3``, from every leaf (see the module docstring).  ``mesh``: a
-    ``DeviceMesh`` or an abstract one (``launch.sharding.MeshShape``)."""
-    return tree_unflatten(caches, [
-        spec if policy != "zero3" and path.rsplit("/", 1)[-1] in SPLIT_CACHE
-        else sh.strip_axis(spec, sh.TP)
-        for path, spec in zip(tree_paths(caches), tree_leaves(
-            sh.cache_shardings(mesh, caches, batch)))])
+    with the ``model`` entries stripped under ``zero3`` (see the module
+    docstring).  ``mesh``: a ``DeviceMesh`` or an abstract one
+    (``launch.sharding.MeshShape``)."""
+    specs = sh.cache_shardings(mesh, caches, batch)
+    if policy != "zero3":
+        return specs
+    return tree_map(lambda spec: sh.strip_axis(spec, sh.TP), specs)
 
 
 def _bind(fn, mesh, policy: str, batch: int, row_pl: list,

@@ -21,14 +21,14 @@ query-chunked ``_attend`` in torch ops.  Decode attention, the one-step
 RG-LRU update, the MoE dispatch and the xLSTM recurrences stay plain torch,
 as the reference keeps them in XLA (a Python loop stands for ``lax.scan``).
 
-Under a mesh the attention, MLP, MoE and RG-LRU blocks take their
-parameters as the model holds them (DTensors) and gather them themselves:
-each keeps the ``model`` shard of the weights it splits over that axis (the
-MLP's hidden units, attention's heads by :func:`attention_heads`, MoE's
-experts, the RG-LRU's channels) and sums its partial output over ``model``
-(``tensor_parallel``).  Attention and the RG-LRU take their caches placed
-too, and read from their placements which share of each leaf is their
-own.
+Under a mesh every block takes its parameters as the model holds them
+(DTensors) and gathers them itself: each keeps the ``model`` shard of the
+weights it splits over that axis (the MLP's hidden units, attention's heads
+by :func:`attention_heads`, MoE's experts, the RG-LRU's and the sLSTM's
+channels, the mLSTM's columns by :func:`_mlstm_parts`) and combines its
+partial outputs over ``model`` (``tensor_parallel``).  Each takes its
+caches placed too, and reads from their placements which share of each
+leaf is its own.
 
 Types follow JAX's promotion: :func:`mm` multiplies mixed-type operands in
 the wider type (f32 caches meet bf16 weights at decode), and elementwise ops
@@ -682,20 +682,21 @@ def _rglru_split(p: dict) -> bool:
             and dim(p["wy"]) == 1 and dim(p["wo"]) == 0)
 
 
-def _rglru_state(cache: dict, split: bool) -> dict:
-    """The block's states as this rank's local tensors.  Split over
-    ``model``, the states come placed (``cache_spec``: their channels over
-    ``model``), and a rank's are its channels; plain tensors raise there,
-    since their shape cannot say whether they are a shard."""
+def _channel_states(cache: dict, split: bool, block: str) -> dict:
+    """A block's states whose last dim is its channels (the RG-LRU's, the
+    sLSTM's), as this rank's local tensors.  Split over ``model``, the
+    states come placed (``cache_spec``: their channels over ``model``), and
+    a rank's are its channels; plain tensors raise there, since their
+    shape cannot say whether they are a shard."""
     if not split:
         return {k: act_ctx.local(v) for k, v in cache.items()}
     if not all(isinstance(v, DTensor) for v in cache.values()):
-        raise ValueError("under tensor parallelism the RG-LRU takes its "
-                         "caches placed (DTensors), not their local shards")
+        raise ValueError(f"under tensor parallelism the {block} takes its "
+                         f"caches placed (DTensors), not their local shards")
     dims = {k: act_ctx.model_split_dim(v) for k, v in cache.items()}
     if dims != {k: v.dim() - 1 for k, v in cache.items()}:
-        raise ValueError(f"RG-LRU states split over 'model' on {dims}, not "
-                         f"on their channels")
+        raise ValueError(f"{block} states split over 'model' on {dims}, "
+                         f"not on their channels")
     return {k: act_ctx.local(v) for k, v in cache.items()}
 
 
@@ -731,7 +732,8 @@ def apply_rglru(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     t = x.shape[1]
     u = mm(x, w["wx"])                                       # (B,T,W)
     gate = F.gelu(mm(x, w["wy"]), approximate="tanh")        # jax.nn.gelu
-    cache = _rglru_state(ctx.cache, split) if ctx.cache else {}
+    cache = _channel_states(ctx.cache, split, "RG-LRU") if ctx.cache \
+        else {}
     cw = cfg.conv_width
     if ctx.mode == "decode" and "conv" in cache:
         hist = torch.cat([cache["conv"], u], dim=1)          # (B, cw-1+T, W)
@@ -835,33 +837,170 @@ def _mlstm_chunk(c_in, n_in, m_in, q, k, v, log_i, log_f):
     return c_out, n_out, m_out, h
 
 
+def _mlstm_split(p: dict, cfg: ModelConfig) -> bool:
+    """Whether the mLSTM block with parameters ``p`` (as the model holds
+    them) splits over ``model``: its placements split ``wu``, ``wg``,
+    ``wq``, ``wk``, ``wv`` by columns and ``wo`` by rows (``param_spec``'s
+    rule, where the width divides), and a rank's block of columns is whole
+    heads or lies inside one head (``model`` divides the heads, or they
+    divide it)."""
+    tp = tensor_parallel.size()
+    dim = act_ctx.model_split_dim
+    return (tp > 1 and dim(p["wo"]) == 0
+            and all(dim(p[k]) == 1 for k in ("wu", "wg", "wq", "wk", "wv"))
+            and (cfg.n_heads % tp == 0 or tp % cfg.n_heads == 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _mlstm_parts(h: int, hd: int, tp: int, split: bool) -> tuple:
+    """For each model rank, in rank order, the part of the mLSTM it
+    computes, ``(h0, nh, v0, nv)``: value rows ``[v0, v0 + nv)`` of heads
+    ``[h0, h0 + nh)``, which is its block of the ``h hd`` columns: whole
+    heads where ``model`` divides them, else ``hd / (tp / h)`` rows of one
+    head.  Unsplit, every rank computes everything."""
+    if not split:
+        return ((0, h, 0, hd),) * tp
+    if h % tp == 0:
+        n = h // tp
+        return tuple((r * n, n, 0, hd) for r in range(tp))
+    s = tp // h
+    return tuple((r // s, 1, r % s * (hd // s), hd // s) for r in range(tp))
+
+
+def _placed_parts(t: DTensor, tp: int) -> tuple:
+    """The layout (``tensor_parallel.relayout``) of an mLSTM state placed
+    as ``t``, ``(B, H, X, ...)`` or ``(B, H)`` (X = 1): its rows ``(H, X)``
+    split over ``model`` by heads (dim 1) or by X (dim 2), or whole."""
+    h, x = t.shape[1], t.shape[2] if t.dim() > 2 else 1
+    d = act_ctx.model_split_dim(t)
+    if d == 1:
+        return tuple((r * (h // tp), h // tp, 0, x) for r in range(tp))
+    if d == 2:
+        return tuple((0, h, r * (x // tp), x // tp) for r in range(tp))
+    if d is None:
+        return ((0, h, 0, x),) * tp
+    raise ValueError(f"an mLSTM state split over 'model' on dim {d}")
+
+
+def _mlstm_layouts(cache: dict, parts: tuple) -> dict:
+    """Each state's (layout as placed, layout as computed, width): ``C``
+    ``(B, H, hd_v, hd_k)`` is computed on the rank's value rows, ``n`` ``(B,
+    H, hd_k)`` and ``m`` ``(B, H)`` on its heads, whole."""
+    hd = cache["C"].shape[-1]
+    tp = len(parts)
+    comp = {"C": (parts, hd),
+            "n": (tuple((h0, nh, 0, hd) for h0, nh, _, _ in parts), hd),
+            "m": (tuple((h0, nh, 0, 1) for h0, nh, _, _ in parts), 1)}
+    return {k: (_placed_parts(cache[k], tp), *comp[k]) for k in comp}
+
+
+def _mlstm_states_in(cache: dict, parts: tuple) -> tuple:
+    """The states ``(C, n, m)`` as this rank computes with them: under
+    tensor parallelism they come placed (DTensors, by ``cache_spec``) and
+    move into the rank's part (:func:`_mlstm_parts`); plain tensors raise
+    there, since their shape cannot say whether they are a shard."""
+    if tensor_parallel.size() == 1:
+        return tuple(act_ctx.local(cache[k]) for k in ("C", "n", "m"))
+    if not all(isinstance(cache[k], DTensor) for k in ("C", "n", "m")):
+        raise ValueError("under tensor parallelism the mLSTM takes its "
+                         "caches placed (DTensors), not their local shards")
+    out = []
+    for k, (placed, comp, width) in _mlstm_layouts(cache, parts).items():
+        t = act_ctx.local(cache[k])
+        b, rest = t.shape[0], t.shape[3:]
+        _, nh, _, nx = comp[tensor_parallel.rank()]
+        moved = tensor_parallel.relayout(t.reshape(b, -1, *rest), placed,
+                                         comp, width)
+        out.append(moved.reshape((b, nh, nx, *rest) if t.dim() > 2
+                                 else (b, nh)))
+    return tuple(out)
+
+
+def _mlstm_states_out(cache: dict, parts: tuple, states: tuple) -> dict:
+    """The new states back in the placement of the old (``cache``): this
+    rank's shards, the inverse move of :func:`_mlstm_states_in`."""
+    out = {}
+    for (k, (placed, comp, width)), new in zip(
+            _mlstm_layouts(cache, parts).items(), states):
+        shape = act_ctx.local(cache[k]).shape
+        out[k] = tensor_parallel.relayout(
+            new.reshape(new.shape[0], -1, *new.shape[3:]), comp, placed,
+            width).reshape(shape)
+    return out
+
+
 def apply_mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     """mLSTM (xLSTM Sec. 2.3): chunkwise-parallel stabilized form for
     train/prefill (chunk = cfg.mlstm_chunk), exact recurrence for decode.
     Each chunk runs under ``torch.utils.checkpoint`` where autograd is
     recording, as the reference's under ``jax.checkpoint``.
 
-    State per head: C (hd,hd) matrix memory, n (hd,), m () stabilizer."""
+    State per head: C (hd,hd) matrix memory, n (hd,), m () stabilizer.
+
+    ``p`` and ``ctx.cache``: as the model holds them (DTensors under a
+    mesh).  Where :func:`_mlstm_split`, rank ``r`` computes its block of
+    the ``w`` columns (:func:`_mlstm_parts`): ``wu``, ``wg``, ``wq``,
+    ``wk``, ``wv`` keep their column shard and ``wo`` its row shard, and
+    ``wi`` / ``wf`` theirs where ``model`` divides the heads (else they are
+    gathered with their gradient summed over ``model`` and sliced to the
+    rank's head).  ``wq`` / ``wk`` / ``wv`` read ``u`` whole, so the ranks'
+    ``u`` is all-gathered; a rank that holds part of one head gathers q and
+    k too (once, before the chunks), since its head's scores, ``C q`` and
+    ``n q`` read them whole, and keeps its own value rows of ``v`` and
+    ``C``.  The output's partial sums over ``wo``'s rows meet over
+    ``model``.  The states come placed by ``cache_spec`` (``C`` split by
+    every head's value rows, ``n`` by every head's k entries, ``m`` by
+    heads where they divide), which is not the products' layout; they move
+    into it at entry and back at exit (``tensor_parallel.relayout``, an
+    all-to-all each where data moves): the states are smaller than a
+    prompt's activations, and at decode both are small.  Without
+    incoming states (train, or a prefill given none) there is no placement
+    to return them in, and under tensor parallelism none are returned."""
     b, t, _ = x.shape
     h = cfg.n_heads
+    tp = tensor_parallel.size()
+    split = _mlstm_split(p, cfg)
+    if split:
+        gates = tuple(k for k in ("wi", "wf")
+                      if act_ctx.model_split_dim(p[k]) == 1)
+        p = tensor_parallel.shards(
+            p, keep=("wu", "wg", "wq", "wk", "wv", "wo") + gates,
+            partial=("wi", "wf"))
+        x = tensor_parallel.copy(x)
+    else:
+        p = act_ctx.materialize(p)
     u = mm(x, p["wu"])
     gate = F.silu(mm(x, p["wg"]))
+    if split:
+        u = tensor_parallel.all_gather(u, -1)
     w = u.shape[-1]
     hd = w // h
-    q = mm(u, p["wq"]).reshape(b, t, h, hd).float()
-    k = (mm(u, p["wk"]) / math.sqrt(hd)).reshape(b, t, h, hd).float()
-    v = mm(u, p["wv"]).reshape(b, t, h, hd).float()
-    log_i = torch.clamp(mm(u, p["wi"]), -10.0, 10.0).float()     # (B,T,H)
-    log_f = F.logsigmoid(mm(u, p["wf"]).float())
+    parts = _mlstm_parts(h, hd, tp, split)
+    h0, nh, _, nv = parts[tensor_parallel.rank() if tp > 1 else 0]
+
+    def own_head(a):                     # (B, T, w / tp) -> the head's hd
+        return tensor_parallel.all_gather(a, -1)[..., h0 * hd:(h0 + 1) * hd] \
+            if nv < hd else a
+
+    def own_heads(wt):                   # (w, H) -> the rank's heads
+        return wt if wt.shape[1] == nh else wt[:, h0:h0 + nh]
+
+    q = own_head(mm(u, p["wq"])).reshape(b, t, nh, hd).float()
+    k = own_head(mm(u, p["wk"]) / math.sqrt(hd)).reshape(b, t, nh,
+                                                         hd).float()
+    v = mm(u, p["wv"]).reshape(b, t, nh, nv).float()
+    log_i = torch.clamp(mm(u, own_heads(p["wi"])), -10.0,
+                        10.0).float()                           # (B,T,nh)
+    log_f = F.logsigmoid(mm(u, own_heads(p["wf"])).float())
 
     cache = ctx.cache or {}
     if "C" in cache:
-        c0, n0, m0 = cache["C"], cache["n"], cache["m"]
+        c0, n0, m0 = _mlstm_states_in(cache, parts)
     else:
         dev = x.device
-        c0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=dev)
-        n0 = torch.zeros((b, h, hd), dtype=torch.float32, device=dev)
-        m0 = torch.full((b, h), -torch.inf, dtype=torch.float32, device=dev)
+        c0 = torch.zeros((b, nh, nv, hd), dtype=torch.float32, device=dev)
+        n0 = torch.zeros((b, nh, hd), dtype=torch.float32, device=dev)
+        m0 = torch.full((b, nh), -torch.inf, dtype=torch.float32, device=dev)
 
     L = cfg.mlstm_chunk
     if t == 1 or ctx.mode == "decode":
@@ -869,17 +1008,17 @@ def apply_mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
                                              m0)
     else:
         # pad T to a chunk multiple; padded steps get log_i=-inf (no effect)
-        tp = (t + L - 1) // L * L
+        tpad = (t + L - 1) // L * L
 
         def heads_first(a, fill=0.0):             # (B,T,H,...) -> (B,H,Tp,...)
-            pad = [0, 0] * (a.dim() - 2) + [0, tp - t]
+            pad = [0, 0] * (a.dim() - 2) + [0, tpad - t]
             return F.pad(a, pad, value=fill).movedim(2, 1)
 
         qh, kh, vh = heads_first(q), heads_first(k), heads_first(v)
         lih, lfh = heads_first(log_i, -torch.inf), heads_first(log_f)
         carry, outs = (c0, n0, m0), []
         grad = torch.is_grad_enabled()
-        for j in range(tp // L):
+        for j in range(tpad // L):
             cols = slice(j * L, (j + 1) * L)
             args = (*carry, qh[:, :, cols], kh[:, :, cols], vh[:, :, cols],
                     lih[:, :, cols], lfh[:, :, cols])
@@ -892,9 +1031,16 @@ def apply_mlstm(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
         cT, nT, mT = carry
         # (B,H,Tp,hd) -> (B,T,H,hd)
         hs = torch.cat(outs, dim=2).movedim(1, 2)[:, :t]
-    out = hs.reshape(b, t, w).to(x.dtype)
-    new_cache = {"C": cT, "n": nT, "m": mT} if ctx.mode != "train" else None
-    return mm(out * gate, p["wo"]), new_cache
+    out = hs.reshape(b, t, nh * nv).to(x.dtype)
+    if ctx.mode == "train":
+        new_cache = None
+    elif tp == 1:
+        new_cache = {"C": cT, "n": nT, "m": mT}
+    else:
+        new_cache = _mlstm_states_out(cache, parts, (cT, nT, mT)) \
+            if "C" in cache else None
+    y = mm(out * gate, p["wo"])
+    return (tensor_parallel.reduce(y) if split else y), new_cache
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> dict:
@@ -917,22 +1063,64 @@ def init_slstm(cfg: ModelConfig, dense: Dense, dtype: torch.dtype) -> dict:
             "up": dense((d, f), dtype), "down": dense((f, d), dtype)}
 
 
+def _slstm_split(p: dict) -> bool:
+    """Whether the sLSTM block with parameters ``p`` (as the model holds
+    them) splits its channels over ``model``: its placements split ``wi``
+    by columns and ``wo`` (the output gate's) by rows."""
+    dim = act_ctx.model_split_dim
+    return tensor_parallel.size() > 1 and dim(p["wi"]) == 1 and \
+        dim(p["wo"]) == 0
+
+
 def apply_slstm(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
     """sLSTM (xLSTM Sec. 2.2): scalar memory, exp input gating, stabilized;
-    the reference's sequential step in a loop over T."""
-    b, t, d = x.shape
-    z = torch.tanh(mm(x, p["wz"])).float()
-    log_i = torch.clamp(mm(x, p["wi"]), -10, 10).float()
-    log_f = F.logsigmoid(mm(x, p["wf"]).float())
-    o = torch.sigmoid(mm(x, p["wo"])).float()
+    the reference's sequential step in a loop over T.
 
-    cache = ctx.cache or {}
+    ``p`` and ``ctx.cache``: as the model holds them (DTensors under a
+    mesh).  The recurrence is per channel, so where :func:`_slstm_split`
+    rank ``r`` runs it on its ``d / tp`` channels, the states' placement
+    (``cache_spec``): ``log_i`` from ``wi``'s column shard, ``z`` and
+    ``log_f`` from ``wz`` / ``wf`` gathered (with their gradient summed
+    over ``model``) and sliced to the rank's columns, and the output gate
+    from ``wo``'s row shard, the rank's channels of ``x`` times its rows,
+    reduce-scattered to its channels.  ``up`` contracts over every
+    channel: the ranks' outputs are gathered and ``up`` / ``down``, which
+    ``param_spec`` leaves whole where ``model`` does not divide their
+    width (xlstm-350m's 1,365), run whole on every rank, which moves ``d``
+    values a position where a sum of partial products would move ``2 f``.
+    Where their placements split them, ``up``'s columns and ``down``'s rows
+    stay split and their partial outputs meet over ``model``."""
+    b, t, d = x.shape
+    dim = act_ctx.model_split_dim
+    split = _slstm_split(p)
+    ffn = split and dim(p["up"]) == 1 and dim(p["down"]) == 0
+    if split:
+        w = tensor_parallel.shards(
+            p, keep=("wi", "wo") + (("up", "down") if ffn else ()),
+            partial=("wz", "wf"))
+        x = tensor_parallel.copy(x)
+        nc = w["wi"].shape[1]
+        cols = slice(tensor_parallel.rank() * nc,
+                     (tensor_parallel.rank() + 1) * nc)
+        wz, wi, wf = w["wz"][:, cols], w["wi"], w["wf"][:, cols]
+        o_in = tensor_parallel.reduce_scatter(mm(x[..., cols], w["wo"]), -1)
+    else:
+        w = act_ctx.materialize(p)
+        wz, wi, wf = w["wz"], w["wi"], w["wf"]
+        o_in = mm(x, w["wo"])
+    z = torch.tanh(mm(x, wz)).float()
+    log_i = torch.clamp(mm(x, wi), -10, 10).float()
+    log_f = F.logsigmoid(mm(x, wf).float())
+    o = torch.sigmoid(o_in).float()
+
+    cache = _channel_states(ctx.cache, split, "sLSTM") if ctx.cache else {}
     if "c" in cache:
         c, n, m = cache["c"], cache["n"], cache["m"]
     else:
-        c = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-        n = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-        m = torch.full((b, d), -torch.inf, dtype=torch.float32,
+        shape = (b, z.shape[-1])                  # the rank's channels
+        c = torch.zeros(shape, dtype=torch.float32, device=x.device)
+        n = torch.zeros(shape, dtype=torch.float32, device=x.device)
+        m = torch.full(shape, -torch.inf, dtype=torch.float32,
                        device=x.device)
     hs = []
     for i in range(t):
@@ -946,8 +1134,12 @@ def apply_slstm(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx):
         hs.append(o[:, i] * c / torch.clamp(n, min=1.0))
     out = torch.stack(hs, dim=1).to(x.dtype)
     new_cache = {"c": c, "n": n, "m": m} if ctx.mode != "train" else None
-    y = mm(out, p["up"])
-    return mm(F.gelu(y, approximate="tanh"), p["down"]), new_cache
+    if split:
+        out = (tensor_parallel.all_gather if ffn
+               else tensor_parallel.gather)(out, -1)
+    y = mm(out, w["up"])
+    y = mm(F.gelu(y, approximate="tanh"), w["down"])
+    return (tensor_parallel.reduce(y) if ffn else y), new_cache
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> dict:

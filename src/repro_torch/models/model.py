@@ -14,13 +14,11 @@ the layers in a Python loop.  Under ``activation_sharding(mesh)`` the
 parameters are DTensors, and each layer gathers its own just before it
 computes (``act_ctx.materialize``; the embedding, unembedding and final
 norms once a call), as the reference's layers read their shards through
-GSPMD, except that the attention, MLP, MoE and RG-LRU blocks keep the
-``model`` shard of the weights they split, and the embedding and
+GSPMD, except that the attention, MLP, MoE, RG-LRU and xLSTM blocks keep
+the ``model`` shard of the weights they split, and the embedding and
 unembedding their share of the vocabulary (``models/tensor_parallel.py``);
-each rank runs its own batch rows.  The caches come placed too: the
-attention and RG-LRU blocks read from their placements which shard of each
-leaf is their own, the xLSTM blocks take their rows of their states
-(``_block_cache``).
+each rank runs its own batch rows.  The caches come placed too, and each
+block reads from their placements which shard of each leaf is its own.
 
 Under a vocabulary split over ``model`` (a mesh whose ``model`` axis is
 larger than 1 and divides the vocabulary) the logits that :func:`forward`,
@@ -47,7 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.index.engine import resolve_device
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves
 
 from . import act_ctx, blocks, tensor_parallel
 from .act_ctx import activation_sharding  # noqa: F401  (as the reference)
@@ -208,15 +206,16 @@ def apply_block(btype: str, p: dict, x: torch.Tensor, cfg: ModelConfig,
     raise ValueError(btype)
 
 
-_SELF_GATHERED = ("attn", "xattn", "mlp", "moe", "rec")
+_SELF_GATHERED = ("attn", "xattn", "mlp", "moe", "rec", "mix")
 
 
 def _layer_params(lp: dict) -> dict:
     """One layer's parameters as its blocks compute with them: under a mesh
     gathered into local tensors (``act_ctx.materialize``), except the
-    attention, MLP, MoE and RG-LRU blocks', which ``blocks.apply_attention``,
-    ``apply_mlp``, ``apply_moe`` and ``apply_rglru`` gather themselves: each
-    keeps the ``model`` shard of the weights it splits
+    attention, MLP, MoE, RG-LRU and xLSTM blocks', which
+    ``blocks.apply_attention``, ``apply_mlp``, ``apply_moe``,
+    ``apply_rglru``, ``apply_mlstm`` and ``apply_slstm`` gather themselves:
+    each keeps the ``model`` shard of the weights it splits
     (``models/tensor_parallel``).
     A checkpointed unit calls this again when it is recomputed, and its
     blocks split as they did the first time."""
@@ -224,20 +223,6 @@ def _layer_params(lp: dict) -> dict:
         return lp
     return {bk: {k: v if k in _SELF_GATHERED else act_ctx.materialize(v)
                  for k, v in bp.items()} for bk, bp in lp.items()}
-
-
-_PLACED_CACHES = ("attn", "local", "enc", "moe", "cross", "self+cross",
-                  "rglru")
-
-
-def _block_cache(btype: str, c):
-    """One block's caches as it computes with them: under a mesh the
-    attention and RG-LRU blocks take them placed (DTensors) and find their
-    own shards (``blocks.apply_attention``, ``apply_rglru``), the xLSTM
-    blocks this rank's rows of their states as local tensors."""
-    if c is None or act_ctx.mesh() is None or btype in _PLACED_CACHES:
-        return c
-    return tree_map(act_ctx.local, c)
 
 
 # the vocabulary's dim of each leaf that holds it
@@ -280,7 +265,7 @@ def _apply_unit(x: torch.Tensor, unit, lp: dict, lc, cfg: ModelConfig,
     ncs = {}
     for bi, bt in enumerate(unit):
         ctx = Ctx(ctx_proto.mode, ctx_proto.pos, ctx_proto.memory,
-                  None if lc is None else _block_cache(bt, lc[f"b{bi}"]))
+                  None if lc is None else lc[f"b{bi}"])
         x, ncs[f"b{bi}"] = apply_block(bt, lp[f"b{bi}"], x, cfg, ctx)
     return act_ctx.constrain_btd(x), ncs
 

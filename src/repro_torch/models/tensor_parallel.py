@@ -1,6 +1,6 @@
 """Tensor parallelism over the mesh's ``model`` axis: the collectives and
-the parameter hook that the attention, MLP, MoE and RG-LRU blocks and the
-model's vocabulary share.
+the parameter hook that the attention, MLP, MoE, RG-LRU and xLSTM blocks
+and the model's vocabulary share.
 
 The reference asks GSPMD to split the attention and MLP products by its
 ``2d`` and ``tp`` rules (``launch.sharding.param_spec``): ``wq`` / ``wk`` /
@@ -31,9 +31,15 @@ and ``unembed`` ``(data, model)``: a rank holds the rows (columns) of ids
 :func:`vocab_cross_entropy` is Megatron's cross entropy over logits split
 by columns, and :func:`argmax` is the greedy pick over them; none gathers
 a ``(.., V)`` tensor.  :func:`all_gather` joins activations split along a
-dim (the RG-LRU's conv output, which its dense gates read whole; at decode
-over a ring split by length, attention's q heads and the ring's
-positions).
+dim for work that each rank then splits again (the RG-LRU's conv output,
+which its dense gates read whole; the mLSTM's ``u``, and its q and k where
+a rank holds part of a head; at decode over a ring split by length,
+attention's q heads and the ring's positions); :func:`gather` joins them
+for work that every rank repeats (the sLSTM's output before its whole
+``up`` projection); :func:`reduce_scatter` sums partial outputs into each
+rank's share of them (the sLSTM's output gate, whose weight is split by
+rows).  :func:`relayout` moves recurrent states between the layout their
+placement gives them and the one a block computes in (the mLSTM's).
 
 Tensor parallelism runs where a mesh is installed whose ``model`` axis is
 larger than 1 and is not a data-parallel axis (the ``zero3`` policy spends
@@ -42,6 +48,9 @@ they did without it: a 1 x 1 mesh adds no collective and no copy.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -119,6 +128,24 @@ def reduce(y: torch.Tensor, grp=None) -> torch.Tensor:
     return _Reduce.apply(y, grp if grp is not None else group())
 
 
+def _gathered(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in rank order."""
+    n = dist.get_world_size(group)
+    xs = x.movedim(dim, 0).contiguous()
+    out = xs.new_empty((n * xs.shape[0], *xs.shape[1:]))
+    dist.all_gather_into_tensor(out, xs, group=group)
+    return out.movedim(0, dim)
+
+
+def _scattered(y: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``y`` summed, this rank's slice of the sum along ``dim``."""
+    n = dist.get_world_size(group)
+    ys = y.movedim(dim, 0).contiguous()
+    out = ys.new_empty((ys.shape[0] // n, *ys.shape[1:]))
+    dist.reduce_scatter_tensor(out, ys, group=group)
+    return out.movedim(0, dim)
+
+
 class _AllGather(torch.autograd.Function):
     """Every model rank's ``x`` joined along ``dim`` in rank order; the
     backward sums the whole gradient over ``model`` and hands each rank
@@ -128,25 +155,60 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
-        n = dist.get_world_size(group)
-        xs = x.movedim(dim, 0).contiguous()
-        out = xs.new_empty((n * xs.shape[0], *xs.shape[1:]))
-        dist.all_gather_into_tensor(out, xs, group=group)
-        return out.movedim(0, dim)
+        return _gathered(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
-        gs = g.movedim(ctx.dim, 0).contiguous()
-        out = gs.new_empty((gs.shape[0] // n, *gs.shape[1:]))
-        dist.reduce_scatter_tensor(out, gs, group=ctx.group)
-        return out.movedim(0, ctx.dim), None, None
+        return _scattered(g, ctx.dim, ctx.group), None, None
 
 
 def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Every model rank's ``x`` concatenated along ``dim``, in rank order,
     under autograd (see :class:`_AllGather`)."""
     return _AllGather.apply(x, dim % x.dim(), group())
+
+
+class _Gather(torch.autograd.Function):
+    """Every model rank's ``x`` joined along ``dim`` in rank order, for work
+    that every rank then repeats whole: the backward hands each rank its
+    own slice of the gradient, which is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gathered(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g.tensor_split(n, ctx.dim)[r].contiguous(), None, None
+
+
+def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``dim``, for work that
+    every model rank repeats (see :class:`_Gather`)."""
+    return _Gather.apply(x, dim % x.dim(), group())
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The ranks' partial ``y`` summed over ``model``, each rank keeping its
+    own slice along ``dim``; the backward gathers the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, y, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scattered(y, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gathered(g, ctx.dim, ctx.group), None, None
+
+
+def reduce_scatter(y: torch.Tensor, dim: int) -> torch.Tensor:
+    """``y`` summed over ``model``, this rank's slice of the sum along
+    ``dim`` (see :class:`_ReduceScatter`)."""
+    return _ReduceScatter.apply(y, dim % y.dim(), group())
 
 
 # ------------------------------------------------------------ the vocabulary
@@ -233,3 +295,61 @@ def all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     x = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, op=op, group=group())
     return x
+
+
+# ------------------------------------------------- states between layouts
+# A layout of a state whose rows are (heads, width) flattened head-major:
+# for each model rank, in rank order, the (h0, nh, x0, nx) it holds, rows
+# [x0, x0 + nx) of each head in [h0, h0 + nh).
+def _rows(part: tuple, width: int) -> np.ndarray:
+    h0, nh, x0, nx = part
+    return (np.arange(h0, h0 + nh)[:, None] * width
+            + np.arange(x0, x0 + nx)[None]).reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _relayout_plan(src: tuple, dst: tuple, width: int, r: int):
+    """Rank ``r``'s part of moving rows from layout ``src`` to ``dst``:
+    (the local rows it sends, in send order; its send counts by rank; its
+    receive counts by rank; where the received rows go; its rows in
+    ``dst``; whether no rank sends to another).  A rank takes each row it
+    needs from itself where it holds it, else from the lowest rank that
+    does."""
+    have = [_rows(p, width) for p in src]
+    need = [_rows(p, width) for p in dst]
+    owner = []
+    for j, rows in enumerate(need):
+        own = np.where(np.isin(rows, have[j]), j, -1)
+        for i, held in enumerate(have):
+            own[(own < 0) & np.isin(rows, held)] = i
+        if (own < 0).any():
+            raise ValueError(f"layout {src} lacks rows that {dst} needs")
+        owner.append(own)
+    send = [np.searchsorted(have[r], need[j][owner[j] == r])
+            for j in range(len(dst))]
+    recv = [np.nonzero(owner[r] == i)[0] for i in range(len(src))]
+    local = all((own == j).all() for j, own in enumerate(owner))
+    return (np.concatenate(send), [len(s) for s in send],
+            [len(v) for v in recv], np.concatenate(recv), len(need[r]),
+            local)
+
+
+# States move only at prefill and decode, without autograd: a plain
+# collective.
+def relayout(x: torch.Tensor, src: tuple, dst: tuple, width: int
+             ) -> torch.Tensor:
+    """``x`` ``(B, rows, ...)``, this rank's rows of a state in layout
+    ``src`` (see :func:`_rows`), as its rows in layout ``dst``: one
+    all-to-all over ``model``, or none where every rank holds the rows it
+    needs."""
+    send, ins, outs, pos, n, local = _relayout_plan(src, dst, width, rank())
+    xs = x.movedim(1, 0)
+    send = torch.as_tensor(send, device=x.device)
+    if local:
+        return xs[send].movedim(0, 1)
+    got = xs.new_empty((sum(outs), *xs.shape[1:]))
+    dist.all_to_all_single(got, xs[send].contiguous(), outs, ins,
+                           group=group())
+    out = xs.new_empty((n, *xs.shape[1:]))
+    out[torch.as_tensor(pos, device=x.device)] = got
+    return out.movedim(0, 1)

@@ -4,12 +4,12 @@
 Under ``activation_sharding(mesh)`` the parameters and the caches are
 DTensors (``launch.specs.make_step_and_specs`` places them) and the tokens
 are this rank's rows.  A cache leaf's batch dim is over the data-parallel
-axes, an attention cache's kv heads or length and an RG-LRU state's
-channels over ``model`` (``launch.sharding.cache_spec``).  The model hands
-each block its caches (``models.model``): the attention and RG-LRU blocks
-read from their placements which shard of each leaf is their own, the
-xLSTM blocks take their rows.  The new caches, this rank's shards, come
-back placed as the old ones (``act_ctx.like``).  Under a vocabulary split
+axes, an attention cache's kv heads or length, an RG-LRU or sLSTM state's
+channels and the mLSTM's value rows, k entries or heads over ``model``
+(``launch.sharding.cache_spec``).  The model hands each block its caches
+placed (``models.model``), and each block reads from their placements
+which shard of each leaf is its own.  The new caches, this rank's shards,
+come back placed as the old ones (``act_ctx.like``).  Under a vocabulary split
 over ``model`` the logits are this rank's columns, and the greedy pick
 combines the ranks' (``tensor_parallel.argmax``): the tokens are the same
 on every model rank.

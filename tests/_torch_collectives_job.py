@@ -13,7 +13,10 @@ write rank 0's record to DIR/collectives.json.  The step issues, by hand:
   ``Replicate``: one all-reduce of 4 x 6 x 4 = 96 bytes;
 * a (8, 6) f32 DTensor ``Partial`` over ``data`` redistributed to
   ``Shard(0)``: one reduce-scatter returning its (4, 6) shard, 96 bytes;
-* ``torch.distributed.all_reduce`` of 10 f32: one all-reduce of 40 bytes.
+* ``torch.distributed.all_reduce`` of 10 f32: one all-reduce of 40 bytes;
+* ``torch.distributed.all_to_all_single`` of 8 f32 (2 to each rank): one
+  all-to-all filling 8 x 4 = 32 bytes (the op returns no tensor: its
+  output buffer is counted).
 """
 import json
 import os
@@ -37,8 +40,10 @@ def step(mesh):
     c = c.redistribute(mesh, [Shard(0), Replicate()]).to_local()
     d = torch.ones(10)
     dist.all_reduce(d)
+    e = torch.empty(8)
+    dist.all_to_all_single(e, torch.full((8,), float(dist.get_rank())))
     return [a.shape, b.shape, c.shape, float(a.sum()), float(b.sum()),
-            float(c.sum()), float(d.sum())]
+            float(c.sum()), float(d.sum()), float(e.sum())]
 
 
 def rank_main(rank: int, world: int, d: str) -> None:

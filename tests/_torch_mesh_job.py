@@ -876,7 +876,8 @@ def _plain_caches(mesh) -> str:
 
 # layer -> (arch, stack, unit) of a reduced config
 LAYERS = {"attn": ("internlm2-1.8b", "s0", ("attn",)),
-          "rglru": ("recurrentgemma-9b", "s1", ("rglru",))}
+          "rglru": ("recurrentgemma-9b", "s1", ("rglru",)),
+          "xlstm": ("xlstm-350m", "s0", ("mlstm", "mlstm", "mlstm", "slstm"))}
 
 
 def case_layer_collectives(mesh, layer: str) -> dict:

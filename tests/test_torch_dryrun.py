@@ -2,8 +2,9 @@
 ``tests/test_dryrun_cell.py``'s assertions on the port's CLI, in a
 subprocess (the fake process group of 512 ranks is global to a process),
 on the same cell: xlstm-350m decode_32k on the multi-pod mesh, whose
-rank counts its rows' share of the flops and of the unembedding its share
-of the vocabulary's columns too; a
+per-rank flops are the count written out from its config (its rows, the
+xLSTM products split over ``model``, its share of the vocabulary's
+columns) and whose collectives are those the split dispatches; a
 long_500k cell of a full-attention architecture, recorded as skipped with
 the reference's reason; and internlm2-1.8b's prefill_32k on the single-pod
 mesh, whose per-rank flops are the count written out from its config: the
@@ -47,14 +48,38 @@ def test_dryrun_cell_multipod(tmp_path):
     assert rec["jaxpr_flops_global"] > 0
     assert rec["collectives"]["wire_bytes"] > 0
     assert rec["memory"]["temp_size_in_bytes"] > 0
-    # one rank's count: its 128 / 32 rows of the global batch, and of the
-    # unembedding (2 b d V) its share of the vocabulary's columns, 50,304 /
-    # 16 (the xLSTM blocks are not split over model)
+    # one rank's count, written out: its 128 / 32 rows of the global batch,
+    # the xLSTM products split over model 16, and of the unembedding (2 B d
+    # V) its share of the vocabulary's columns, 50,304 / 16
     cfg, shape = ref_get_config("xlstm-350m"), REF_SHAPES["decode_32k"]
-    assert cfg.vocab % 16 == 0
-    unembed = 2 * shape.global_batch * cfg.d_model * cfg.vocab
-    assert rec["cost"]["flops"] == \
-        (rec["jaxpr_flops_global"] - unembed) // 32 + unembed // (32 * 16)
+    d, h, tp, dp = cfg.d_model, cfg.n_heads, 16, 32
+    w, f = int(cfg.mlstm_expand * d), int(cfg.slstm_proj * d)
+    hd = w // h
+    b = shape.global_batch // dp
+    assert tp % h == 0 and f % tp != 0 and cfg.vocab % tp == 0
+    nv = hd // (tp // h)            # a quarter of one head's value rows
+    blocks = [bt for unit, r in cfg.stacks for _ in range(r) for bt in unit]
+    mlstm = 2 * b * (2 * d * w // tp        # wu, wg: column shards
+                     + 3 * w * w // tp      # wq, wk, wv on the gathered u
+                     + 2 * w                # wi, wf: the rank's one head
+                     + nv * hd + hd         # C q on its value rows, n . q
+                     + w // tp * d)         # wo: its rows
+    slstm = 2 * b * (4 * d * d // tp        # wz, wi, wf: its channels; wo:
+                     + 2 * d * f)           # its rows; up, down whole
+    unembed = 2 * shape.global_batch * d * cfg.vocab
+    assert rec["cost"]["flops"] == (blocks.count("mlstm") * mlstm
+                                    + blocks.count("slstm") * slstm
+                                    + unembed // (dp * tp))
+    assert rec["cost"]["flops"] < rec["jaxpr_flops_global"] / dp
+    # what the split dispatches: an all-reduce a mLSTM (its output), the
+    # embedding lookup's and the greedy pick's; a reduce-scatter a sLSTM
+    # (its output gate); five all-to-alls a mLSTM moving its states between
+    # their placement and its quarter head (C and n in and out, m out: m
+    # is whole as placed, and a rank takes its head's without a move)
+    coll = rec["collectives"]
+    assert coll["all-reduce_count"] == blocks.count("mlstm") + 2
+    assert coll["reduce-scatter_count"] == blocks.count("slstm")
+    assert coll["all-to-all_count"] == 5 * blocks.count("mlstm")
     assert rec["memory"]["alias_size_in_bytes"] > 0
     assert rec["compile_s"] == 0.0
     assert "[ok] xlstm-350m__decode_32k__pod2x16x16" in res.stdout

@@ -95,12 +95,15 @@ def test_accountant_on_2x2_ranks_hand_count(tmp_path):
     res = json.loads((tmp_path / "collectives.json").read_text())
     rec = res["record"]
     # the step's own results: the collectives really ran
-    assert res["out"] == [[8, 12], [4, 6], [4, 6], 96.0, 48.0, 48.0, 40.0]
+    # (the all-to-all: 2 values from each of ranks 0 to 3)
+    assert res["out"] == [[8, 12], [4, 6], [4, 6], 96.0, 48.0, 48.0, 40.0,
+                          12.0]
     assert (rec["all-gather_count"], rec["all-gather_bytes"]) == (1, 384)
     assert (rec["all-reduce_count"], rec["all-reduce_bytes"]) == \
         (2, 96 + 40)
     assert (rec["reduce-scatter_count"], rec["reduce-scatter_bytes"]) == \
         (1, 96)
-    assert rec["all-to-all_count"] == rec["collective-permute_count"] == 0
-    assert rec["total_collective_bytes"] == 384 + 136 + 96
-    assert rec["wire_bytes"] == 2 * 136 + 384 + 96
+    assert (rec["all-to-all_count"], rec["all-to-all_bytes"]) == (1, 32)
+    assert rec["collective-permute_count"] == 0
+    assert rec["total_collective_bytes"] == 384 + 136 + 96 + 32
+    assert rec["wire_bytes"] == 2 * 136 + 384 + 96 + 32

@@ -6,10 +6,10 @@ each family (dense, recurrent, MoE, xLSTM, vision, audio) on a one-rank (1, 1) `
 and decode bound under activation sharding, their arguments placed on
 meta, traced, with outputs placed as the output placements say and the
 same flop count as the step without a mesh; and the caches' placements:
-an attention cache leaf and an RG-LRU state keep the ``model`` entry
-``cache_spec`` gives them, an xLSTM state none, and under ``zero3`` no
-leaf names ``model``; recurrentgemma-9b's and xlstm-350m's states at full
-size on an abstract (16, 16) mesh."""
+every cache leaf (attention's, the RG-LRU's and the xLSTM's states) keeps
+the ``model`` entry ``cache_spec`` gives it, and under ``zero3`` no leaf
+names ``model``; recurrentgemma-9b's and xlstm-350m's states at full size
+on an abstract (16, 16) mesh."""
 import jax
 import pytest
 import torch
@@ -23,7 +23,7 @@ from repro_torch.configs import (ARCHS, SHAPES, ShapeSpec, get_config,
 from repro_torch.launch.flops_count import count_flops
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import distribute_tree, make_host_mesh
-from repro_torch.launch.specs import (SPLIT_CACHE, cache_shapes,
+from repro_torch.launch.specs import (cache_shapes,
                                       cache_specs, input_specs,
                                       make_step_and_specs, param_shapes)
 from repro_torch.tree import tree_leaves, tree_paths
@@ -178,12 +178,12 @@ def test_cache_placements_keep_attention_model_entries(mesh, arch):
         leaves = list(zip(tree_paths(caches), specs, _placements(pls)))
         assert len(leaves) == len(tree_leaves(caches))
         for path, spec, pl in leaves:
-            split = path.rsplit("/", 1)[-1] in SPLIT_CACHE
-            want = sh.to_placements(spec if split and policy == "2d"
+            want = sh.to_placements(spec if policy == "2d"
                                     else sh.strip_axis(spec, sh.TP), mesh)
             assert pl == want, (policy, path)
-            if split and policy == "2d":
-                # kv heads or length; the RG-LRU's channels
+            if policy == "2d":
+                # kv heads or length; the recurrent states' channels, the
+                # mLSTM's value rows, k entries or heads
                 assert pl[model].is_shard(), path
             else:
                 assert pl[model].is_replicate(), (policy, path)
@@ -192,34 +192,37 @@ def test_cache_placements_keep_attention_model_entries(mesh, arch):
 @pytest.mark.parametrize("arch", ("recurrentgemma-9b", "xlstm-350m"))
 def test_recurrent_state_model_entries(arch):
     """The bound steps' cache specs on the single-pod mesh (data 16, model
-    16) at decode_32k's batch of 128: the RG-LRU's ``conv`` (B, cw - 1, W)
-    and ``h`` (B, W) keep their channels over ``model``, as ``cache_spec``
-    gives them; the xLSTM states, whose blocks are not split yet, keep no
-    ``model`` entry (``cache_spec`` gives their last dims one)."""
+    16) at decode_32k's batch of 128 are ``cache_spec``'s, none stripped:
+    the RG-LRU's ``conv`` (B, cw - 1, W) and ``h`` (B, W) and the sLSTM's
+    ``c``, ``n``, ``m`` (B, d) keep their channels over ``model``, the
+    mLSTM's ``C`` (B, H, hd_v, hd_k) every head's value rows and ``n`` (B,
+    H, hd_k) every head's k entries; its ``m`` (B, 4 heads) has none, since
+    16 does not divide 4."""
     mesh = sh.MeshShape(("data", "model"), (16, 16))
     caches = cache_shapes(get_config(arch), 128, 16)
     given = tree_leaves(sh.cache_shardings(mesh, caches, 128))
     names, stripped = set(), set()
-    for path, spec, full in zip(tree_paths(caches), tree_leaves(
+    want = {"C": sh.P(("data",), None, "model", None),
+            "n": sh.P(("data",), None, "model"),
+            "m": sh.P(("data",), None)}
+    paths = tree_paths(caches)
+    slstm = {p.rsplit("/", 1)[0] for p in paths if p.endswith("/c")}
+    for path, spec, full in zip(paths, tree_leaves(
             cache_specs(mesh, caches, 128)), given):
-        name = path.rsplit("/", 1)[-1]
+        block, name = path.rsplit("/", 1)
         names.add(name)
-        if name in ("conv", "h"):
-            assert spec == full == sh.P(
-                ("data",), *[None] * (len(spec) - 2), "model"), path
-        elif name in ("k", "v", "pos"):
-            assert spec == full, path
-        else:
-            assert "model" not in spec, path
-            if "model" in full:
-                stripped.add(name)
+        if "model" in full and "model" not in spec:
+            stripped.add(name)
+        assert spec == full, path
+        if name in ("conv", "h") or block in slstm:
+            assert spec == sh.P(("data",), *[None] * (len(spec) - 2),
+                                "model"), path
+        elif name in want:
+            assert spec == want[name], path
     assert names == ({"conv", "h", "k", "v", "pos"}
                      if arch == "recurrentgemma-9b"
                      else {"C", "n", "m", "c"})
-    # the sLSTM's (B, d) states and the mLSTM's C, n (the mLSTM's m, (B,
-    # 4 heads), has none to strip)
-    assert stripped == (set() if arch == "recurrentgemma-9b"
-                        else {"C", "n", "m", "c"})
+    assert stripped == set()
 
 
 def _placements(tree) -> list:

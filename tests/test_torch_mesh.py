@@ -56,7 +56,11 @@
   gradients against the reference's ``apply_rglru`` within ``rtol 2e-4,
   atol 2e-5``; plain states under ``model`` 2 raise; one reduced
   recurrentgemma RG-LRU layer's collectives: the conv output's gather over
-  ``model``, the block's and the MLP's sums, the data gathers.
+  ``model``, the block's and the MLP's sums, the data gathers;
+* one reduced xlstm-350m layer's collectives (its three mLSTM blocks and
+  its sLSTM, ``tests/test_torch_xlstm_mesh.py`` holds the blocks
+  themselves): the mLSTM's gathers of ``u`` and sums over ``model``, the
+  sLSTM's reduce-scatter and gather, the data gathers; none on 1 x 1.
 """
 import dataclasses
 import json
@@ -412,7 +416,8 @@ def _no_collectives(job, layer: str) -> None:
     rec = job["mesh_1x1.json"][f"{layer} layer collectives"]["record"]
     assert rec["total_collective_bytes"] == 0
     assert sum(rec[f"{c}_count"] for c in ("all-reduce", "all-gather",
-                                           "reduce-scatter")) == 0
+                                           "reduce-scatter",
+                                           "all-to-all")) == 0
 
 
 def test_tp_layer_collectives_on_2x2(job):
@@ -429,6 +434,38 @@ def test_tp_rglru_layer_collectives_on_2x2(job):
 
 def test_tp_rglru_layer_collectives_on_1x1_none(job):
     _no_collectives(job, "rglru")
+
+
+def test_tp_xlstm_layer_collectives_on_2x2(job):
+    """One reduced xlstm-350m layer (three mLSTM blocks and an sLSTM, no
+    caches) on 2 x 2, counted by hand: each mLSTM all-gathers its ``u``
+    (rows, t, w / 2) to ``w`` columns over ``model`` and sums its output
+    over ``model``; the sLSTM reduce-scatters its output gate's partial
+    product to its d / 2 channels and gathers its output (rows, t, d / 2)
+    to d; the weights are gathered over ``data`` only; nothing moves
+    between layouts without states."""
+    res = job["mesh_2x2.json"]["xlstm layer collectives"]
+    rec = res["record"]
+    cfg = ref_reduced(ref_get_config("xlstm-350m"))
+    rows, t, d = res["rows"], res["t"], cfg.d_model
+    w = int(cfg.mlstm_expand * d)
+    assert rec["all-reduce_count"] == 3
+    assert rec["all-reduce_bytes"] == 3 * rows * t * d * 4
+    assert rec["reduce-scatter_count"] == 1
+    assert rec["reduce-scatter_bytes"] == rows * t * (d // 2) * 4
+    # the mLSTM's wu, wg, wq, wk, wv, wi, wf, wo and the sLSTM's wz, wi,
+    # wf, wo, up, down: every 2-d weight has a dim that data 2 divides
+    assert res["data_gathers"] == 3 * 8 + 6
+    assert rec["all-gather_count"] == res["data_gathers"] + 3 + 1
+    assert rec["all-gather_bytes"] == res["data_gather_bytes"] + \
+        3 * rows * t * w * 4 + rows * t * d * 4
+    assert rec["all-to-all_count"] == 0
+    assert rec["total_collective_bytes"] == rec["all-reduce_bytes"] + \
+        rec["all-gather_bytes"] + rec["reduce-scatter_bytes"]
+
+
+def test_tp_xlstm_layer_collectives_on_1x1_none(job):
+    _no_collectives(job, "xlstm")
 
 
 # ---------------------------------------------------------------- the RG-LRU

@@ -278,8 +278,9 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
 9c (after phase 9). Flash at the per-rank heads of tensor parallelism
    over a 16-way ``model`` axis (``FLASH_TP_ARCHS``: H / 16 q heads over
    Hkv / 16 kv heads, or the one kv head they group into where Hkv does
-   not divide; each layer kind's causal, window and soft-cap; B 1, T = S
-   = 4,096, bf16), each against the twin within ``FLASH_TOL`` and
+   not divide; where H does not divide (minicpm-2b, arctic; case C), the
+   heads rank 0's columns touch over the kv heads those group into; each
+   layer kind's causal, window and soft-cap; B 1, T = S = 4,096, bf16), each against the twin within ``FLASH_TOL`` and
    ``BLOCK_REL_TOL``, its card ms beside its bound, beside the whole-head
    call's on the same card and, where there is no soft-cap, beside
    ``scaled_dot_product_attention``'s on the same inputs (kv heads
@@ -1898,24 +1899,30 @@ def flash_vs_plain(torch, dev):
 # Phase 9c: flash at the per-rank heads of each attention family under a
 # 16-way model axis (models/tensor_parallel.py): H / 16 q heads, over Hkv /
 # 16 kv heads where those divide (case A) or the kv heads the rank's q heads
-# group into (case B), each layer kind's mask at B 1, T = S = 4,096, bf16,
-# beside the whole-head call on the same card.  minicpm-2b and arctic
-# (H % 16 != 0, case C) compute every head on every rank: no new shape.
+# group into (case B); where H does not divide (minicpm-2b's 36, arctic's
+# 56: case C) the heads rank 0's columns touch after the halo exchange
+# (minicpm 3 over 3 at hd 64, arctic 4 over 1 at hd 128) over the kv heads
+# those group into; each layer kind's mask at B 1, T = S = 4,096, bf16,
+# beside the whole-head call on the same card.
 FLASH_TP = 16
 FLASH_TP_T = 4096
 FLASH_TP_ARCHS = ("recurrentgemma-9b", "internlm2-1.8b", "gemma3-12b",
                   "gemma2-27b", "qwen3-moe-235b-a22b",
-                  "llama-3.2-vision-11b", "whisper-medium")
+                  "llama-3.2-vision-11b", "whisper-medium", "minicpm-2b",
+                  "arctic-480b")
 
 
 def tp_heads(cfg, tp: int) -> tuple[int, int]:
-    """(q heads, kv heads) of rank 0 under ``tp`` model ranks, as
-    ``blocks.attention_heads`` splits them (cases A and B)."""
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-    nq = h // tp
-    if kv % tp == 0:
-        return nq, kv // tp
-    return nq, len({j // (h // kv) for j in range(nq)})
+    """(q heads, kv heads) of rank 0's flash call under ``tp`` model ranks,
+    as ``blocks.attention_heads`` splits them under ``param_spec``'s
+    placements: its q heads (A, B) or the heads its q columns touch (C),
+    over the kv heads those group into."""
+    from repro_torch.models import blocks
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    heads = blocks._heads(h, kv, hd, tp, 0, h * hd % tp == 0,
+                          kv * hd % tp == 0)
+    return heads.nq, len({j // (h // kv) for j in
+                          range(heads.q0, heads.q0 + heads.nq)})
 
 
 def tp_layer_kinds(cfg) -> list[tuple[str, dict]]:

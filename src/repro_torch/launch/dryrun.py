@@ -15,9 +15,10 @@ records, in the reference's keys, into ``<out>/<cell>.json``:
   global shapes (``flops_count``);
 * ``cost.flops``: one rank's products on the mesh (``flops_count``): the
   attention, MLP, RG-LRU and xLSTM products and the unembedding split
-  over ``model`` count a rank's share; attention whose q heads do not
-  divide over ``model`` (minicpm-2b, arctic), the k / v projections where
-  the kv heads do not divide, the unembedding of a vocabulary ``model``
+  over ``model`` count a rank's share (where the q heads do not divide,
+  minicpm-2b and arctic, its columns of the projections and flash over the
+  heads they touch); the k / v projections where the kv heads do not
+  divide but the q heads do, the unembedding of a vocabulary ``model``
   does not divide (minicpm-2b, whisper-medium) and the sLSTM's ``up`` /
   ``down`` (xlstm-350m's width 1,365) still repeat on every ``model``
   rank;
@@ -28,7 +29,9 @@ records, in the reference's keys, into ``<out>/<cell>.json``:
   conv output, the mLSTM's gathers (its ``u``; its q and k where a rank
   holds part of a head) and sum, the sLSTM's reduce-scatter and gather,
   the all-to-alls that move the mLSTM's states between their placement
-  and the layout it computes in, the embedding lookup's sum, the loss's
+  and the layout it computes in, attention's halo all-to-alls where the q
+  heads do not divide (q, k and v a layer, and at prefill the ring's k and
+  v to their slots), the embedding lookup's sum, the loss's
   two all-reduces a chunk or the greedy pick's one, and, at decode over a
   ring split by length, the gather of the q heads and the two all-reduces
   of the combine;

@@ -22,11 +22,12 @@ Two quantities, as the dry-run records them:
   that the reference's ``cost_analysis`` gives.  It is one rank's trace:
   its batch is the rank's rows, and the attention, MLP, RG-LRU and xLSTM
   products and the unembedding are its ``model`` share
-  (``models/tensor_parallel.py``); the products the port still computes
-  whole on every ``model`` rank (attention whose heads do not divide, k /
-  v where the kv heads do not, a vocabulary ``model`` does not divide, the
-  sLSTM's ``up`` / ``down`` where ``model`` does not divide their width)
-  repeat there.
+  (``models/tensor_parallel.py``; where the q heads do not divide, the
+  rank's columns of the projections and flash over the heads they touch);
+  the products the port still computes whole on every ``model`` rank (k /
+  v where the kv heads do not divide but the q heads do, a vocabulary
+  ``model`` does not divide, the sLSTM's ``up`` / ``down`` where ``model``
+  does not divide their width) repeat there.
 """
 from __future__ import annotations
 

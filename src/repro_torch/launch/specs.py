@@ -25,12 +25,11 @@ ring's (the memory's) length where the heads do not divide; the RG-LRU's
 states (``conv``, ``h``) and the sLSTM's (``c``, ``n``, ``m``) their
 channels; the mLSTM's ``C`` every head's value rows, its ``n`` every
 head's k entries and its ``m`` its heads where ``model`` divides them.
-Two departures from the reference remain:
-
-* attention whose q heads do not divide over ``model`` (minicpm-2b's 36,
-  arctic's 56 at 16; case C) computes every head on every model rank with
-  its weights gathered, where GSPMD splits those columns inside a head;
-* ``zero3`` spends ``model`` on the batch, so no cache entry names it.
+Attention whose q heads do not divide over ``model`` (minicpm-2b's 36,
+arctic's 56 at 16; case C) keeps ``wq`` / ``wk`` / ``wv`` split by columns
+inside a head, as GSPMD does, and exchanges the halo of the heads a rank's
+columns touch.  One departure from the reference remains: ``zero3`` spends
+``model`` on the batch, so no cache entry names it.
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ as the reference keeps them in XLA (a Python loop stands for ``lax.scan``).
 Under a mesh every block takes its parameters as the model holds them
 (DTensors) and gathers them itself: each keeps the ``model`` shard of the
 weights it splits over that axis (the MLP's hidden units, attention's heads
-by :func:`attention_heads`, MoE's experts, the RG-LRU's and the sLSTM's
+or columns by :func:`attention_heads`, MoE's experts, the RG-LRU's and the sLSTM's
 channels, the mLSTM's columns by :func:`_mlstm_parts`) and combines its
 partial outputs over ``model`` (``tensor_parallel``).  Each takes its
 caches placed too, and reads from their placements which share of each
@@ -203,6 +203,28 @@ class Heads:
     nk: int
     split: bool
 
+    def columns(self, hd: int) -> tuple[int, int]:
+        """This rank's columns of attention's ``H hd`` outputs, which meet
+        its rows of ``wo``: its q heads'."""
+        return self.q0 * hd, (self.q0 + self.nq) * hd
+
+
+@dataclasses.dataclass(frozen=True)
+class Columns(Heads):
+    """Case C: the rank holds q's columns ``[c0, c0 + nc)`` of ``H hd`` and
+    k's and v's ``[kc0, kc0 + nkc)`` of ``Hkv hd``, as ``param_spec`` splits
+    ``wq`` / ``wk`` / ``wv`` inside a head.  It computes whole the q heads
+    ``[q0, q0 + nq)`` those columns touch and the kv heads ``[k0, k0 +
+    nk)`` they group into, after a halo exchange of the columns it lacks
+    (:func:`_halo`), and keeps its own output columns."""
+    c0: int = 0
+    nc: int = 0
+    kc0: int = 0
+    nkc: int = 0
+
+    def columns(self, hd: int) -> tuple[int, int]:
+        return self.c0, self.c0 + self.nc
+
 
 def attention_heads(p: dict, cfg: ModelConfig) -> Heads:
     """How an attention block with parameters ``p`` (as the model holds
@@ -216,38 +238,89 @@ def attention_heads(p: dict, cfg: ModelConfig) -> Heads:
     * B, ``H`` divides and ``Hkv`` does not: the q heads split as in A, and
       every rank computes every kv head (``wk`` and ``wv``, which the rule
       splits inside a head, gathered);
-    * C, ``H`` does not divide: every rank computes every head, its weights
-      gathered.  A departure from GSPMD, which splits those columns inside
-      a head.
+    * C, ``H`` does not divide, and the rule splits ``wq`` / ``wk`` /
+      ``wv`` by columns inside a head and ``wo`` by rows: each rank keeps
+      its columns (:class:`Columns`), exchanges the halo of the heads they
+      touch, computes those heads whole and keeps its own output columns,
+      as GSPMD splits those columns.
 
-    Without tensor parallelism every head is the rank's, as in C."""
+    Without tensor parallelism, or where the rule leaves the weights whole,
+    every head is the rank's."""
     tp = tensor_parallel.size()
     if tp == 1:
-        return _heads(cfg.n_heads, cfg.n_kv_heads, 1, 0, False, False)
+        return _heads(cfg.n_heads, cfg.n_kv_heads, cfg.hd, 1, 0, False,
+                      False)
     dim = act_ctx.model_split_dim
-    return _heads(cfg.n_heads, cfg.n_kv_heads, tp, tensor_parallel.rank(),
+    return _heads(cfg.n_heads, cfg.n_kv_heads, cfg.hd, tp,
+                  tensor_parallel.rank(),
                   dim(p["wq"]) == 1 and dim(p["wo"]) == 0,
                   dim(p["wk"]) == 1 and dim(p["wv"]) == 1)
 
 
 @functools.lru_cache(maxsize=None)
-def _heads(h: int, kv: int, tp: int, r: int, q_split: bool,
+def _heads(h: int, kv: int, hd: int, tp: int, r: int, q_split: bool,
            kv_split: bool) -> Heads:
-    if not q_split or h % tp:
+    if not q_split or (h % tp and not kv_split):
         return Heads(0, h, 0, kv, False)
+    if h % tp:
+        nc, nkc = h * hd // tp, kv * hd // tp
+        q0, q1 = r * nc // hd, ((r + 1) * nc - 1) // hd + 1
+        g = h // kv
+        k0 = q0 // g
+        return Columns(q0, q1 - q0, k0, (q1 - 1) // g + 1 - k0, True,
+                       r * nc, nc, r * nkc, nkc)
     nq = h // tp
     if kv_split and kv % tp == 0:
         return Heads(r * nq, nq, r * (kv // tp), kv // tp, True)
     return Heads(r * nq, nq, 0, kv, True)
 
 
+@functools.lru_cache(maxsize=None)
+def _halo_layouts(h: int, kv: int, hd: int, tp: int, kv_side: bool):
+    """Case C's halo as ``tensor_parallel.relayout`` layouts over every
+    model rank, one row of ``H hd`` (``Hkv hd``) columns: (each rank's own
+    columns, the columns of the q heads it touches or of the kv heads
+    those group into, the width)."""
+    ranks = [_heads(h, kv, hd, tp, r, True, True) for r in range(tp)]
+    if kv_side:
+        return (tuple((0, 1, c.kc0, c.nkc) for c in ranks),
+                tuple((0, 1, c.k0 * hd, c.nk * hd) for c in ranks), kv * hd)
+    return (tuple((0, 1, c.c0, c.nc) for c in ranks),
+            tuple((0, 1, c.q0 * hd, c.nq * hd) for c in ranks), h * hd)
+
+
+def _halo(y: torch.Tensor, cfg: ModelConfig, kv_side: bool = False
+          ) -> torch.Tensor:
+    """Case C: ``y`` ``(B, S, c)``, this rank's columns of q (``kv_side``:
+    of k or v), as ``(B, S, n hd)``, the whole heads its q columns touch
+    (the kv heads those group into): each column it lacks from the rank
+    that holds it, one all-to-all over ``model`` under autograd, whose
+    backward sums each column's gradients into its owner's."""
+    src, dst, width = _halo_layouts(cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                    tensor_parallel.size(), kv_side)
+    return tensor_parallel.relayout(y, src, dst, width, dim=-1)
+
+
+def _own_columns(att: torch.Tensor, heads: Heads, hd: int, first: int = 0
+                 ) -> torch.Tensor:
+    """Of ``att`` ``(B, T, n hd)``, attention's output over heads from
+    ``first`` on, this rank's columns (:meth:`Heads.columns`)."""
+    lo, hi = heads.columns(hd)
+    lo, hi = lo - first * hd, hi - first * hd
+    return att if (lo, hi) == (0, att.shape[-1]) else att[..., lo:hi]
+
+
 def _attention_params(p: dict, heads: Heads, cfg: ModelConfig) -> dict:
     """``p`` as local tensors for ``heads``: the split weights keep their
     ``model`` shard; ``wk`` / ``wv`` gathered where every kv head is
     computed, and with ``q_norm`` / ``k_norm`` their gradient summed over
-    ``model`` (each rank back-propagates through its own q heads only)."""
+    ``model`` (each rank back-propagates through its own q heads, or in
+    case C its own output columns, only)."""
     if not heads.split:
         return act_ctx.materialize(p)
+    if isinstance(heads, Columns):
+        return tensor_parallel.shards(p, keep=("wq", "wk", "wv", "wo"),
+                                      partial=("q_norm", "k_norm"))
     keep = ("wq", "wo") + (("wk", "wv") if heads.nk < cfg.n_kv_heads
                            else ())
     return tensor_parallel.shards(p, keep=keep,
@@ -259,16 +332,22 @@ def _kv_for(k, v, heads: Heads, cfg: ModelConfig):
     heads that q heads ``[q0, q0 + nq)`` group into, in the grouping
     ``_attend_dense`` and flash read (q head ``j`` over kv head ``j // (nq /
     kv)``): a slice where the q heads split evenly over them, else one kv
-    head for each q head."""
+    head for each q head (case C's heads that straddle a group's edge)."""
     g = cfg.n_heads // cfg.n_kv_heads
     lo, hi = heads.q0 // g, (heads.q0 + heads.nq - 1) // g + 1
-    if (lo, hi) == (heads.k0, heads.k0 + heads.nk):
+    aligned = hi - lo == 1 or (heads.q0 % g == 0 and heads.nq % g == 0)
+    if (lo, hi) == (heads.k0, heads.k0 + heads.nk) and aligned:
         return k, v
-    if hi - lo == 1 or (heads.q0 % g == 0 and heads.nq % g == 0):
+    if aligned:
         sl = slice(lo - heads.k0, hi - heads.k0)
         return k[:, :, sl], v[:, :, sl]
     idx = torch.arange(heads.q0, heads.q0 + heads.nq, device=k.device) // g
     return k[:, :, idx - heads.k0], v[:, :, idx - heads.k0]
+
+
+def _whole_kv(heads: Heads, cfg: ModelConfig) -> Heads:
+    """``heads`` over a cache holding every kv head (case C's)."""
+    return dataclasses.replace(heads, k0=0, nk=cfg.n_kv_heads)
 
 
 def _project_out(att: torch.Tensor, wo: torch.Tensor, heads: Heads
@@ -294,7 +373,8 @@ def _local_cache(cache: dict, heads: Heads, cfg: ModelConfig):
         raise ValueError("under tensor parallelism attention takes its "
                          "caches placed (DTensors), not their local shards")
     dims = {k: act_ctx.model_split_dim(v) for k, v in cache.items()}
-    if (dims["k"] == 2) != (heads.nk < cfg.n_kv_heads):
+    by_heads = heads.nk < cfg.n_kv_heads and not isinstance(heads, Columns)
+    if (dims["k"] == 2) != by_heads:
         raise ValueError(f"a cache split over 'model' on {dims} does not "
                          f"fit attention computing kv heads [{heads.k0}, "
                          f"{heads.k0 + heads.nk}) of {cfg.n_kv_heads}")
@@ -313,20 +393,17 @@ def _whole_positions(cpos: torch.Tensor) -> torch.Tensor:
     return tensor_parallel.all_gather(cpos, 1)
 
 
-def _attend_split_ring(q, k, v, mask, cfg: ModelConfig, heads: Heads
-                       ) -> torch.Tensor:
+def _attend_split_ring(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     """Decode attention over keys whose slots (a ring's, or the memory's
     positions) are split by length over ``model``: this rank holds its share
-    of them for every kv head.  It gathers the q heads it lacks (``B T H
-    hd`` activations, never ``wq``), computes every head's attention over
-    its own slots, and the ranks' partials combine by their log-sum-exp:
-    the maxima in one all-reduce, the outputs and sums rescaled to the
-    overall max in another.  A rank with no visible key (an empty or
-    windowed-out share) adds zero.  q: ``(B, T, nq, hd)``; k, v: ``(B,
-    S_loc, Hkv, hd)``; mask: ``(B, T, S_loc)`` or ``(T, S_loc)``.  Returns
-    this rank's heads, ``(B, T, nq * hd)``."""
-    if heads.split:
-        q = tensor_parallel.all_gather(q, 2)
+    of them for every kv head, and ``q`` holds every q head (the caller
+    gathers them: ``B T H hd`` activations, never ``wq``).  It computes
+    every head's attention over its own slots, and the ranks' partials
+    combine by their log-sum-exp: the maxima in one all-reduce, the outputs
+    and sums rescaled to the overall max in another.  A rank with no
+    visible key (an empty or windowed-out share) adds zero.  q: ``(B, T, H,
+    hd)``; k, v: ``(B, S_loc, Hkv, hd)``; mask: ``(B, T, S_loc)`` or ``(T,
+    S_loc)``.  Returns every head, ``(B, T, H hd)``."""
     b, t, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, t, kv, h // kv, hd)
@@ -344,8 +421,60 @@ def _attend_split_ring(q, k, v, mask, cfg: ModelConfig, heads: Heads
         torch.cat([o * w, e.sum(dim=-1, keepdim=True) * w], dim=-1))
     o, den = acc[..., :hd], acc[..., hd:]
     out = (o / torch.where(den > 0, den, 1.0)).permute(0, 3, 1, 2, 4)
-    out = out.reshape(b, t, h, hd)[:, :, heads.q0: heads.q0 + heads.nq]
-    return out.reshape(b, t, heads.nq * hd).to(v.dtype)
+    return out.reshape(b, t, h * hd).to(v.dtype)
+
+
+def _every_q_head(q: torch.Tensor, heads: Heads) -> torch.Tensor:
+    """q ``(B, T, nq, hd)`` with every q head: gathered over ``model``
+    where this rank holds its own (case C's decode gathers q whole)."""
+    if heads.split and not isinstance(heads, Columns):
+        return tensor_parallel.all_gather(q, 2)
+    return q
+
+
+def _kv_norm_rope(k: torch.Tensor, p: dict, pos: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Self-attention's keys as the ring holds them: qk-norm where
+    configured, then RoPE at ``pos``."""
+    if cfg.qk_norm:
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return rope(k, pos, cfg.rope_theta)
+
+
+def _fill_by_columns(cache: dict, own: tuple, p: dict, cfg: ModelConfig,
+                     slots: torch.Tensor, L: int, lo: Optional[int],
+                     pos: torch.Tensor, cpos: torch.Tensor) -> tuple:
+    """Case C's prefill write of the ring's k and v, from this rank's
+    columns of the written positions (``own``: k and v ``(B, tw, nkc)``
+    before qk-norm and RoPE, which need whole heads).  Where the ring is
+    split by length, the columns are scattered to their slots in a ring of
+    the rank's columns and moved to its own slots with every column (one
+    all-to-all, ``tensor_parallel.to_row_split``); qk-norm and RoPE then
+    apply at the slots' positions (``cpos``, the rank's share of the
+    written ``pos`` leaf), and the slots written take the new values.
+    Where the ring is whole, the columns are gathered first."""
+    b, tw = slots.shape
+    hd = cfg.hd
+    if lo is None:
+        k, v = (tensor_parallel.all_gather(y, 2).reshape(b, tw, -1, hd)
+                for y in own)
+        k = _kv_norm_rope(k, p, pos, cfg)
+        return (_ring_write(cache["k"], k, slots),
+                _ring_write(cache["v"], v, slots))
+    bi = torch.arange(b, device=slots.device)[:, None]
+    n = cache["k"].shape[1]
+    written = torch.zeros((b, L), dtype=torch.bool, device=slots.device)
+    written[bi, slots] = True
+    mine = written[:, lo:lo + n, None, None]
+    out = []
+    for name, y in zip(("k", "v"), own):
+        ring = y.new_zeros((b, L, y.shape[-1]))
+        ring[bi, slots] = y
+        z = tensor_parallel.to_row_split(ring).reshape(b, n, -1, hd)
+        if name == "k":
+            z = _kv_norm_rope(z, p, cpos, cfg)
+        out.append(torch.where(mine, z.to(cache[name].dtype), cache[name]))
+    return tuple(out)
 
 
 def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
@@ -359,18 +488,29 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     computes on its shard (:func:`_local_cache`): k and v by heads in case
     A, else by length where the ring divides (a rank writes only the slots
     it holds, and decode combines the ranks' partial attention,
-    :func:`_attend_split_ring`), and ``pos`` by length where it divides."""
+    :func:`_attend_split_ring`), and ``pos`` by length where it divides.
+    In case C the rank projects its own columns, computes the heads they
+    touch after a halo exchange (:func:`_halo`) at prefill and in train
+    mode, and at decode gathers the one new token's q, k and v whole."""
     heads = attention_heads(p, cfg)
     p = _attention_params(p, heads, cfg)
     if heads.split:
         x = tensor_parallel.copy(x)
     b, t, _ = x.shape
     hd = cfg.hd
-    q = mm(x, p["wq"]).reshape(b, t, heads.nq, hd)
+    cols = isinstance(heads, Columns)
+    q = mm(x, p["wq"])
     if cross:
         return _apply_cross(p, q, cfg, ctx, heads)
-    k = mm(x, p["wk"]).reshape(b, t, heads.nk, hd)
-    v = mm(x, p["wv"]).reshape(b, t, heads.nk, hd)
+    k, v = mm(x, p["wk"]), mm(x, p["wv"])
+    decode = not (ctx.mode == "train" or ctx.cache is None
+                  or ctx.mode == "prefill")
+    own = (k, v)            # case C: the rank's columns, for the ring
+    if cols and decode:
+        q, k, v = (tensor_parallel.all_gather(y, 2) for y in (q, k, v))
+    elif cols:
+        q, k, v = _halo(q, cfg), _halo(k, cfg, True), _halo(v, cfg, True)
+    q, k, v = (y.reshape(b, t, -1, hd) for y in (q, k, v))
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -379,7 +519,7 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
 
-    if ctx.mode == "train" or ctx.cache is None or ctx.mode == "prefill":
+    if not decode:
         # batch-uniform positions 0..T-1: the kernel's end-aligned mask, or
         # under autograd the reference's chunked attention on that mask
         kq, vq = _kv_for(k, v, heads, cfg)
@@ -388,7 +528,8 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
                           _train_mask(t, causal, window, x.device), cfg)
         else:
             att = _attend_prefill(q, kq, vq, cfg, causal, window)
-        out = _project_out(att, p["wo"], heads)
+        out = _project_out(_own_columns(att, heads, hd, heads.q0), p["wo"],
+                           heads)
         if ctx.mode != "prefill" or ctx.cache is None:
             return out, None
         # fill the ring with the last min(T, L) tokens for subsequent decode
@@ -397,12 +538,15 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
         cache, L, lo_k, lo_pos = _local_cache(ctx.cache, heads, cfg)
         tw = min(t, L)
         slots = pos[:, t - tw:] % L
-        new_cache = {
-            "k": _ring_write(cache["k"], k[:, t - tw:], slots, lo_k),
-            "v": _ring_write(cache["v"], v[:, t - tw:], slots, lo_k),
-            "pos": _ring_write(cache["pos"], pos[:, t - tw:], slots, lo_pos),
-        }
-        return out, new_cache
+        cpos = _ring_write(cache["pos"], pos[:, t - tw:], slots, lo_pos)
+        if cols:
+            ck, cv = _fill_by_columns(cache, tuple(y[:, t - tw:] for y in own),
+                                      p, cfg, slots, L, lo_k, pos[:, t - tw:],
+                                      cpos)
+        else:
+            ck = _ring_write(cache["k"], k[:, t - tw:], slots, lo_k)
+            cv = _ring_write(cache["v"], v[:, t - tw:], slots, lo_k)
+        return out, {"k": ck, "v": cv, "pos": cpos}
 
     # decode: ring cache (B, L, Kv, hd) + cache positions (B, L)
     cache, L, lo_k, lo_pos = _local_cache(ctx.cache, heads, cfg)
@@ -420,7 +564,13 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
     if window is not None:
         mask &= kp > qp - window
     if lo_k is not None:
-        att = _attend_split_ring(q, ck, cv, mask, cfg, heads)
+        att = _own_columns(_attend_split_ring(_every_q_head(q, heads), ck,
+                                              cv, mask, cfg), heads, hd)
+    elif cols:
+        qh = q[:, :, heads.q0: heads.q0 + heads.nq]
+        kq, vq = _kv_for(ck, cv, _whole_kv(heads, cfg), cfg)
+        att = _own_columns(_attend_dense(qh, kq, vq, mask, cfg), heads, hd,
+                           heads.q0)
     else:
         kq, vq = _kv_for(ck, cv, heads, cfg)
         att = _attend_dense(q, kq, vq, mask, cfg)
@@ -429,18 +579,26 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: Ctx, *,
 
 def _apply_cross(p: dict, q: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
                  heads: Heads):
-    """Cross-attention of q (B, T, nq, hd) over the memory: no RoPE, every
-    key visible.  Keys and values are projected from ``ctx.memory`` at
-    prefill and in train mode (and become the cache: this rank's share of
-    the memory's positions where the cache is split by length), and read
-    from the cache at decode; qk-norm, where configured, applies on every
-    read, as the reference applies it."""
+    """Cross-attention of q (B, T, nq hd, this rank's columns) over the
+    memory: no RoPE, every key visible.  Keys and values are projected from
+    ``ctx.memory`` at prefill and in train mode (and become the cache: this
+    rank's share of the memory's positions where the cache is split by
+    length), and read from the cache at decode; qk-norm, where configured,
+    applies on every read, as the reference applies it.  In case C, q's
+    columns and the memory's k and v columns take the halo exchange at
+    prefill and in train mode (the cache then takes every column of the
+    rank's positions, one all-to-all, or every column where it is whole),
+    and q is gathered whole at decode."""
     b, t = q.shape[:2]
     hd = cfg.hd
+    cols = isinstance(heads, Columns)
     cache, lo = ctx.cache, None
     if cache is not None:
         cache, _, lo, _ = _local_cache(cache, heads, cfg)
     decode = cache is not None and "k" in cache and ctx.mode == "decode"
+    if cols:
+        q = tensor_parallel.all_gather(q, 2) if decode else _halo(q, cfg)
+    q = q.reshape(b, t, -1, hd)
     if decode:
         k, v = cache["k"], cache["v"]
         new_cache = cache
@@ -448,25 +606,39 @@ def _apply_cross(p: dict, q: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
         mem = ctx.memory
         if heads.split:
             mem = tensor_parallel.copy(mem)
-        k = mm(mem, p["wk"]).reshape(b, -1, heads.nk, hd)
-        v = mm(mem, p["wv"]).reshape(b, -1, heads.nk, hd)
-        new_cache = {"k": k, "v": v}
-        if lo is not None:
-            own = slice(lo, lo + cache["k"].shape[1])
-            new_cache = {"k": k[:, own].contiguous(),
-                         "v": v[:, own].contiguous()}
+        k, v = mm(mem, p["wk"]), mm(mem, p["wv"])
+        if cols:
+            new_cache = None if cache is None else {
+                name: (tensor_parallel.all_gather(y, 2) if lo is None
+                       else tensor_parallel.to_row_split(y)
+                       ).reshape(b, -1, cfg.n_kv_heads, hd)
+                for name, y in (("k", k), ("v", v))}
+            k, v = _halo(k, cfg, True), _halo(v, cfg, True)
+        k, v = k.reshape(b, -1, heads.nk, hd), v.reshape(b, -1, heads.nk, hd)
+        if not cols:
+            new_cache = {"k": k, "v": v}
+            if lo is not None:
+                own = slice(lo, lo + cache["k"].shape[1])
+                new_cache = {"k": k[:, own].contiguous(),
+                             "v": v[:, own].contiguous()}
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     mask = torch.ones((t, k.shape[1]), dtype=torch.bool, device=q.device)
     if decode and lo is not None:
-        out = _attend_split_ring(q, k, v, mask, cfg, heads)
+        out = _own_columns(_attend_split_ring(_every_q_head(q, heads), k, v,
+                                              mask, cfg), heads, hd)
     else:
-        kq, vq = _kv_for(k, v, heads, cfg)
+        kv_heads = heads
+        if cols and decode:        # q whole, the cache every kv head
+            q, kv_heads = q[:, :, heads.q0: heads.q0 + heads.nq], \
+                _whole_kv(heads, cfg)
+        kq, vq = _kv_for(k, v, kv_heads, cfg)
         if decode or _needs_grad(q, kq, vq):
             out = _attend(q, kq, vq, mask, cfg)  # one query at decode: dense
         else:
             out = _attend_prefill(q, kq, vq, cfg, causal=False, window=None)
+        out = _own_columns(out, heads, hd, heads.q0)
     return _project_out(out, p["wo"], heads), new_cache
 
 

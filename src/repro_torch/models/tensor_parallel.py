@@ -22,8 +22,9 @@ placements are ``launch.sharding.param_spec``'s rule), gathered over the
 data-parallel axes as ``act_ctx.materialize`` gathers every weight;
 their gradients go back into their own placement with a reduce-scatter
 over ``data`` only.  A weight a block needs whole but uses on its own
-heads only (``wk`` / ``wv`` where the kv heads do not divide, ``q_norm``,
-``k_norm``) is gathered with its gradient partial over ``model``.
+heads or columns only (``wk`` / ``wv`` where the kv heads do not divide but
+the q heads do, ``q_norm``, ``k_norm``) is gathered with its gradient
+partial over ``model``.
 
 The vocabulary splits as ``param_spec`` places ``embed`` ``(model, data)``
 and ``unembed`` ``(data, model)``: a rank holds the rows (columns) of ids
@@ -38,8 +39,12 @@ attention's q heads and the ring's positions); :func:`gather` joins them
 for work that every rank repeats (the sLSTM's output before its whole
 ``up`` projection); :func:`reduce_scatter` sums partial outputs into each
 rank's share of them (the sLSTM's output gate, whose weight is split by
-rows).  :func:`relayout` moves recurrent states between the layout their
-placement gives them and the one a block computes in (the mLSTM's).
+rows).  :func:`relayout` moves rows between two layouts over ``model``:
+recurrent states between the layout their placement gives them and the
+one a block computes in (the mLSTM's), and, under autograd, attention's
+columns split inside a head to the whole heads a rank touches (case C's
+halo).  :func:`to_row_split` turns a split by columns into one by rows
+(case C's prefill writing its ring split by length).
 
 Tensor parallelism runs where a mesh is installed whose ``model`` axis is
 larger than 1 and is not a data-parallel axis (the ``zero3`` policy spends
@@ -279,11 +284,13 @@ def argmax(logits: torch.Tensor, offset: int) -> torch.Tensor:
     value, then by the id reversed: the value's f32 bits mapped to an
     integer of the same order in the high 32 bits, ``2^32 - 1 - id`` in the
     low ones.  -0.0 is counted as +0.0, as ``torch.argmax`` compares them
-    equal."""
+    equal.  A NaN of either sign takes the largest high word, so that the
+    lowest id holding one wins, as ``torch.argmax`` takes the first NaN."""
     i = logits.argmax(dim=-1)
     v = torch.gather(logits, -1, i[..., None])[..., 0].float()
     bits = (v + 0.0).view(torch.int32).long()      # + 0.0: -0.0 -> +0.0
     key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    key = torch.where(v != v, 0x7FFFFFFF, key)
     key = key * 2 ** 32 + (2 ** 32 - 1 - (i + offset))
     dist.all_reduce(key, op=dist.ReduceOp.MAX, group=group())
     return 2 ** 32 - 1 - (key & (2 ** 32 - 1))
@@ -334,22 +341,61 @@ def _relayout_plan(src: tuple, dst: tuple, width: int, r: int):
             local)
 
 
-# States move only at prefill and decode, without autograd: a plain
-# collective.
-def relayout(x: torch.Tensor, src: tuple, dst: tuple, width: int
-             ) -> torch.Tensor:
-    """``x`` ``(B, rows, ...)``, this rank's rows of a state in layout
+class _Relayout(torch.autograd.Function):
+    """Rows along ``dim`` moved by a plan of :func:`_relayout_plan`; the
+    backward is the inverse move, each row's gradients from the ranks that
+    took it summed into its owner's row."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim, group):
+        send, ins, outs, pos, n, local = plan
+        ctx.plan, ctx.dim, ctx.group, ctx.rows = plan, dim, group, x.shape[dim]
+        xs = x.movedim(dim, 0)
+        send = torch.as_tensor(send, device=x.device)
+        if local:
+            return xs[send].movedim(0, dim)
+        got = xs.new_empty((sum(outs), *xs.shape[1:]))
+        dist.all_to_all_single(got, xs[send].contiguous(), outs, ins,
+                               group=group)
+        out = xs.new_empty((n, *xs.shape[1:]))
+        out[torch.as_tensor(pos, device=x.device)] = got
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        send, ins, outs, pos, _, local = ctx.plan
+        gs = g.movedim(ctx.dim, 0)
+        if not local:
+            back = gs.new_empty((sum(ins), *gs.shape[1:]))
+            dist.all_to_all_single(
+                back, gs[torch.as_tensor(pos, device=g.device)].contiguous(),
+                ins, outs, group=ctx.group)
+            gs = back
+        out = gs.new_zeros((ctx.rows, *gs.shape[1:]))
+        out.index_add_(0, torch.as_tensor(send, device=g.device), gs)
+        return out.movedim(0, ctx.dim), None, None, None
+
+
+def relayout(x: torch.Tensor, src: tuple, dst: tuple, width: int,
+             dim: int = 1) -> torch.Tensor:
+    """``x``, whose rows along ``dim`` are this rank's rows in layout
     ``src`` (see :func:`_rows`), as its rows in layout ``dst``: one
     all-to-all over ``model``, or none where every rank holds the rows it
-    needs."""
-    send, ins, outs, pos, n, local = _relayout_plan(src, dst, width, rank())
-    xs = x.movedim(1, 0)
-    send = torch.as_tensor(send, device=x.device)
-    if local:
-        return xs[send].movedim(0, 1)
-    got = xs.new_empty((sum(outs), *xs.shape[1:]))
-    dist.all_to_all_single(got, xs[send].contiguous(), outs, ins,
-                           group=group())
-    out = xs.new_empty((n, *xs.shape[1:]))
-    out[torch.as_tensor(pos, device=x.device)] = got
-    return out.movedim(0, 1)
+    needs.  Under autograd (attention's halo of the heads a rank's columns
+    touch) the backward moves the gradients back and sums them into each
+    row's owner; recurrent states move without it."""
+    plan = _relayout_plan(src, dst, width, rank())
+    return _Relayout.apply(x, plan, dim % x.dim(), group())
+
+
+# The ring's k and v move at prefill, without autograd: a plain collective.
+def to_row_split(x: torch.Tensor) -> torch.Tensor:
+    """``x`` ``(B, S, c)``, this rank's ``c`` columns of all ``S`` rows, as
+    ``(B, S / tp, tp * c)``: its ``S / tp`` rows in rank order, every
+    rank's columns in rank order.  One all-to-all over ``model``."""
+    tp = size()
+    b, s, c = x.shape
+    parts = x.reshape(b, tp, s // tp, c).transpose(0, 1).contiguous()
+    got = torch.empty_like(parts)
+    dist.all_to_all_single(got, parts, group=group())
+    return got.permute(1, 2, 0, 3).reshape(b, s // tp, tp * c)

@@ -566,16 +566,31 @@ def case_argmax(mesh) -> dict:
     """``tensor_parallel.argmax`` over rows built to tie across the model
     ranks, against ``torch.argmax`` on the whole rows: a tie between ranks
     (the lower id wins), a tie inside a rank, the larger value on rank 1,
-    -0.0 against +0.0 and -inf everywhere but one id."""
+    -0.0 against +0.0, -inf everywhere but one id, and NaNs: the one
+    ``0.0 / 0.0`` gives (sign bit set) on rank 1 beside a larger finite
+    value on rank 0, a positive NaN, and NaNs on both ranks."""
     v, tp = 8, act_ctx.axis_size(mesh, "model")
     ninf = -float("inf")
+    neg_nan = torch.tensor(0.0) / torch.tensor(0.0)
+    pos_nan = torch.tensor([0x7FC00000], dtype=torch.int32).view(
+        torch.float32)[0]
+    assert neg_nan.view(torch.int32) == torch.tensor(0xFFC00000).to(
+        torch.int32) and pos_nan != pos_nan
     rows = torch.tensor([
         [0.0, 1.0, 3.0, 0.0, 2.0, 1.0, 3.0, 0.0],
         [1.0, 3.0, 3.0, 0.0, 1.0, 2.0, 0.0, 2.5],
         [0.0, 1.0, 2.0, 0.0, 1.0, 5.0, 0.0, 5.0],
         [ninf, -0.0, ninf, ninf, 0.0, ninf, ninf, ninf],
         [ninf, ninf, ninf, ninf, ninf, ninf, 7.0, ninf],
-        [-2.0, -1.0, -3.0, -1.0, -1.0, -4.0, -2.0, -5.0]])
+        [-2.0, -1.0, -3.0, -1.0, -1.0, -4.0, -2.0, -5.0],
+        [0.5, 9.0, 2.0, 3.0, 0.5, 1.0, 0.0, 0.0],
+        [0.5, 1.0, 2.0, 3.0, 0.5, 1.0, 0.0, 0.0],
+        [0.5, 1.0, 2.0, 3.0, 0.5, 1.0, 0.0, 0.0],
+        [0.5, 1.0, 2.0, 3.0, 0.5, 1.0, 0.0, 0.0]])
+    rows[6, 5] = neg_nan                      # rank 1's; rank 0 holds 9.0
+    rows[7, 2] = pos_nan
+    rows[8, 6], rows[8, 3] = neg_nan, pos_nan     # both ranks
+    rows[9, 7], rows[9, 4] = pos_nan, neg_nan     # rank 1 alone, two
     with activation_sharding(mesh):
         n = v // tp
         lo = tensor_parallel.rank() * n
@@ -586,13 +601,19 @@ def case_argmax(mesh) -> dict:
 # ------------------------------------------------- tensor-parallel blocks
 # config name -> (arch, ModelConfig overrides); at model = 2 the reduced
 # configs split their heads as the three cases of blocks.attention_heads:
-# A 4 / 2 heads (gemma3, qk-norm), B 4 / 1 (recurrentgemma), C 3 heads
+# A 4 / 2 heads (gemma3, qk-norm), B 4 / 1 (recurrentgemma), C 3 / 1 (1.5
+# q heads and half a kv head a rank); C6 is arctic's case C at model 4 (6
+# / 2 heads: 1.5 q heads and half a kv head a rank), run on the (1, 4)
+# mesh of tests/_torch_xlstm_mesh_job.py
 BLOCK_CFGS = {"A": ("gemma3-12b", {}),
               "B": ("recurrentgemma-9b", {}),
               "B-cap": ("recurrentgemma-9b", {"attn_softcap": 50.0}),
               "C": ("gemma3-12b", {"n_heads": 3, "n_kv_heads": 1}),
+              "C6": ("arctic-480b", {"n_heads": 6, "n_kv_heads": 2}),
               "xA": ("llama-3.2-vision-11b", {}),
-              "xB": ("llama-3.2-vision-11b", {"n_kv_heads": 1})}
+              "xB": ("llama-3.2-vision-11b", {"n_kv_heads": 1}),
+              "xC": ("llama-3.2-vision-11b", {"n_heads": 3,
+                                              "n_kv_heads": 1})}
 BLOCK_B, BLOCK_T = 4, 16
 # run -> (config, cross, window, ring length, prompt length, decode steps):
 # B's ring of 16 splits by length (8 slots a rank), of 15 stays whole; B's
@@ -604,8 +625,19 @@ SERVE_BLOCKS = {"A": ("A", False, None, 16, 12, 3),
                 "B whole ring": ("B", False, None, 15, 12, 3),
                 "C": ("C", False, None, 16, 12, 3),
                 "xA": ("xA", True, None, 0, 12, 3),
-                "xB": ("xB", True, None, 0, 12, 3)}
+                "xB": ("xB", True, None, 0, 12, 3),
+                "xC": ("xC", True, None, 0, 12, 3)}
 TRAIN_BLOCKS = ("A", "B", "C")
+# the (1, 4) mesh's runs: arctic's case C over a ring of 16 split by length
+# (4 slots a rank), and a windowed ring of 8 that wraps
+SERVE_BLOCKS_1X4 = {"C6": ("C6", False, None, 16, 12, 3),
+                    "C6 ring": ("C6", False, 8, 8, 3, 10)}
+TRAIN_BLOCKS_1X4 = ("C6",)
+
+
+def serve_spec(run: str) -> tuple:
+    """Run ``run``'s entry of SERVE_BLOCKS or SERVE_BLOCKS_1X4."""
+    return {**SERVE_BLOCKS, **SERVE_BLOCKS_1X4}[run]
 
 
 def block_config(name: str, get, reduce):
@@ -672,7 +704,7 @@ def _serve_block(mesh, run: str) -> dict:
     """Prefill then decode steps of one attention block, on ``mesh`` (its
     parameters and cache placed by the rules) or without one; each step's
     output and the last caches, whole."""
-    name, cross, window, length, t, steps = SERVE_BLOCKS[run]
+    name, cross, window, length, t, steps = serve_spec(run)
     cfg = block_config(name, get_config, reduced)
     arrays = block_inputs(run, cfg, steps, t)
     p = _block_params(arrays, mesh)
@@ -817,22 +849,36 @@ def _mlp_forward(mesh) -> dict:
     return out
 
 
-def case_blocks(mesh, d: str) -> dict:
-    """Every block run on the mesh and in one process, written to
-    DIR/block_<run>.npz (``mesh/...`` and ``port/...``) by rank 0."""
-    runs = {**{f"serve {r}": (lambda r=r: (lambda m: _serve_block(m, r)))()
-               for r in SERVE_BLOCKS},
+def attention_runs(serve: dict, train: tuple) -> dict:
+    """Run name -> fn(mesh or None) for attention's serve runs ``serve``
+    (a SERVE_BLOCKS-like table) and train runs ``train``."""
+    return {**{f"serve {r}": (lambda r=r: (lambda m: _serve_block(m, r)))()
+               for r in serve},
             **{f"train {r}": (lambda r=r: (lambda m: _train_block(m, r)))()
-               for r in TRAIN_BLOCKS + ("mlp",)},
-            "mlp": _mlp_forward, "serve rglru": _serve_rglru,
-            "train rglru": _train_rglru}
+               for r in train}}
+
+
+def save_runs(mesh, d: str, runs: dict, prefix: str = "block") -> list:
+    """Each run of ``runs`` on the mesh and in one process, written to
+    DIR/<prefix>_<run>.npz (``mesh/...`` and ``port/...``) by rank 0;
+    returns the runs' names."""
     for run, fn in runs.items():
         got, want = fn(mesh), fn(None)
         if dist.get_rank() == 0:
-            np.savez(os.path.join(d, f"block_{run}.npz"),
+            np.savez(os.path.join(d, f"{prefix}_{run}.npz"),
                      **{f"mesh/{k}": v for k, v in got.items()},
                      **{f"port/{k}": v for k, v in want.items()})
-    return {"runs": sorted(runs), "plain_caches": _plain_caches(mesh),
+    return sorted(runs)
+
+
+def case_blocks(mesh, d: str) -> dict:
+    """Every block run on the mesh and in one process, written to
+    DIR/block_<run>.npz (``mesh/...`` and ``port/...``) by rank 0."""
+    runs = {**attention_runs(SERVE_BLOCKS, TRAIN_BLOCKS + ("mlp",)),
+            "mlp": _mlp_forward, "serve rglru": _serve_rglru,
+            "train rglru": _train_rglru}
+    return {"runs": save_runs(mesh, d, runs),
+            "plain_caches": _plain_caches(mesh),
             "plain_rglru_caches": _plain_rglru_caches(mesh)}
 
 
@@ -874,10 +920,19 @@ def _plain_caches(mesh) -> str:
     return ""
 
 
-# layer -> (arch, stack, unit) of a reduced config
+# layer -> (arch, stack, unit[, ModelConfig overrides]) of a reduced
+# config; "attn C": minicpm-2b's layer at 3 heads, case C at model 2
 LAYERS = {"attn": ("internlm2-1.8b", "s0", ("attn",)),
           "rglru": ("recurrentgemma-9b", "s1", ("rglru",)),
-          "xlstm": ("xlstm-350m", "s0", ("mlstm", "mlstm", "mlstm", "slstm"))}
+          "xlstm": ("xlstm-350m", "s0", ("mlstm", "mlstm", "mlstm", "slstm")),
+          "attn C": ("minicpm-2b", "s0", ("attn",),
+                     {"n_heads": 3, "n_kv_heads": 3})}
+
+
+def layer_config(layer: str, get, reduce):
+    """Layer ``layer``'s config through ``get`` / ``reduce``."""
+    arch, _, _, *over = LAYERS[layer]
+    return dataclasses.replace(reduce(get(arch)), **(over[0] if over else {}))
 
 
 def case_layer_collectives(mesh, layer: str) -> dict:
@@ -885,8 +940,8 @@ def case_layer_collectives(mesh, layer: str) -> dict:
     ``trace_collectives``: its record, and the data gathers of the layer's
     weights, their count and the bytes they return (each weight's
     ``model`` shard, gathered over ``data``)."""
-    arch, stack, unit = LAYERS[layer]
-    cfg = reduced(get_config(arch))
+    _, stack, unit, *_ = LAYERS[layer]
+    cfg = layer_config(layer, get_config, reduced)
     lp = init_params(cfg, seed=0, dtype=torch.float32,
                      device="cpu")["stacks"][stack][0]
     lp = place(lp, param_shardings(mesh, lp), mesh)

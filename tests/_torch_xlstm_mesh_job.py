@@ -9,8 +9,11 @@ each block run (``BLOCK_RUNS``) on its mesh and in one process, written
 by rank 0 to DIR/xblock_<mesh>_<run>.npz (``mesh/...`` and ``port/...``,
 the inputs drawn from a seed of the run's name by :func:`block_inputs`);
 and reduced xlstm-350m's three train steps and its prefill and decode
-steps (``_torch_mesh_job``'s ``train_case`` / ``serve_case``).  Rank 0's
-other results go to DIR/xlstm_<mesh>.json.  Imports the port only.
+steps (``_torch_mesh_job``'s ``train_case`` / ``serve_case``).  On the (1,
+4) mesh also attention's case C at arctic's split (``_torch_mesh_job``'s
+``SERVE_BLOCKS_1X4`` / ``TRAIN_BLOCKS_1X4``, 1.5 q heads and half a kv
+head a rank), written to DIR/block_1x4_<kind> <run>.npz.  Rank 0's other
+results go to DIR/xlstm_<mesh>.json.  Imports the port only.
 """
 import contextlib
 import dataclasses
@@ -231,7 +234,10 @@ def case_blocks(mesh, mesh_name: str, d: str) -> dict:
 
 def _run(d: str, mesh, mesh_name: str) -> None:
     res = {"blocks": case_blocks(mesh, mesh_name, d)}
-    if mesh_name != "1x4":
+    if mesh_name == "1x4":
+        res["attention"] = J.save_runs(mesh, d, J.attention_runs(
+            J.SERVE_BLOCKS_1X4, J.TRAIN_BLOCKS_1X4), "block_1x4")
+    else:
         res["train"] = J.train_case(mesh, ARCH, {})
         res["serve"] = J.serve_case(mesh, ARCH)
     if dist.get_rank() == 0:

@@ -120,3 +120,42 @@ def test_tensor_parallel_prefill_flops_per_rank(tmp_path):
     # one rank's collectives: the two sums over model a layer, the
     # embedding lookup's sum and the greedy pick's combine, no more
     assert rec["collectives"]["all-reduce_count"] == 2 * layers + 2
+
+
+def test_tensor_parallel_prefill_flops_per_rank_case_c(tmp_path):
+    """minicpm-2b's 36 heads do not divide over model 16 (case C): rank 0
+    projects its 144 of the 2,304 q, k and v columns and its rows of
+    ``wo``, runs flash over the three heads its columns touch, its MLP
+    share, and the last position's logits over the whole vocabulary
+    (122,753 does not divide); no attention weight is gathered over
+    ``model``: the halo moves q, k and v (three all-to-alls a layer) and
+    the ring's k and v to their slots (two)."""
+    _dryrun(tmp_path, "--arch", "minicpm-2b", "--shape", "prefill_32k")
+    rec = json.loads((tmp_path / "minicpm-2b__prefill_32k__pod16x16"
+                      ".json").read_text())
+    assert rec["status"] == "ok" and rec["n_devices"] == 256
+    cfg, shape = ref_get_config("minicpm-2b"), REF_SHAPES["prefill_32k"]
+    d, h, kv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       cfg.d_ff)
+    dp = tp = 16
+    b, t = shape.global_batch, shape.seq_len
+    layers = sum(r * len(unit) for unit, r in cfg.stacks)
+    assert h % tp and (h * hd) % tp == 0 and (kv * hd) % tp == 0
+    assert cfg.vocab % tp and f % tp == 0
+    nc, nkc = h * hd // tp, kv * hd // tp
+    touched = (nc - 1) // hd + 1                    # rank 0: heads 0, 1, 2
+    assert touched == 3
+    rows = b // dp
+    flops = (layers * (2 * rows * t * d * (nc + 2 * nkc)   # q, k, v columns
+                       + 4 * rows * touched * t * t * hd   # flash
+                       + 2 * rows * t * nc * d             # wo's rows
+                       + 3 * 2 * rows * t * d * (f // tp))  # wi, wg, wo
+             + 2 * rows * d * cfg.vocab)            # last position's logits
+    assert rec["cost"]["flops"] == flops
+    assert flops <= 8.598e13
+    # one rank's collectives: the sums over model of attention and the
+    # MLP a layer (the whole vocabulary needs no lookup sum or pick
+    # combine), five all-to-alls a layer
+    coll = rec["collectives"]
+    assert coll["all-reduce_count"] == 2 * layers
+    assert coll["all-to-all_count"] == 5 * layers

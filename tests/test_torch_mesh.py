@@ -255,7 +255,7 @@ def test_vocab_parallel_matches_reference(job, case):
 
 def test_vocab_parallel_argmax_ties(job):
     res = job["mesh_2x2.json"]["argmax"]
-    assert res["got"] == res["want"] == [2, 1, 5, 1, 6, 1]
+    assert res["got"] == res["want"] == [2, 1, 5, 1, 6, 1, 5, 2, 3, 4]
 
 
 # ------------------------------------------------- tensor-parallel blocks
@@ -263,7 +263,7 @@ RTOL, ATOL = 2e-4, 2e-5
 # each cache leaf's dim over model at model = 2 (-1: whole), k / pos / v
 CACHE_SPLIT = {"A": [2, 1, 2], "B": [1, 1, 1], "B ring": [1, 1, 1],
                "B whole ring": [-1, -1, -1], "C": [1, 1, 1], "xA": [2, 2],
-               "xB": [1, 1]}
+               "xB": [1, 1], "xC": [1, 1]}
 
 
 def _ref_inputs(run: str, cfg_name: str, **kw):
@@ -275,7 +275,7 @@ def _ref_inputs(run: str, cfg_name: str, **kw):
 
 
 def _ref_serve_block(run: str) -> dict:
-    name, cross, window, length, t, steps = J.SERVE_BLOCKS[run]
+    name, cross, window, length, t, steps = J.serve_spec(run)
     cfg, arrays, p = _ref_inputs(run, name, steps=steps, t=t)
     b = J.BLOCK_B
     if cross:
@@ -344,7 +344,7 @@ def test_tp_attention_prefill_decode(job, run):
     assert list(got["mesh/split"]) == CACHE_SPLIT[run]
     want = _ref_serve_block(run)
     assert len([k for k in want if k.startswith("y")]) == \
-        J.SERVE_BLOCKS[run][5] + 1
+        J.serve_spec(run)[5] + 1
     _close_to_both(got, want)
 
 
@@ -354,17 +354,17 @@ def test_tp_block_train_gradients(job, run):
     want = _ref_train_block(run)
     # every weight's gradient comes back in the weight's own placement: the
     # split ones reduce-scattered over data only, the gathered ones (B's wk
-    # and wv, C's) reduce-scattered over both; q_norm and k_norm, replicated,
-    # come back partial over data, and over model where each rank computes
-    # its own heads (A, B), which ``placed_like`` sums
+    # and wv) reduce-scattered over both; q_norm and k_norm, replicated,
+    # come back partial over data, and over model, since each rank
+    # back-propagates through its own heads (A, B) or its own output
+    # columns (C), which ``placed_like`` sums
     placed = [k for k in got.files if k.startswith("mesh/placed/")]
     assert len(placed) == len(want) - 2
-    over_model = "Replicate()" if run == "C" else "Partial(sum)"
     for k in placed:
         name = k.rsplit("/", 1)[-1]
         if name in ("q_norm", "k_norm"):
             assert str(got[f"mesh/gpl/{name}"][0]) == \
-                f"(Partial(sum), {over_model})", name
+                "(Partial(sum), Partial(sum))", name
         else:
             assert bool(got[k][0]), name
     _close_to_both(got, want)
@@ -434,6 +434,33 @@ def test_tp_rglru_layer_collectives_on_2x2(job):
 
 def test_tp_rglru_layer_collectives_on_1x1_none(job):
     _no_collectives(job, "rglru")
+
+
+def test_tp_case_c_layer_collectives_on_2x2(job):
+    """One reduced minicpm-2b layer at 3 heads (case C on 2 x 2: 24 of the
+    48 q, k and v columns a rank), counted by hand: the three halo
+    all-to-alls, each returning the two whole heads rank 0's columns
+    touch; the attention's sum over ``wo``'s rows and the MLP's; the
+    weights gathered over ``data`` only, no attention weight over
+    ``model``."""
+    res = job["mesh_2x2.json"]["attn C layer collectives"]
+    rec = res["record"]
+    cfg = J.layer_config("attn C", ref_get_config, ref_reduced)
+    rows, t, d, hd = res["rows"], res["t"], cfg.d_model, cfg.hd
+    assert cfg.n_heads % 2 and cfg.n_heads == cfg.n_kv_heads
+    nc = cfg.n_heads * hd // 2
+    touched = ((nc - 1) // hd + 1) * hd       # rank 0: heads 0 and 1
+    assert rec["all-to-all_count"] == 3
+    assert rec["all-to-all_bytes"] == 3 * rows * t * touched * 4
+    assert rec["all-reduce_count"] == 2
+    assert rec["all-reduce_bytes"] == 2 * rows * t * d * 4
+    # wq, wk, wv, wo and the MLP's wi, wg, wo, over data alone
+    assert res["data_gathers"] == 7
+    assert rec["all-gather_count"] == 7
+    assert rec["all-gather_bytes"] == res["data_gather_bytes"]
+    assert rec["reduce-scatter_count"] == 0
+    assert rec["total_collective_bytes"] == rec["all-reduce_bytes"] + \
+        rec["all-gather_bytes"] + rec["all-to-all_bytes"]
 
 
 def test_tp_xlstm_layer_collectives_on_2x2(job):

@@ -22,7 +22,14 @@ so that a crash of one takes none of the other's cases with it:
 * reduced xlstm-350m's three train steps and its prefill and three decode
   steps on 2 x 2 against the same steps without a mesh, within the bounds
   of ``tests/test_torch_mesh.py``'s archs;
-* on 1 x 1 all of it equal bit for bit to the runs without a mesh.
+* on 1 x 1 all of it equal bit for bit to the runs without a mesh;
+* on (1, 4), attention's case C at arctic's split (reduced arctic at 6 q
+  heads over 2 kv heads: 1.5 q heads and half a kv head a rank, the
+  halo exchange of the heads a rank's columns touch): prefill and three
+  decode steps over a ring split by length, and a windowed ring of 8 that
+  wraps over ten, and the train-mode forward with every gradient, held
+  as ``tests/test_torch_mesh.py`` holds the 2 x 2 attention runs, the
+  caches placed as ``cache_spec`` places them.
 """
 import json
 import os
@@ -43,7 +50,10 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch import sharding as sh
 from repro_torch.models import blocks
 
+import _torch_mesh_job as J
 import _torch_xlstm_mesh_job as XJ
+from test_torch_mesh import _close_to_both as _close_to_mesh
+from test_torch_mesh import _ref_serve_block, _ref_train_block
 
 ROOT = Path(__file__).resolve().parents[1]
 JOB = ROOT / "tests" / "_torch_xlstm_mesh_job.py"
@@ -272,3 +282,31 @@ def test_xlstm_prefill_decode_on_1x1_equal_no_mesh(job):
     res = job["1x1"]["serve"]
     assert res["tokens_equal"] and res["logits_equal"], res
     assert res["logit_cols"] == [512] * 4, res["logit_cols"]
+
+
+# ------------------------------------------ attention's case C on (1, 4)
+@pytest.mark.parametrize("run", list(J.SERVE_BLOCKS_1X4))
+def test_tp_attention_case_c_on_1x4_prefill_decode(job, run):
+    assert sorted(job["1x4"]["attention"]) == sorted(
+        [f"serve {r}" for r in J.SERVE_BLOCKS_1X4]
+        + [f"train {r}" for r in J.TRAIN_BLOCKS_1X4])
+    got = np.load(job["dir"] / f"block_1x4_serve {run}.npz")
+    # k / pos / v split by the ring's length: 2 kv heads do not divide 4
+    assert list(got["mesh/split"]) == [1, 1, 1]
+    want = _ref_serve_block(run)
+    assert len([k for k in want if k.startswith("y")]) == \
+        J.serve_spec(run)[5] + 1
+    _close_to_mesh(got, want)
+
+
+@pytest.mark.parametrize("run", J.TRAIN_BLOCKS_1X4)
+def test_tp_attention_case_c_on_1x4_train_gradients(job, run):
+    got = np.load(job["dir"] / f"block_1x4_train {run}.npz")
+    want = _ref_train_block(run)
+    # wq, wk, wv and wo keep their model shard, and their gradients come
+    # back in it (data has one rank: nothing else to reduce)
+    names = [k[2:] for k in want if k.startswith("g/") and k != "g/x"]
+    assert sorted(names) == ["wk", "wo", "wq", "wv"]
+    for k in names:
+        assert bool(got[f"mesh/placed/{k}"][0]), k
+    _close_to_mesh(got, want)

@@ -258,6 +258,10 @@ and prints its losses, s/step and peak memory beside PR 19 call 13's
    the mesh and read just after it: flash must launch for every model with
    attention (not xlstm-350m), the scan for recurrentgemma-9b only, each
    as often as in the run without the mesh (counted the same way).
+   recurrentgemma-9b also runs bound under the ``zero3`` policy on the same
+   mesh (``ZERO3_ARCH``): tokens ``torch.equal`` to the run without the
+   mesh, flash and scan launches equal to it, its prefill and tick times
+   printed beside the ``2d`` mesh run's.
 18. dryrun: (a) ``python -m repro_torch.launch.dryrun --arch xlstm-350m
    --shape decode_32k --multi-pod`` in a subprocess (a fake group of 512
    ranks, meta tensors): status ok, one rank's GiB (its arguments' shards
@@ -3299,6 +3303,8 @@ def train_moe(torch, card) -> dict:
 SERVE_MESH = (("recurrentgemma-9b", None), ("internlm2-1.8b", None),
               ("qwen3-moe-235b-a22b", 11), ("xlstm-350m", 2))
 SERVE_MESH_TICKS = 8
+# phase 17 also serves this model bound under the zero3 policy
+ZERO3_ARCH = "recurrentgemma-9b"
 PERF_NO_MESH = {"recurrentgemma-9b": "25,792 tokens/s, tick 70.2 ms",
                 "internlm2-1.8b": "101,692 tokens/s, tick 48.9 ms, peak "
                                   "7.7 GiB",
@@ -3371,7 +3377,8 @@ def serve_mesh(torch, dev, card) -> dict:
     just after it, and again around the run after it without the mesh:
     on the mesh flash must launch exactly for the models that attend, the
     scan exactly for the RG-LRU one, and each as often as without the
-    mesh."""
+    mesh.  ZERO3_ARCH runs on the mesh a second time, bound under the
+    ``zero3`` policy, held to the same."""
     import gc
     import warnings
     from torch.distributed.device_mesh import init_device_mesh
@@ -3400,11 +3407,19 @@ def serve_mesh(torch, dev, card) -> dict:
         g = torch.Generator(device=dev).manual_seed(SEED + 17)
         toks = torch.randint(0, cfg.vocab, (b, t), generator=g, device=dev,
                              dtype=torch.int32)
-        specs = []
-        for kind in ("prefill", "decode"):
-            step, _, in_pl, _, _ = make_step_and_specs(
-                cfg, ShapeSpec("serve", t + SERVE_MESH_TICKS, b, kind), mesh)
-            specs.append((step, in_pl))
+        # the zero3 policy's run: ZERO3_ARCH only
+        policies = ("2d", "zero3") if arch == ZERO3_ARCH else ("2d",)
+        specs = {}
+        for policy in policies:
+            specs[policy] = []
+            for kind in ("prefill", "decode"):
+                step, _, in_pl, _, _ = make_step_and_specs(
+                    cfg, ShapeSpec("serve", t + SERVE_MESH_TICKS, b, kind),
+                    mesh, policy=policy)
+                specs[policy].append((step, in_pl))
+        meshes = [("mesh", mesh, specs["2d"])] + [
+            (f"{policy} mesh", mesh, specs[policy])
+            for policy in policies[1:]] + [("no mesh", None, None)]
         moe = cfg.moe is not None
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
@@ -3415,8 +3430,7 @@ def serve_mesh(torch, dev, card) -> dict:
                 # again (the numbers printed beside the mesh's)
                 warm = serve_steps(torch, dev, cfg, params, toks, None, None)
                 runs, launches = {}, {}
-                for name, m, sp in (("mesh", mesh, specs),
-                                    ("no mesh", None, None)):
+                for name, m, sp in meshes:
                     runs[name], launches[name] = counted(
                         torch, dev, cfg, params, toks, m, sp)
             finally:
@@ -3431,6 +3445,8 @@ def serve_mesh(torch, dev, card) -> dict:
         row = {"layers": cfg.n_layers, "steps": len(got),
                "launches_serve_mesh": launches["mesh"],
                "launches_no_mesh": launches["no mesh"]}
+        if "zero3 mesh" in launches:
+            row["launches_zero3_mesh"] = launches["zero3 mesh"]
         for name, (_, pre_s, ticks, peak) in runs.items():
             row[name] = {"prefill_tokens_per_s": b * t / pre_s,
                          "decode_tick_ms": float(np.median(ticks)) * 1e3,
@@ -3451,16 +3467,30 @@ def serve_mesh(torch, dev, card) -> dict:
               f"{launches['mesh']['flash']}, scan {launches['mesh']['scan']}"
               f" (without it: flash {launches['no mesh']['flash']}, scan "
               f"{launches['no mesh']['scan']}) [{card}]", flush=True)
+        if "zero3 mesh" in row:
+            z, m = row["zero3 mesh"], row["mesh"]
+            print(f"serve_mesh {arch} under zero3 ({cfg.n_layers} layers, "
+                  f"bf16, mesh {{data 1, model 1}} on nccl): tokens equal "
+                  f"to the steps without a mesh; prefill "
+                  f"{z['prefill_tokens_per_s']:.0f} tokens/s "
+                  f"({b * t / z['prefill_tokens_per_s'] * 1e3:.1f} ms), "
+                  f"tick {z['decode_tick_ms']:.2f} ms, peak "
+                  f"{z['peak_gib']:.2f} GiB; the 2d mesh run beside it: "
+                  f"{m['prefill_tokens_per_s']:.0f} tokens/s "
+                  f"({b * t / m['prefill_tokens_per_s'] * 1e3:.1f} ms), "
+                  f"tick {m['decode_tick_ms']:.2f} ms; launches: flash "
+                  f"{launches['zero3 mesh']['flash']}, scan "
+                  f"{launches['zero3 mesh']['scan']} [{card}]", flush=True)
         recurrent = any("rglru" in unit for unit, _ in cfg.stacks)
         attends = any(ATTENTION_BLOCKS & set(unit) for unit, _ in cfg.stacks)
         if ((launches["mesh"]["flash"] > 0) != attends
                 or (launches["mesh"]["scan"] > 0) != recurrent
-                or launches["mesh"] != launches["no mesh"]):
+                or any(n != launches["no mesh"] for n in launches.values())):
             raise AssertionError(
-                f"serve_mesh {arch}: launches on the mesh {launches['mesh']}"
-                f", without it {launches['no mesh']}: flash must launch "
+                f"serve_mesh {arch}: launches {launches}: flash must launch "
                 f"exactly where the model attends, the scan exactly where "
-                f"it has the RG-LRU, and both as often as without the mesh")
+                f"it has the RG-LRU, and both as often on each mesh as "
+                f"without one")
         del params, runs, specs, warm
         gc.collect()
         torch.cuda.empty_cache()

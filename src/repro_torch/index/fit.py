@@ -142,11 +142,11 @@ class FitSpec:
       set exists; ``plan(None, spec)`` uses it.  ``n_keys_hint`` scales the
       sample back up to the production key count for the shard heuristic.
     * ``device_count`` -- serve from a device mesh: the plan pins one shard
-      per device (``backend="device"``, the reference's
-      ``DeviceShardedService``, not ported) and scores the collective
-      exchange strategy (allgather vs bucketed all_to_all) via the cost
-      model on the expected batch sizes.  Incompatible with ``write_heavy=True`` (the LSM plane
-      is host-resident).
+      per device (``backend="device"``: ``index/device_plane.py``'s
+      ``DeviceShardedService``, which ``open_index`` opens) and scores the
+      collective exchange strategy (allgather vs bucketed all_to_all) via
+      the cost model on the expected batch sizes.  Incompatible with
+      ``write_heavy=True`` (the LSM plane is host-resident).
 
     ``hardware`` selects the latency model: ``"cpu"`` is the paper's Eq. 1
     cache-miss model (:class:`CostParams`), ``"gpu"`` the card's roofline
@@ -352,7 +352,7 @@ class IndexPlan:
     flush_threshold: int | None = None
     max_wait_us: float | None = None
     queue_depth: int | None = None
-    # device plane (repro.index.device.DeviceShardedService; not ported):
+    # device plane (index/device_plane.py's DeviceShardedService):
     # serve from a device-resident packed shard layout, one shard per
     # device.  exchange names the collective strategy for the search fan-out:
     # "allgather" (every device scores the full batch, psum-reduced),

@@ -18,18 +18,31 @@ state in place and its metrics as plain scalars.
 
 Under the ``2d`` and ``tp`` policies the attention, MLP, RG-LRU and xLSTM
 products and the vocabulary are tensor-parallel over ``model``
-(``models/tensor_parallel.py``), and every cache takes the ``model``
-entries ``cache_spec`` gives it: the attention caches (``k``, ``v``,
-``pos``, and cross-attention's ``k`` and ``v``) their kv heads, or the
-ring's (the memory's) length where the heads do not divide; the RG-LRU's
+(``models/tensor_parallel.py``), and under every policy each cache takes
+the ``model`` entries ``cache_spec`` gives it: the attention caches
+(``k``, ``v``, ``pos``, and cross-attention's ``k`` and ``v``) their kv
+heads, or the ring's (the memory's) length where the heads do not
+divide; the RG-LRU's
 states (``conv``, ``h``) and the sLSTM's (``c``, ``n``, ``m``) their
 channels; the mLSTM's ``C`` every head's value rows, its ``n`` every
 head's k entries and its ``m`` its heads where ``model`` divides them.
 Attention whose q heads do not divide over ``model`` (minicpm-2b's 36,
 arctic's 56 at 16; case C) keeps ``wq`` / ``wk`` / ``wv`` split by columns
 inside a head, as GSPMD does, and exchanges the halo of the heads a rank's
-columns touch.  One departure from the reference remains: ``zero3`` spends
-``model`` on the batch, so no cache entry names it.
+columns touch.  The next tokens and decode's positions are placed over the
+``2d`` pool's rows under every policy, as the reference places them.
+
+``zero3`` places every weight on dim 0 over ``data`` and ``model`` and the
+input batch over every axis that divides it.  Where the batch divides
+every axis (:func:`model_carries_rows`), ``model`` carries rows: the
+blocks compute unsplit, each cache leaf moves at entry from its placement
+to the rank's rows whole and back at exit, and expert parallelism gathers
+the model ranks' tokens (``models.blocks._apply_moe_shardmap``).  Where
+it does not (every serving cell of the production meshes), the rows go
+over ``pod`` and ``data`` as under ``2d``, each layer's weights are
+gathered whole and read as the ``2d`` placements
+(``act_ctx.model_views``), and the blocks split over ``model`` as under
+``2d``.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ import functools
 from typing import Any
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs import SHAPES, ShapeSpec, get_config
@@ -94,38 +108,109 @@ def input_specs(arch: str | ModelConfig, shape: str | ShapeSpec
                       "caches": cache_shapes(cfg, b, t)}
 
 
-def cache_specs(mesh, caches, batch: int, policy: str = "2d"):
-    """The caches' specs as the bound steps place them: ``cache_spec``'s,
-    with the ``model`` entries stripped under ``zero3`` (see the module
-    docstring).  ``mesh``: a ``DeviceMesh`` or an abstract one
-    (``launch.sharding.MeshShape``)."""
-    specs = sh.cache_shardings(mesh, caches, batch)
-    if policy != "zero3":
-        return specs
-    return tree_map(lambda spec: sh.strip_axis(spec, sh.TP), specs)
+def model_carries_rows(mesh, policy: str, batch: int) -> bool:
+    """Whether a step under ``policy`` spends ``model`` on a global batch of
+    ``batch`` rows: ``zero3``'s batch spec where ``model`` is larger than 1
+    and the batch divides every axis (``launch.sharding.batch_spec``).
+    Elsewhere the rows go over ``pod`` and ``data`` as under ``2d`` and
+    ``model`` splits the products."""
+    m = sh.rules_mesh(mesh)
+    return policy == "zero3" and m.shape[sh.TP] > 1 and \
+        sh.batch_spec(m, batch, 1, policy)[0] == tuple(m.axis_names)
+
+
+def _to_rows(t, mesh, spec) -> torch.Tensor:
+    """This rank's rows of batch tensor ``t`` (placed over its rows) where
+    ``spec`` places them: its local shard where its placement is that, else
+    gathered whole and sliced (token ids and positions: a few bytes)."""
+    want = sh.to_placements(spec, mesh)
+    if not isinstance(t, DTensor) or list(t.placements) == want:
+        return act_ctx.local(t)
+    return act_ctx.distribute(t.full_tensor(), mesh, want).to_local()
+
+
+def _rows_in(x: torch.Tensor, dim: int | None, group) -> torch.Tensor:
+    """A cache leaf's local shard ``x``, its rows over the data axes and its
+    dim ``dim`` over ``model`` (None: whole), as this rank's rows over
+    ``model`` too, the leaf whole: one all-to-all over ``model``, or a
+    slice of its rows where ``dim`` is None."""
+    n = dist.get_world_size(group)
+    if dim is None:
+        return x.tensor_split(n, 0)[dist.get_rank(group)]
+    parts = x.reshape(n, x.shape[0] // n, *x.shape[1:]).contiguous()
+    got = torch.empty_like(parts)
+    dist.all_to_all_single(got, parts, group=group)
+    got = got.movedim(0, dim)
+    return got.reshape(*got.shape[:dim], -1, *got.shape[dim + 2:])
+
+
+def _rows_out(y: torch.Tensor, dim: int | None, group) -> torch.Tensor:
+    """:func:`_rows_in` undone: this rank's rows over ``model`` back to its
+    data group's rows, split along ``dim`` over ``model`` (None: whole, an
+    all-gather of the rows)."""
+    n = dist.get_world_size(group)
+    if dim is None:
+        out = y.new_empty((n * y.shape[0], *y.shape[1:]))
+        dist.all_gather_into_tensor(out, y.contiguous(), group=group)
+        return out
+    parts = y.reshape(*y.shape[:dim], n, y.shape[dim] // n,
+                      *y.shape[dim + 1:]).movedim(dim, 0).contiguous()
+    got = torch.empty_like(parts)
+    dist.all_to_all_single(got, parts, group=group)
+    return got.reshape(-1, *got.shape[2:])
+
+
+def _model_dim(t: DTensor) -> int | None:
+    """The dim of ``t`` that its placement splits over ``model``, or None."""
+    p = t.placements[t.device_mesh.mesh_dim_names.index(sh.TP)]
+    return p.dim if p.is_shard() else None
 
 
 def _bind(fn, mesh, policy: str, batch: int, row_pl: list,
-          data_args: tuple, out_rows: tuple):
+          data_args: tuple, out_rows: tuple, cache_arg: int | None = None):
     """``fn`` under ``activation_sharding(mesh)``: the arguments at
     ``data_args`` (batch tensors, placed over rows) are handed over as this
     rank's rows, and the outputs at ``out_rows`` come back as DTensors
-    placed ``row_pl`` over the rows of a global batch of ``batch``."""
-    dp_axes = ("pod", "data", "model") if policy == "zero3" else \
+    placed ``row_pl`` over the rows of a global batch of ``batch``.
+
+    The rows are ``zero3``'s, over every axis, where ``model`` carries
+    them (:func:`model_carries_rows`), else ``2d``'s.  In the first case
+    the blocks do not split over ``model``, and the caches at
+    ``cache_arg`` (the output after the next tokens) move at entry from
+    their placement to the rank's rows whole (:func:`_rows_in`) and back
+    at exit."""
+    rows = "zero3" if model_carries_rows(mesh, policy, batch) else "2d"
+    dp_axes = ("pod", "data", "model") if rows == "zero3" else \
         ("pod", "data")
+    group = mesh.get_group(sh.TP)
+
+    def placed(o, pl):
+        return DTensor.from_local(
+            o, mesh, pl, run_check=False, shape=(batch, *o.shape[1:]),
+            stride=torch.empty((batch, *o.shape[1:]), device=META).stride())
 
     @functools.wraps(fn)
     def inner(*args):
-        args = [tree_map(act_ctx.local, a) if i in data_args else a
-                for i, a in enumerate(args)]
-        with act_ctx.activation_sharding(mesh, dp_axes, batch=batch):
-            out = fn(*args)
-        return tuple(
-            DTensor.from_local(o, mesh, row_pl, run_check=False,
-                               shape=(batch, *o.shape[1:]),
-                               stride=torch.empty((batch, *o.shape[1:]),
-                                                  device=META).stride())
-            if i in out_rows else o for i, o in enumerate(out))
+        args = [tree_map(lambda t: _to_rows(t, mesh, sh.batch_spec(
+                    mesh, t.shape[0], t.dim(), rows)), a)
+                if i in data_args else a for i, a in enumerate(args)]
+        given = args[cache_arg] if rows == "zero3" and \
+            cache_arg is not None else None
+        if given is not None:
+            args[cache_arg] = tree_map(
+                lambda t: _rows_in(t.to_local(), _model_dim(t), group), given)
+        with act_ctx.activation_sharding(mesh, dp_axes, batch=batch,
+                                         policy=policy):
+            out = list(fn(*args))
+        for i in out_rows:
+            out[i] = placed(out[i], sh.to_placements(
+                sh.batch_spec(mesh, batch, 1, rows), mesh))
+            if list(out[i].placements) != row_pl:
+                out[i] = out[i].redistribute(mesh, row_pl)
+        if given is not None:
+            out[1] = tree_map(lambda y, t: act_ctx.like(
+                t, _rows_out(y, _model_dim(t), group)), out[1], given)
+        return tuple(out)
     return inner
 
 
@@ -166,14 +251,16 @@ def make_step_and_specs(arch: str | ModelConfig, shape: str | ShapeSpec,
     def pl(spec_tree):
         return tree_map(lambda spec: sh.to_placements(spec, mesh), spec_tree)
 
-    def data_pl(tree):
+    def data_pl(tree, pool=policy):
         return tree_map(lambda t: sh.to_placements(
-            sh.batch_spec(mesh, t.shape[0], t.dim(), policy), mesh), tree)
+            sh.batch_spec(mesh, t.shape[0], t.dim(), pool), mesh), tree)
 
     repl = [Replicate()] * mesh.ndim
     p_pl = pl(sh.param_shardings(mesh, p_shapes, policy))
     b = (shapes["batch"] if kind == "train" else shapes)["tokens"].shape[0]
-    row_pl = sh.to_placements(sh.batch_spec(mesh, b, 1, policy), mesh)
+    # the next tokens and decode's positions: the 2d pool's rows, as the
+    # reference places them under every policy
+    row_pl = sh.to_placements(sh.batch_spec(mesh, b, 1), mesh)
     if kind == "train":
         opt_pl = pl(sh.opt_shardings(mesh, args[1], policy))
         step = _bind(step, mesh, policy, b, row_pl, data_args=(2,),
@@ -183,18 +270,18 @@ def make_step_and_specs(arch: str | ModelConfig, shape: str | ShapeSpec,
                                  "loss": repl})
         return step, args, in_pl, out_pl, donate_argnums
 
-    c_pl = pl(cache_specs(mesh, shapes["caches"], b, policy))
+    c_pl = pl(sh.cache_shardings(mesh, shapes["caches"], b))
     tok_pl = data_pl(shapes["tokens"])
     if kind == "prefill":
         step = _bind(step, mesh, policy, b, row_pl,
                      data_args=(1, 3) if len(args) == 4 else (1,),
-                     out_rows=(0,))
+                     out_rows=(0,), cache_arg=2)
         in_pl = [p_pl, tok_pl, c_pl]
         if len(args) == 4:
             in_pl.append(data_pl(shapes["memory"]))
         return step, args, tuple(in_pl), (row_pl, c_pl), donate_argnums
 
     step = _bind(step, mesh, policy, b, row_pl, data_args=(1, 2),
-                 out_rows=(0,))
-    in_pl = (p_pl, tok_pl, data_pl(shapes["pos"]), c_pl)
+                 out_rows=(0,), cache_arg=3)
+    in_pl = (p_pl, tok_pl, data_pl(shapes["pos"], "2d"), c_pl)
     return step, args, in_pl, (row_pl, c_pl), donate_argnums

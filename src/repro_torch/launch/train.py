@@ -204,9 +204,11 @@ def _train(args, cfg, device, rank: int):
                     # deterministic fault injection: the failure comes after
                     # the last checkpoint completed, not racing the writer
                     saver.wait()
-                dist.barrier()
+                # printed before the barrier: once a rank has passed it and
+                # exited, the launcher may stop rank 0 at any moment
                 if first:
                     print(f"SIMULATED FAILURE at step {step}", flush=True)
+                dist.barrier()
                 os._exit(42)
             if saver and (step + 1) % args.ckpt_every == 0:
                 saver.save(step + 1, (params, opt_state),

@@ -21,6 +21,13 @@ functional parameter tree, with no ``nn.Module``.  A mesh dim of size 1
 moves nothing, so a 1 x 1 mesh adds no copy.  The kernels only ever see
 plain local tensors.
 
+Under ``zero3`` every weight is split on dim 0 over ``data`` and
+``model``.  Where the batch does not divide every axis, ``model`` carries
+no rows and splits products as under ``2d``: :func:`model_views` gathers
+each weight of a layer whole and presents it as the ``2d`` rule places it
+(:class:`ModelView`), so the blocks keep the same ``model`` shard as under
+``2d`` with no further collective.
+
 :func:`local`, :func:`like` and :func:`reduce_logical` let the optimizer
 work on each rank's shards in place and still reduce over the logical
 tensors (a norm counts each element once, not once per replica).
@@ -35,30 +42,38 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.tree import tree_map
+from repro_torch.launch import sharding as sh
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 _MESH = None
 _DP_AXES = ("pod", "data")
 _BATCH: int | None = None
 _MODEL = 1
+_VIEWS = False
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, dp_axes=("pod", "data"), batch=None):
+def activation_sharding(mesh, dp_axes=("pod", "data"), batch=None,
+                        policy: str = "2d"):
     """Install ``mesh`` (a ``DeviceMesh`` with named dims, ``("data",
     "model")`` or ``("pod", "data", "model")``) for the calls made under
     it.  ``batch``: their global batch, where the caller knows it; the
     rows each rank holds are then checked against it, and expert
-    parallelism tests it as the reference tests its global batch."""
-    global _MESH, _DP_AXES, _BATCH, _MODEL
-    prev = (_MESH, _DP_AXES, _BATCH, _MODEL)
+    parallelism tests it as the reference tests its global batch.
+    ``policy``: the one the parameters are placed by
+    (``launch.sharding.param_spec``); under ``zero3`` with ``model`` left
+    out of ``dp_axes`` the blocks split their products over ``model`` on
+    views of the gathered weights (:func:`model_views`)."""
+    global _MESH, _DP_AXES, _BATCH, _MODEL, _VIEWS
+    prev = (_MESH, _DP_AXES, _BATCH, _MODEL, _VIEWS)
     _MESH, _DP_AXES, _BATCH = mesh, tuple(dp_axes), batch
     _MODEL = axis_size(mesh, "model") if mesh is not None and "model" in \
         mesh.mesh_dim_names and "model" not in _DP_AXES else 1
+    _VIEWS = policy == "zero3" and _MODEL > 1
     try:
         yield
     finally:
-        _MESH, _DP_AXES, _BATCH, _MODEL = prev
+        _MESH, _DP_AXES, _BATCH, _MODEL, _VIEWS = prev
 
 
 @contextlib.contextmanager
@@ -82,7 +97,8 @@ def mesh():
 def model_size() -> int:
     """The size of the installed mesh's ``model`` axis where it splits
     products (``models/tensor_parallel``), else 1: no mesh, no such axis,
-    or ``model`` a data-parallel axis (the ``zero3`` policy's batch)."""
+    or ``model`` a data-parallel axis (the ``zero3`` policy's batch, where
+    the batch divides every axis)."""
     return _MODEL
 
 
@@ -148,6 +164,8 @@ def constrain_btd(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- parameters
 def _materialized(t, keep: tuple, partial: tuple):
+    if isinstance(t, ModelView):
+        return t.local(keep, partial)
     if not isinstance(t, DTensor):
         return t
     m = t.device_mesh
@@ -183,6 +201,69 @@ def materialize(tree: Any, keep: tuple = (), partial: tuple = ()) -> Any:
                     tree)
 
 
+class _OnModelRankZero(torch.autograd.Function):
+    """The identity; the backward keeps the gradient on model rank 0 and
+    zeroes it on the others.  A weight that every model rank uses whole on
+    the rows they share gets the same gradient on each of them, and the
+    gather behind a :class:`ModelView` sums its gradient over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.keep = _MESH.get_local_rank("model") == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g if ctx.keep else torch.zeros_like(g)
+
+
+class ModelView:
+    """A weight placed by ``zero3`` (dim 0 over ``data`` and ``model``),
+    gathered whole, as the blocks read a weight that the ``2d`` rule places:
+    ``dim`` is the dim that rule splits over ``model`` (None: none), which
+    :func:`model_split_dim` reports.  :meth:`local` is what
+    :func:`materialize` hands a block: the rank's ``model`` shard of
+    ``whole`` along ``dim`` where the block keeps it, else ``whole``, a
+    view either way, with no collective."""
+    __slots__ = ("whole", "dim")
+
+    def __init__(self, whole: torch.Tensor, dim: int | None):
+        self.whole, self.dim = whole, dim
+
+    def local(self, keep: tuple, partial: tuple) -> torch.Tensor:
+        if "model" in keep and self.dim is not None:
+            return self.whole.tensor_split(_MODEL, self.dim)[
+                _MESH.get_local_rank("model")]
+        if "model" in partial or not (torch.is_grad_enabled()
+                                      and self.whole.requires_grad):
+            return self.whole
+        return _OnModelRankZero.apply(self.whole)
+
+
+def model_views(tree: Any) -> Any:
+    """``tree``'s DTensor leaves as :class:`ModelView` s where the installed
+    policy is ``zero3`` and ``model`` splits products (it carries no batch
+    rows): each gathered whole over every mesh dim (its gradient summed
+    over ``model`` too and reduce-scattered back into its own placement)
+    and seen as the ``2d`` rule (``launch.sharding.param_spec``) places it,
+    so that the blocks split over ``model`` as they do under ``2d``.
+    ``tree`` itself elsewhere."""
+    if not _VIEWS:
+        return tree
+    rules = sh.rules_mesh(_MESH)
+
+    def view(path: str, t):
+        if not isinstance(t, DTensor):
+            return t
+        spec = sh.param_spec(path, t, rules, "2d")
+        dim = next((d for d, e in enumerate(spec)
+                    if e == "model" or isinstance(e, tuple) and "model" in e),
+                   None)
+        return ModelView(_materialized(t, (), ("model",)), dim)
+    return tree_unflatten(tree, [view(path, t) for path, t in
+                                 zip(tree_paths(tree), tree_leaves(tree))])
+
+
 def local(t):
     """A DTensor's local shard (its storage, under ``no_grad``), or ``t``."""
     return t.to_local() if isinstance(t, DTensor) else t
@@ -190,7 +271,10 @@ def local(t):
 
 def model_split_dim(t) -> int | None:
     """The dim of DTensor ``t`` that its placement splits over a ``model``
-    mesh dim larger than 1, or None."""
+    mesh dim larger than 1 (of a :class:`ModelView`, its ``dim``), or
+    None."""
+    if isinstance(t, ModelView):
+        return t.dim
     if not isinstance(t, DTensor) or "model" not in \
             t.device_mesh.mesh_dim_names:
         return None

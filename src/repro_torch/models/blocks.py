@@ -717,9 +717,11 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     * expert parallel (a mesh installed whose ``model`` axis is larger than
       1 and divides the experts, a global batch the data-parallel ranks
-      divide, more than one position): every model rank owns ``E / tp``
+      divide, more than one position, the experts' placements split over
+      ``model``): every model rank owns ``E / tp``
       experts, gathers only their weights over ``data``, buckets its local
-      tokens for them, and one sum over ``model`` combines
+      tokens for them (every model rank's, where ``model`` carries batch
+      rows), and one sum over ``model`` combines
       (:func:`_apply_moe_shardmap`);
     * the single-device dispatch otherwise (:func:`_apply_moe_xla`; under a
       mesh every rank computes it with its parameters gathered).
@@ -733,7 +735,11 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
             and act_ctx.global_batch(x.shape[0]) % act_ctx.dp_size() == 0
             # decode (T == 1): the per-step gather of the experts' weights
             # would dwarf the few active tokens (the reference's reason)
-            and x.shape[1] > 1):
+            and x.shape[1] > 1
+            # the experts split over ``model``: ``zero3`` places experts
+            # that ``data`` x ``model`` does not divide over ``data`` alone,
+            # and every rank gathers them whole whichever path it takes
+            and act_ctx.model_split_dim(p["wi"]) == 0):
         return _apply_moe_shardmap(p, x, cfg, mesh)
     return _apply_moe_xla({k: v if k == "dense" else act_ctx.materialize(v)
                            for k, v in p.items()}, x, cfg)
@@ -778,22 +784,33 @@ def _apply_moe_shardmap(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
     gradient summed over ``model`` too: each rank routes the same tokens
     but back-propagates through its own experts' weights only), the local
     tokens routed and bucketed for the rank's experts alone, their outputs
-    summed over ``model``.  Capacity is per rank, from its local tokens, as
-    in the reference.  The dense residual runs outside, tensor-parallel as
-    every MLP (:func:`apply_mlp`)."""
+    summed over ``model``.  Capacity is per rank, from the tokens it
+    buckets, as in the reference.  The dense residual runs outside,
+    tensor-parallel as every MLP (:func:`apply_mlp`).
+
+    Where ``model`` carries batch rows (``zero3`` with a batch that every
+    axis divides) the model ranks hold different tokens, and the
+    reference's sum over ``model`` would add different rows together.
+    There the tokens of every model rank are gathered
+    (``tensor_parallel.all_gather``), routed and bucketed by each rank for
+    its experts, and the outputs summed back into each rank's own rows
+    (``tensor_parallel.reduce_scatter``); the experts stay split."""
     m = cfg.moe
-    b, s, d = x.shape
+    d = x.shape[-1]
     tp = act_ctx.axis_size(mesh, "model")
     group = mesh.get_group("model")
     e, k = m.n_experts, m.top_k
     e_loc = e // tp
-    t_loc = b * s
-    cap = max(1, int(math.ceil(t_loc * k / e * m.capacity_factor)))
     experts = act_ctx.materialize({n: p[n] for n in ("wi", "wg", "wo")},
                                   keep=("model",))
     router = act_ctx.materialize(p["router"], partial=("model",))
     mi = mesh.get_local_rank("model")
-    xt = tensor_parallel.copy(x, group).reshape(-1, d)
+    rows = "model" in act_ctx.dp_axes()
+    xt = x.reshape(-1, d)
+    xt = tensor_parallel.all_gather(xt, 0) if rows else \
+        tensor_parallel.copy(xt, group)
+    t_loc = xt.shape[0]
+    cap = max(1, int(math.ceil(t_loc * k / e * m.capacity_factor)))
     probs = torch.softmax(mm(xt.float(), router.to(x.dtype)), dim=-1)
     w, ids = torch.topk(probs, k, dim=-1)                    # (t_loc, k)
     w = w / torch.sum(w, dim=-1, keepdim=True)
@@ -803,7 +820,8 @@ def _apply_moe_shardmap(p: dict, x: torch.Tensor, cfg: ModelConfig, mesh
                             e_loc)
     out = _bucket_and_run(xt, w, ids, experts["wi"], experts["wg"],
                           experts["wo"], e_loc, cap, bucket_of, x.dtype)
-    out = tensor_parallel.reduce(out, group).reshape(x.shape)
+    out = (tensor_parallel.reduce_scatter(out, 0) if rows else
+           tensor_parallel.reduce(out, group)).reshape(x.shape)
     if m.dense_residual:
         out = out + apply_mlp(p["dense"], x)
     return out

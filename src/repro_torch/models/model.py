@@ -216,12 +216,15 @@ def _layer_params(lp: dict) -> dict:
     ``blocks.apply_attention``, ``apply_mlp``, ``apply_moe``,
     ``apply_rglru``, ``apply_mlstm`` and ``apply_slstm`` gather themselves:
     each keeps the ``model`` shard of the weights it splits
-    (``models/tensor_parallel``).
+    (``models/tensor_parallel``).  Under ``zero3`` with ``model`` carrying
+    no rows, those blocks' weights are gathered whole here and handed on as
+    ``act_ctx.model_views``, which read as the ``2d`` placements.
     A checkpointed unit calls this again when it is recomputed, and its
     blocks split as they did the first time."""
     if act_ctx.mesh() is None:
         return lp
-    return {bk: {k: v if k in _SELF_GATHERED else act_ctx.materialize(v)
+    return {bk: {k: act_ctx.model_views(v) if k in _SELF_GATHERED
+                 else act_ctx.materialize(v)
                  for k, v in bp.items()} for bk, bp in lp.items()}
 
 
@@ -232,16 +235,17 @@ _VOCAB_DIM = {"embed": 0, "unembed": 1}
 def _top_params(params: Params) -> Params:
     """``params`` with the embedding, unembedding and final norms gathered
     under a mesh (the stacks are gathered a layer at a time).  Where their
-    placements split the vocabulary over ``model`` (``tensor_parallel``),
-    ``embed`` and ``unembed`` keep that shard: rows of ``embed``, columns
-    of ``unembed``."""
+    placements split the vocabulary over ``model`` (``tensor_parallel``;
+    under ``zero3``, their ``act_ctx.model_views``), ``embed`` and
+    ``unembed`` keep that shard: rows of ``embed``, columns of
+    ``unembed``."""
     if act_ctx.mesh() is None:
         return params
-    keep = tuple(k for k, dim in _VOCAB_DIM.items() if k in params
+    top = act_ctx.model_views({k: v for k, v in params.items()
+                               if k not in ("stacks", "enc_stacks")})
+    keep = tuple(k for k, dim in _VOCAB_DIM.items() if k in top
                  and tensor_parallel.size() > 1
-                 and act_ctx.model_split_dim(params[k]) == dim)
-    top = {k: v for k, v in params.items()
-           if k not in ("stacks", "enc_stacks")}
+                 and act_ctx.model_split_dim(top[k]) == dim)
     return {**params, **tensor_parallel.shards(top, keep=keep)}
 
 

@@ -48,8 +48,10 @@ halo).  :func:`to_row_split` turns a split by columns into one by rows
 
 Tensor parallelism runs where a mesh is installed whose ``model`` axis is
 larger than 1 and is not a data-parallel axis (the ``zero3`` policy spends
-it on the batch).  Elsewhere :func:`size` is 1 and the blocks compute as
-they did without it: a 1 x 1 mesh adds no collective and no copy.
+it on the batch where the batch divides every axis; elsewhere its weights
+reach the blocks as ``act_ctx.model_views`` of the ``2d`` placements).
+Otherwise :func:`size` is 1 and the blocks compute as they did without
+it: a 1 x 1 mesh adds no collective and no copy.
 """
 from __future__ import annotations
 

@@ -16,7 +16,9 @@ gradient against the single-process ``_apply_moe_xla``); three train steps
 of ``make_train_step`` under the mesh against the same steps without one;
 prefill and decode steps bound by ``launch.specs.make_step_and_specs`` on
 the mesh against the same steps without one (the logits each step
-computes, recorded on the way, and its tokens); the vocabulary split over
+computes, recorded on the way, and its tokens); both under ``zero3`` too,
+at a batch of 2 (``model`` splits the products) and of 4 (``model``
+carries rows), and the serve steps under it on 1 x 1; the vocabulary split over
 ``model`` (a reference model's logits, loss and gradients; the greedy
 pick's ties); the blocks' tensor parallelism, attention's, the MLP's and
 the RG-LRU's; a layer's collectives.
@@ -38,7 +40,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import shard_rows
 from repro_torch.configs import ShapeSpec
 from repro_torch.launch.mesh import distribute_tree, place
-from repro_torch.launch.specs import make_step_and_specs
+from repro_torch.launch.specs import make_step_and_specs, model_carries_rows
 from repro_torch.launch.hlo_analysis import trace_collectives
 from repro_torch.launch.sharding import (P, batch_spec, cache_shardings,
                                          opt_shardings, param_shardings,
@@ -68,6 +70,16 @@ TRAIN_CASES = {"internlm2-1.8b": {"microbatches": 2},
 TRAIN_B, TRAIN_T1, TRAIN_STEPS = 4, 17, 3
 SERVE_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b", "qwen3-moe-235b-a22b")
 SERVE_B, SERVE_T, SERVE_LEN, SERVE_STEPS = 4, 12, 16, 3
+# zero3 on 2 x 2: at a batch of 2 ``model`` carries no rows and splits the
+# products; at 4 it carries rows (every axis divides the batch).  Its train
+# steps are plain (neither microbatched nor compressed), so the parameters
+# meet the no-mesh step's within 1e-5 with no ordering spread to allow for
+ZERO3_TRAIN = ("recurrentgemma-9b", "qwen3-moe-235b-a22b")
+ZERO3_B = (2, 4)
+# MoE under zero3 with rows over model: experts the 4 ranks divide (expert
+# parallelism), and experts only data divides (zero3 places them over data
+# alone; the dispatch)
+ZERO3_EP_EXPERTS = (8, 6)
 # case -> (arch, vocab): tied and untied at a vocabulary 2 divides, and
 # one it does not, which stays whole
 VOCAB_CASES = {"tied": ("recurrentgemma-9b", 512),
@@ -169,6 +181,63 @@ def case_ep(mesh, d: str, arch: str) -> dict:
     names = tree_paths(p_sp) + ["/x"]
     return {"shardmap_calls": len(taken),
             "max_abs_vs_port_xla": float((y - y_sp.detach()).abs().max()),
+            "grad_rel_err": {
+                name: float((a - b).abs().max() / b.abs().max())
+                for name, a, b in zip(names, g, g_sp)}}
+
+
+def case_ep_zero3(mesh, experts: int) -> dict:
+    """MoE where ``model`` carries rows (``zero3``, a batch of EP_B over the
+    2 x 2 ranks, one row each), the parameters placed by the ``zero3``
+    rule: ``experts`` 8 split over both axes (expert parallelism), 6 over
+    ``data`` alone (the dispatch, every expert gathered).  Values and
+    every gradient against the single-process ``_apply_moe_xla`` on the
+    same numpy inputs."""
+    cfg = dataclasses.replace(
+        reduced(get_config("qwen3-moe-235b-a22b")),
+        moe=MoEConfig(experts, 2, 64, capacity_factor=8.0))
+    rng = np.random.default_rng(experts)
+    d, f = cfg.d_model, cfg.moe.d_expert
+    arrays = {"router": (d, experts), "wi": (experts, d, f),
+              "wg": (experts, d, f), "wo": (experts, f, d)}
+    arrays = {k: torch.from_numpy(0.1 * rng.standard_normal(shape).astype(
+        np.float32)) for k, shape in arrays.items()}
+    x = torch.from_numpy(rng.standard_normal((EP_B, 16, d)).astype(
+        np.float32))
+    p_sp = tree_map(lambda t: t.clone().requires_grad_(True), arrays)
+    x_sp = x.clone().requires_grad_(True)
+    y_sp = blocks._apply_moe_xla(p_sp, x_sp, cfg)
+    g_sp = torch.autograd.grad(torch.sum(y_sp ** 2),
+                               tree_leaves(p_sp) + [x_sp])
+    specs = param_shardings(mesh, arrays, "zero3")
+    p = tree_map(lambda t: t.detach().requires_grad_(True),
+                 place(arrays, specs, mesh))
+    i, n = row_shard(batch_spec(mesh, EP_B, 3, "zero3"), mesh)
+    x_loc = x.tensor_split(n)[i].clone().requires_grad_(True)
+    taken = []
+    inner = blocks._apply_moe_shardmap
+
+    def counted(*args):
+        taken.append(1)
+        return inner(*args)
+
+    blocks._apply_moe_shardmap = counted
+    try:
+        with activation_sharding(mesh, ("pod", "data", "model"), batch=EP_B,
+                                 policy="zero3"):
+            y = blocks.apply_moe(p, x_loc, cfg)
+    finally:
+        blocks._apply_moe_shardmap = inner
+    g = torch.autograd.grad(torch.sum(y ** 2), tree_leaves(p) + [x_loc])
+    rows = [Shard(0), Shard(0)]
+    g = [_full(gi) for gi in g[:-1]] + [
+        DTensor.from_local(g[-1], mesh, rows).full_tensor()]
+    y = DTensor.from_local(y.detach(), mesh, rows).full_tensor()
+    names = tree_paths(p_sp) + ["/x"]
+    return {"rows": n, "shardmap_calls": len(taken),
+            "experts_spec": repr(specs["wi"]),
+            "max_abs": float((y - y_sp.detach()).abs().max()),
+            "max_y": float(y_sp.detach().abs().max()),
             "grad_rel_err": {
                 name: float((a - b).abs().max() / b.abs().max())
                 for name, a, b in zip(names, g, g_sp)}}
@@ -344,14 +413,17 @@ def _no_mesh_run(cfg, opt_cfg, kw: dict, params, states: int,
     return p
 
 
-def train_case(mesh, arch: str, kw: dict) -> dict:
+def train_case(mesh, arch: str, kw: dict, policy: str = "2d",
+               b: int = TRAIN_B) -> dict:
     """Three steps under the mesh against the same three without one, from
     the same parameters: losses and every parameter and moment.  Where the
     step microbatches or compresses, also the spread of the no-mesh step
     itself between two orderings of the same sums: its own, and the mesh's
     (:func:`_mesh_order`: the rows grouped into the data ranks' products,
     and the attention and MLP products into the model ranks' partial
-    sums)."""
+    sums).  ``policy``: the parameters', moments' and rows' placement; under
+    ``zero3`` the rows go over ``model`` too where the batch ``b`` divides
+    every axis, as ``launch.specs`` binds a step."""
     cfg = reduced(get_config(arch))
     compress = kw.get("compress", False)
     opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
@@ -368,13 +440,15 @@ def train_case(mesh, arch: str, kw: dict) -> dict:
     ref_o = state(ref_p)
     ref_step = make_train_step(cfg, opt_cfg, **kw)
     opt = state(params)
-    o_sh = opt_shardings(mesh, opt)
+    o_sh = opt_shardings(mesh, opt, policy)
     if compress:
-        o_sh["residual"] = param_shardings(mesh, opt["residual"])
-    p = place(params, param_shardings(mesh, params), mesh)
+        o_sh["residual"] = param_shardings(mesh, opt["residual"], policy)
+    p = place(params, param_shardings(mesh, params, policy), mesh)
     o = place(opt, o_sh, mesh)
     step = make_train_step(cfg, opt_cfg, **kw)
-    i, n = row_shard(batch_spec(mesh, TRAIN_B, 2), mesh)
+    rows = model_carries_rows(mesh, policy, b)
+    dp = ("pod", "data", "model") if rows else ("pod", "data")
+    i, n = row_shard(batch_spec(mesh, b, 2, "zero3" if rows else "2d"), mesh)
     taken = []
     inner = blocks._apply_moe_shardmap
 
@@ -387,14 +461,15 @@ def train_case(mesh, arch: str, kw: dict) -> dict:
     blocks._apply_moe_shardmap = counted
     try:
         for _ in range(TRAIN_STEPS):
-            toks = rng.integers(2, cfg.vocab, size=(TRAIN_B, TRAIN_T1)
+            toks = rng.integers(2, cfg.vocab, size=(b, TRAIN_T1)
                                 ).astype(np.int32)
             ref_p, ref_o, want = ref_step(ref_p, ref_o,
                                           {"tokens": torch.from_numpy(toks)})
-            rows = shard_rows(TRAIN_B, (i, n), kw.get("microbatches", 1))
-            with activation_sharding(mesh, batch=TRAIN_B):
+            mine = shard_rows(b, (i, n), kw.get("microbatches", 1))
+            with activation_sharding(mesh, dp, batch=b,
+                                     policy=policy):
                 p, o, got = step(p, o, {"tokens": torch.from_numpy(
-                    toks[rows])})
+                    toks[mine])})
             losses.append(got["loss"])
             ref_losses.append(want["loss"])
     finally:
@@ -404,7 +479,8 @@ def train_case(mesh, arch: str, kw: dict) -> dict:
             for k, x, y in (("params", p, ref_p), ("m", o["m"], ref_o["m"]),
                             ("v", o["v"], ref_o["v"]))}
     noise = 0.0
-    if n > 1 and (kw.get("microbatches", 1) > 1 or compress):
+    if n > 1 and (kw.get("microbatches", 1) > 1 or compress) and \
+            policy == "2d":
         alt_p = _no_mesh_run(cfg, opt_cfg, kw, params_copy, 5, lambda: (
             _mesh_order(n, act_ctx.axis_size(mesh, "model"))))
         noise = max(float((a - b).abs().max()) for a, b in
@@ -425,11 +501,14 @@ def train_case(mesh, arch: str, kw: dict) -> dict:
             "step": int(o["step"]), "shardmap_calls": len(taken)}
 
 
-def _serve_run(cfg, params, tokens, caches, mesh):
+def _serve_run(cfg, params, tokens, caches, mesh, policy: str = "2d"):
     """Prefill then SERVE_STEPS greedy decode steps; returns (the logits of
     each step, its tokens), whole batches.  Without a mesh the steps of
-    ``serve.step``; on one, those ``make_step_and_specs`` binds, over
-    placed arguments, the logits gathered from the rows."""
+    ``serve.step``; on one, those ``make_step_and_specs`` binds under
+    ``policy``, over placed arguments, the logits gathered from the rows
+    (from the rows the step computes on: every axis where ``model``
+    carries rows)."""
+    b = tokens.shape[0]
     logits = []
     inner = {"prefill": serve_step.prefill,
              "decode_step": serve_step.decode_step}
@@ -446,9 +525,11 @@ def _serve_run(cfg, params, tokens, caches, mesh):
         dec = serve_step.make_decode_step(cfg)
     else:
         pre, _, pre_in, _, _ = make_step_and_specs(
-            cfg, ShapeSpec("serve", SERVE_LEN, SERVE_B, "prefill"), mesh)
+            cfg, ShapeSpec("serve", SERVE_LEN, b, "prefill"), mesh,
+            policy=policy)
         dec, _, dec_in, _, _ = make_step_and_specs(
-            cfg, ShapeSpec("serve", SERVE_LEN, SERVE_B, "decode"), mesh)
+            cfg, ShapeSpec("serve", SERVE_LEN, b, "decode"), mesh,
+            policy=policy)
         params = distribute_tree(params, pre_in[0], mesh)
         caches = distribute_tree(caches, pre_in[2], mesh)
         tokens = distribute_tree(tokens, pre_in[1], mesh)
@@ -462,7 +543,7 @@ def _serve_run(cfg, params, tokens, caches, mesh):
                 full = _full(nxt)
                 toks.append(full)
                 cur = full[:, None]
-                pos = torch.full((SERVE_B,), SERVE_T + i, dtype=torch.int32)
+                pos = torch.full((b,), SERVE_T + i, dtype=torch.int32)
                 if mesh is not None:
                     cur = distribute_tree(cur, dec_in[1], mesh)
                     pos = distribute_tree(pos, dec_in[2], mesh)
@@ -472,22 +553,27 @@ def _serve_run(cfg, params, tokens, caches, mesh):
         serve_step.prefill = inner["prefill"]
         serve_step.decode_step = inner["decode_step"]
     cols = [x.shape[-1] for x in logits]
-    if mesh is not None:
+    if mesh is not None and model_carries_rows(mesh, policy, b):
+        logits = [DTensor.from_local(x.contiguous(), mesh, [Shard(0)] * 2
+                                     ).full_tensor() for x in logits]
+    elif mesh is not None:
         logits = [_rows(x, mesh, None if x.shape[-1] == cfg.vocab else 1)
                   for x in logits]
     return logits, toks, cols
 
 
-def serve_case(mesh, arch: str) -> dict:
+def serve_case(mesh, arch: str, policy: str = "2d", b: int = SERVE_B
+               ) -> dict:
     """Prefill (SERVE_T tokens into caches of SERVE_LEN) and SERVE_STEPS
-    decode steps bound on the mesh against the same steps without one."""
+    decode steps bound on the mesh under ``policy`` against the same steps
+    without one, at a batch of ``b``."""
     cfg = reduced(get_config(arch))
     params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(7).integers(
-        2, cfg.vocab, size=(SERVE_B, SERVE_T)).astype(np.int32))
+        2, cfg.vocab, size=(b, SERVE_T)).astype(np.int32))
 
     def caches():
-        return init_caches(cfg, SERVE_B, SERVE_LEN, dtype=torch.float32,
+        return init_caches(cfg, b, SERVE_LEN, dtype=torch.float32,
                            device="cpu")
 
     want_l, want_t, _ = _serve_run(cfg, params, tokens, caches(), None)
@@ -501,7 +587,7 @@ def serve_case(mesh, arch: str) -> dict:
     blocks._apply_moe_shardmap = counted
     try:
         got_l, got_t, got_cols = _serve_run(cfg, params, tokens, caches(),
-                                            mesh)
+                                            mesh, policy)
     finally:
         blocks._apply_moe_shardmap = inner
     return {"steps": len(got_l), "logit_cols": got_cols,
@@ -979,11 +1065,19 @@ def rank_main(rank: int, world: int, d: str) -> None:
             "placements": lambda: case_placements(mesh),
             **{f"ep {a}": (lambda a=a: case_ep(mesh, d, a))
                for a in EP_ARCHS},
+            **{f"zero3 ep {e}": (lambda e=e: case_ep_zero3(mesh, e))
+               for e in ZERO3_EP_EXPERTS},
             **{f"train {a}": (lambda a=a: train_case(mesh, a,
                                                      TRAIN_CASES[a]))
                for a in TRAIN_CASES},
             **{f"serve {a}": (lambda a=a: serve_case(mesh, a))
                for a in SERVE_ARCHS},
+            **{f"zero3 train {a} b{b}": (lambda a=a, b=b: train_case(
+                mesh, a, {}, "zero3", b))
+               for a in ZERO3_TRAIN for b in ZERO3_B},
+            **{f"zero3 serve {a} b{b}": (
+                lambda a=a, b=b: serve_case(mesh, a, "zero3", b))
+               for a in SERVE_ARCHS for b in ZERO3_B},
             **{f"vocab {c}": (lambda c=c: case_vocab(mesh, d, c))
                for c in VOCAB_CASES},
             "argmax": lambda: case_argmax(mesh),
@@ -1006,6 +1100,8 @@ def one_rank(d: str) -> None:
                                                      TRAIN_CASES[a]))
                for a in TRAIN_CASES},
             **{f"serve {a}": (lambda a=a: serve_case(mesh, a))
+               for a in SERVE_ARCHS},
+            **{f"zero3 serve {a}": (lambda a=a: serve_case(mesh, a, "zero3"))
                for a in SERVE_ARCHS},
             **{f"{k} layer collectives": (
                 lambda k=k: case_layer_collectives(mesh, k)) for k in LAYERS}})

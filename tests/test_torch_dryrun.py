@@ -12,12 +12,17 @@ products split over ``model`` (q, o, the MLP, the local heads' attention,
 and the last position's logits over the vocabulary's columns) over both
 mesh axes, the rest (k and v, whose 8 kv heads do not split over 16) over
 ``data`` alone; and whose all-reduces are the two sums over ``model`` a
-layer, the embedding lookup's sum and the greedy pick's combine."""
+layer, the embedding lookup's sum and the greedy pick's combine; and under
+``zero3``, recurrentgemma-9b's prefill and internlm2-1.8b's decode batches
+over 1,024 positions at full width count a rank's ``2d`` flops, with caches
+of the same bytes."""
 import json
 import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 from repro.configs import SHAPES as REF_SHAPES
 from repro.configs import get_config as ref_get_config
@@ -159,3 +164,50 @@ def test_tensor_parallel_prefill_flops_per_rank_case_c(tmp_path):
     coll = rec["collectives"]
     assert coll["all-reduce_count"] == 2 * layers
     assert coll["all-to-all_count"] == 5 * layers
+
+
+# One rank of the single-pod mesh (a fake group of 256) traces a cell under
+# "2d" and "zero3" and prints its flops and its caches' bytes a policy.
+_POLICY_CELLS = """
+import json, sys
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch.dryrun import fake_group, local_bytes, trace_step
+from repro_torch.launch.mesh import distribute_tree, make_production_mesh
+from repro_torch.launch.specs import make_step_and_specs
+arch, kind, seq, batch = sys.argv[1:]
+fake_group(256)
+mesh = make_production_mesh()
+out = {}
+for policy in ("2d", "zero3"):
+    step, args, in_pl, _, _ = make_step_and_specs(
+        get_config(arch), ShapeSpec(kind, int(seq), int(batch), kind), mesh,
+        policy=policy)
+    placed = tuple(distribute_tree(a, p, mesh) for a, p in zip(args, in_pl))
+    _, flops, coll, _ = trace_step(step, placed)
+    out[policy] = {"flops": flops, "cache_bytes": local_bytes(placed[-1]),
+                   "all_to_all": coll["all-to-all_count"]}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("arch,kind,batch", [
+    ("recurrentgemma-9b", "prefill", 32), ("internlm2-1.8b", "decode", 128)])
+def test_zero3_serving_flops_per_rank_equal_2d(arch, kind, batch):
+    """prefill_32k's and decode_32k's batches over 1,024 positions at full
+    width on the single-pod mesh: neither batch divides the 256 ranks, so
+    under ``zero3`` ``model`` carries no rows and splits the products on
+    views of the gathered weights, and a rank counts the flops it counts
+    under ``2d``, its caches placed by ``cache_spec`` with the same bytes;
+    no cache moves between layouts."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", _POLICY_CELLS, arch, kind, "1024",
+         str(batch)], capture_output=True, text=True, timeout=300, env=env,
+        cwd=ROOT)
+    assert res.returncode == 0, res.stdout + res.stderr
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["zero3"]["flops"] == got["2d"]["flops"] > 0, got
+    assert got["zero3"]["cache_bytes"] == got["2d"]["cache_bytes"] > 0, got
+    assert got["zero3"]["all_to_all"] == got["2d"]["all_to_all"], got
+

@@ -5,11 +5,12 @@ the reference's, and ``make_step_and_specs`` for a reduced config of
 each family (dense, recurrent, MoE, xLSTM, vision, audio) on a one-rank (1, 1) ``gloo`` mesh: train, prefill
 and decode bound under activation sharding, their arguments placed on
 meta, traced, with outputs placed as the output placements say and the
-same flop count as the step without a mesh; and the caches' placements:
-every cache leaf (attention's, the RG-LRU's and the xLSTM's states) keeps
-the ``model`` entry ``cache_spec`` gives it, and under ``zero3`` no leaf
-names ``model``; recurrentgemma-9b's and xlstm-350m's states at full size
-on an abstract (16, 16) mesh."""
+same flop count as the step without a mesh; and the placements under
+every policy: every cache leaf (attention's, the RG-LRU's and the xLSTM's
+states) keeps the ``model`` entry ``cache_spec`` gives it, and the next
+tokens and decode's positions are the ``2d`` pool's rows;
+recurrentgemma-9b's and xlstm-350m's states at full size on an abstract
+(16, 16) mesh."""
 import jax
 import pytest
 import torch
@@ -23,8 +24,7 @@ from repro_torch.configs import (ARCHS, SHAPES, ShapeSpec, get_config,
 from repro_torch.launch.flops_count import count_flops
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import distribute_tree, make_host_mesh
-from repro_torch.launch.specs import (cache_shapes,
-                                      cache_specs, input_specs,
+from repro_torch.launch.specs import (cache_shapes, input_specs,
                                       make_step_and_specs, param_shapes)
 from repro_torch.tree import tree_leaves, tree_paths
 
@@ -167,53 +167,53 @@ def test_reference_configs_are_the_ports():
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_cache_placements_keep_attention_model_entries(mesh, arch):
+    """Under every policy the caches are placed by ``cache_spec``, in and
+    out, and the next tokens and decode's positions over the ``2d`` pool's
+    rows, as the reference's ``make_step_and_specs`` places them; the input
+    tokens by the policy's own batch spec."""
     cfg = reduced(get_config(arch))
     shape = ShapeSpec("test", 16, 2, "decode")
     model = mesh.mesh_dim_names.index("model")
-    for policy in ("2d", "zero3"):
-        _, args, in_pl, _, _ = make_step_and_specs(cfg, shape, mesh,
-                                                   policy=policy)
+    for policy in ("2d", "zero3", "tp"):
+        _, args, in_pl, out_pl, _ = make_step_and_specs(cfg, shape, mesh,
+                                                         policy=policy)
         caches, pls = args[3], in_pl[3]
+        assert out_pl[1] is pls
         specs = tree_leaves(sh.cache_shardings(mesh, caches, 2))
         leaves = list(zip(tree_paths(caches), specs, _placements(pls)))
         assert len(leaves) == len(tree_leaves(caches))
         for path, spec, pl in leaves:
-            want = sh.to_placements(spec if policy == "2d"
-                                    else sh.strip_axis(spec, sh.TP), mesh)
-            assert pl == want, (policy, path)
-            if policy == "2d":
-                # kv heads or length; the recurrent states' channels, the
-                # mLSTM's value rows, k entries or heads
-                assert pl[model].is_shard(), path
-            else:
-                assert pl[model].is_replicate(), (policy, path)
+            assert pl == sh.to_placements(spec, mesh), (policy, path)
+            # kv heads or length; the recurrent states' channels, the
+            # mLSTM's value rows, k entries or heads
+            assert pl[model].is_shard(), (policy, path)
+        rows = sh.to_placements(sh.batch_spec(mesh, 2, 1), mesh)
+        assert out_pl[0] == in_pl[2] == rows, policy
+        assert in_pl[1] == sh.to_placements(
+            sh.batch_spec(mesh, 2, 2, policy), mesh), policy
 
 
 @pytest.mark.parametrize("arch", ("recurrentgemma-9b", "xlstm-350m"))
 def test_recurrent_state_model_entries(arch):
-    """The bound steps' cache specs on the single-pod mesh (data 16, model
-    16) at decode_32k's batch of 128 are ``cache_spec``'s, none stripped:
-    the RG-LRU's ``conv`` (B, cw - 1, W) and ``h`` (B, W) and the sLSTM's
+    """``cache_spec``'s specs, which the bound steps place the caches by
+    under every policy, on the single-pod mesh (data 16, model 16) at
+    decode_32k's batch of 128: the RG-LRU's ``conv`` (B, cw - 1, W) and ``h`` (B, W) and the sLSTM's
     ``c``, ``n``, ``m`` (B, d) keep their channels over ``model``, the
     mLSTM's ``C`` (B, H, hd_v, hd_k) every head's value rows and ``n`` (B,
     H, hd_k) every head's k entries; its ``m`` (B, 4 heads) has none, since
     16 does not divide 4."""
     mesh = sh.MeshShape(("data", "model"), (16, 16))
     caches = cache_shapes(get_config(arch), 128, 16)
-    given = tree_leaves(sh.cache_shardings(mesh, caches, 128))
-    names, stripped = set(), set()
+    names = set()
     want = {"C": sh.P(("data",), None, "model", None),
             "n": sh.P(("data",), None, "model"),
             "m": sh.P(("data",), None)}
     paths = tree_paths(caches)
     slstm = {p.rsplit("/", 1)[0] for p in paths if p.endswith("/c")}
-    for path, spec, full in zip(paths, tree_leaves(
-            cache_specs(mesh, caches, 128)), given):
+    for path, spec in zip(paths, tree_leaves(
+            sh.cache_shardings(mesh, caches, 128))):
         block, name = path.rsplit("/", 1)
         names.add(name)
-        if "model" in full and "model" not in spec:
-            stripped.add(name)
-        assert spec == full, path
         if name in ("conv", "h") or block in slstm:
             assert spec == sh.P(("data",), *[None] * (len(spec) - 2),
                                 "model"), path
@@ -222,7 +222,6 @@ def test_recurrent_state_model_entries(arch):
     assert names == ({"conv", "h", "k", "v", "pos"}
                      if arch == "recurrentgemma-9b"
                      else {"C", "n", "m", "c"})
-    assert stripped == set()
 
 
 def _placements(tree) -> list:

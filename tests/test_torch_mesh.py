@@ -21,13 +21,21 @@
   its eps by their own size, and an int8 rounding tie moves a quantum; the
   other ordering groups the rows as the data ranks do and sums each
   attention and MLP block over the model ranks' parts); on the 1 x 1 mesh
-  equal bit for bit;
+  equal bit for bit; under ``zero3`` with a row a rank, MoE's values and
+  gradients against ``_apply_moe_xla`` (8 experts split over both axes:
+  expert parallelism; 6 over ``data`` alone: the dispatch); under
+  ``zero3`` (reduced
+  recurrentgemma and qwen3-moe,
+  plain steps) at a batch of 2, where ``model`` splits the products, and of
+  4, where it carries rows and expert parallelism gathers the model ranks'
+  tokens: losses, parameters and moments within 1e-5;
 * prefill (12 tokens into caches of 16) and three greedy decode steps,
   bound under the mesh by ``launch.specs.make_step_and_specs`` with the
   parameters and caches placed (reduced internlm2, recurrentgemma and
   qwen3-moe, whose prefill MoE takes expert parallelism and whose decode
   does not), against the same steps without a mesh: every step's logits
   within 1e-4, every token equal; on the 1 x 1 mesh all equal bit for bit;
+  the same under ``zero3`` at a batch of 2 and of 4, and on 1 x 1;
 * tensor parallelism over ``model`` block by block
   (``_torch_mesh_job.py``'s ``BLOCK_CFGS``): attention in its three head
   splits (A 4 / 2 heads with qk-norm, B 4 / 1, C 3 heads computed whole)
@@ -214,6 +222,64 @@ def test_prefill_decode_on_2x2_match_no_mesh(job, arch):
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_prefill_decode_on_1x1_equal_no_mesh(job, arch):
     res = job["mesh_1x1.json"][f"serve {arch}"]
+    assert res["tokens_equal"] and res["logits_equal"], res
+    assert res["shardmap_calls"] == 0
+    assert res["logit_cols"] == [512] * 4, res["logit_cols"]
+
+
+# ---------------------------------------------------------------- zero3
+@pytest.mark.parametrize("experts", J.ZERO3_EP_EXPERTS)
+def test_zero3_expert_parallel_moe_with_rows_over_model(job, experts):
+    """Each of the 4 ranks holds its own row.  With 8 experts split over
+    both axes, expert parallelism gathers the model ranks' tokens, buckets
+    them for the rank's experts and sums the outputs back into each rank's
+    rows (a sum over ``model`` of the rank's own tokens would add different
+    rows together); 6 experts, placed over ``data`` alone, take the
+    dispatch."""
+    res = job["mesh_2x2.json"][f"zero3 ep {experts}"]
+    assert res["rows"] == 4
+    assert res["shardmap_calls"] == (1 if experts == 8 else 0)
+    assert res["experts_spec"] == ("P(('data', 'model'), None, None)"
+                                   if experts == 8 else
+                                   "P('data', None, None)")
+    assert res["max_abs"] <= 2e-5 + 2e-4 * res["max_y"], res
+    assert set(res["grad_rel_err"]) == {"/router", "/wi", "/wg", "/wo", "/x"}
+    for name, err in res["grad_rel_err"].items():
+        assert err <= 1e-4, (name, err)
+
+
+@pytest.mark.parametrize("b", J.ZERO3_B)
+@pytest.mark.parametrize("arch", J.ZERO3_TRAIN)
+def test_zero3_train_steps_on_2x2_match_no_mesh(job, arch, b):
+    """Parameters, moments and rows placed by ``zero3``: at a batch of 2
+    ``model`` splits the products on views of the gathered weights, at 4
+    it carries rows and expert parallelism gathers the model ranks'
+    tokens; either way the no-mesh step's numbers."""
+    res = job["mesh_2x2.json"][f"zero3 train {arch} b{b}"]
+    assert res["params_are_dtensors"] and res["step"] == 3
+    assert res["max_abs_loss"] <= 1e-5, res
+    assert max(res["max_abs"].values()) <= 1e-5, res
+    assert res["shardmap_calls"] == (12 if "moe" in arch else 0)
+
+
+@pytest.mark.parametrize("b", J.ZERO3_B)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_zero3_prefill_decode_on_2x2_match_no_mesh(job, arch, b):
+    """The steps ``make_step_and_specs`` binds under ``zero3``, caches placed
+    by ``cache_spec``: at a batch of 2 the vocabulary splits over ``model``
+    (each rank's 256 columns), at 4 each rank computes its own row with the
+    whole vocabulary."""
+    res = job["mesh_2x2.json"][f"zero3 serve {arch} b{b}"]
+    assert res["steps"] == 4
+    assert res["tokens_equal"], res
+    assert res["max_abs_logits"] <= 1e-4, res
+    assert res["shardmap_calls"] == (2 if "moe" in arch else 0)
+    assert res["logit_cols"] == [256 if b == 2 else 512] * 4, res
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_zero3_prefill_decode_on_1x1_equal_no_mesh(job, arch):
+    res = job["mesh_1x1.json"][f"zero3 serve {arch}"]
     assert res["tokens_equal"] and res["logits_equal"], res
     assert res["shardmap_calls"] == 0
     assert res["logit_cols"] == [512] * 4, res["logit_cols"]

@@ -47,6 +47,7 @@ from .device import (DeviceIndex, predict_positions, snap_leftmost,
                      snap_side)
 from .query import QueryVerbs, check_side
 from .table import SegmentTable, numpy_lookup, numpy_search
+from .telemetry import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -243,12 +244,14 @@ def available_backends() -> list[str]:
 
 
 def make_engine(table: SegmentTable, backend: str = "cuda", *, device=None,
-                **opts) -> LookupEngine:
+                monitor=None, **opts) -> LookupEngine:
     """The one constructor every layer goes through to get a lookup path.
 
     The default is the CUDA kernel's backend.  ``device`` places a device
     backend (``None``: the CUDA card, raising if there is none); the host
-    ``numpy`` backend, which only a caller that names it gets, has none."""
+    ``numpy`` backend, which only a caller that names it gets, has none.
+    ``monitor`` (a ``repro_torch.index.telemetry.Monitor``) goes to every
+    device backend, which records its host spans there."""
     try:
         cls = _BACKENDS[backend]
     except KeyError:
@@ -256,7 +259,21 @@ def make_engine(table: SegmentTable, backend: str = "cuda", *, device=None,
                          f"available: {available_backends()}") from None
     if getattr(cls, "uses_device", False):
         opts["device"] = device
+        opts["monitor"] = monitor
     return cls(table, **opts)
+
+
+def inject_monitor(engine_opts: dict[str, dict] | None,
+                   monitor) -> dict[str, dict]:
+    """``engine_opts`` with ``monitor`` threaded into every device backend's
+    kwargs (the dispatch tiers' latency hook and the engines' spans),
+    without mutating the caller's / the plan's dict."""
+    opts = {k: dict(v) for k, v in (engine_opts or {}).items()}
+    if monitor is not None:
+        for name, cls in _BACKENDS.items():
+            if getattr(cls, "uses_device", False):
+                opts.setdefault(name, {})["monitor"] = monitor
+    return opts
 
 
 def _prewarm_queries(table: SegmentTable, size: int) -> np.ndarray:
@@ -286,10 +303,11 @@ class _DeviceEngine(QueryVerbs):
     names its point-lookup and search functions over the device form."""
     uses_device = True
 
-    def __init__(self, table: SegmentTable, *, device=None):
+    def __init__(self, table: SegmentTable, *, device=None, monitor=None):
         self.table = table
         self.device = resolve_device(device)
         self.index = device_index(table, self.device)
+        self.monitor = monitor
 
     def _lookup(self, idx: DeviceIndex, q: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -299,26 +317,32 @@ class _DeviceEngine(QueryVerbs):
         raise NotImplementedError
 
     def _queries(self, queries) -> tuple[torch.Tensor, tuple]:
-        """Host or device queries -> a flat f32 tensor on this device."""
-        if isinstance(queries, torch.Tensor):
-            q = queries.to(self.device, torch.float32)
-        else:
-            q = torch.from_numpy(np.array(queries, np.float32)).to(self.device)
+        """Host or device queries -> a flat f32 tensor on this device (the
+        host staging under ``engine.stage``; the copy itself is not)."""
+        with span(self.monitor, "engine.stage"):
+            if isinstance(queries, torch.Tensor):
+                q = queries
+            else:
+                q = torch.from_numpy(np.array(queries, np.float32))
+        q = q.to(self.device, torch.float32)
         return q.reshape(-1), tuple(q.shape)
 
     def lookup(self, queries) -> np.ndarray:
         if self.table.n_keys == 0:   # empty table: every probe misses
             return np.full(np.shape(queries), -1, np.int64)
         q, shape = self._queries(queries)
-        return self._lookup(self.index, q).reshape(shape).cpu().numpy()
+        out = self._lookup(self.index, q).cpu()
+        with span(self.monitor, "engine.cast"):
+            return out.numpy().reshape(shape)
 
     def search(self, queries, side: str = "left") -> np.ndarray:
         check_side(side)
         if self.table.n_keys == 0:   # empty table: every rank is 0
             return np.zeros(np.shape(queries), np.int64)
         q, shape = self._queries(queries)
-        out = self._search(self.index, q, side).reshape(shape)
-        return out.cpu().numpy().astype(np.int64)
+        out = self._search(self.index, q, side).cpu()
+        with span(self.monitor, "engine.cast"):
+            return out.numpy().astype(np.int64).reshape(shape)
 
     def prewarm(self, batch_sizes=None) -> None:
         """Run the lookup and both search sides once at each batch size, so
@@ -428,7 +452,8 @@ class DispatchEngine(QueryVerbs):
             with self._lock:           # don't build the same tier twice
                 eng = self._engines.get(name)
                 if eng is None:
-                    eng = make_engine(self.table, name, device=self.device)
+                    eng = make_engine(self.table, name, device=self.device,
+                                      monitor=self.monitor)
                     self._engines[name] = eng
         return eng
 
@@ -476,8 +501,9 @@ class DispatchEngine(QueryVerbs):
 
 __all__ = [
     "DeviceIndex", "DispatchEngine", "LookupEngine", "LookupPlan",
-    "available_backends", "device_index", "kernel_lookup", "kernel_search",
-    "make_engine", "make_plan", "predict_positions", "register_backend",
+    "available_backends", "device_index", "inject_monitor", "kernel_lookup",
+    "kernel_search", "make_engine", "make_plan", "predict_positions",
+    "register_backend",
     "resolve_device", "snap_leftmost", "snap_side", "torch_lookup",
     "torch_search",
 ]

@@ -67,12 +67,12 @@ import numpy as np
 
 from repro_torch.analysis import sanitizer
 
+from .engine import inject_monitor
 from .query import (PointResult, RangeResult, check_range, check_side,
                     merge_sorted_sources)
 from .snapshot import ServingHandle, Snapshot
-from .telemetry import (CH_COMPACT, CH_MEMTABLE, CH_QUERY_MIX, CH_READ_AMP,
-                        CH_RUN_COUNT, CH_SPILL, LsmMetrics, Monitor,
-                        ServiceMetrics, tier_metrics)
+from .telemetry import (CH_COMPACT, CH_READ_AMP, CH_SPILL, LsmMetrics,
+                        Monitor, ServiceMetrics, span, tier_metrics)
 
 if TYPE_CHECKING:  # runtime import is lazy (fit builds services via plans)
     from .fit import IndexPlan
@@ -86,16 +86,6 @@ _AMP_SAMPLE_EVERY = 8
 
 _EMPTY_KEYS = np.empty(0, dtype=np.float64)
 _ZERO_CUM = np.zeros(1, dtype=np.int64)
-
-
-def _inject_monitor(engine_opts: dict[str, dict] | None,
-                    monitor: Monitor | None) -> dict[str, dict]:
-    """Thread the service's monitor into the dispatch-engine kwargs (the
-    per-tier latency hook) without mutating the caller's / the plan's dict."""
-    opts = {k: dict(v) for k, v in (engine_opts or {}).items()}
-    if monitor is not None:
-        opts.setdefault("dispatch", {})["monitor"] = monitor
-    return opts
 
 
 def _sorted_unique(values) -> np.ndarray:
@@ -585,7 +575,7 @@ class LsmIndexService:
         self.default_backend = plan.backend
         self.monitor = monitor
         self._mode = mode
-        self._engine_opts = _inject_monitor(plan.merge_engine_opts(
+        self._engine_opts = inject_monitor(plan.merge_engine_opts(
             engine_opts), monitor)
         self._write_lock = sanitizer.make_rlock("LsmIndexService._write_lock")
         self._counts_lock = sanitizer.make_lock(
@@ -652,14 +642,18 @@ class LsmIndexService:
         epoch = self._run_seq
         # an empty-key run (a spill of pure deletes) still publishes: its
         # tombstones keep shadowing older runs without live keys of its own
-        snapshot = Snapshot.from_arrays(run_keys, self.error,
-                                        payload=run_payload, epoch=epoch,
-                                        mode=self._mode, assume_sorted=True)
+        with span(self.monitor, "lsm.fit", level):
+            snapshot = Snapshot.from_arrays(run_keys, self.error,
+                                            payload=run_payload, epoch=epoch,
+                                            mode=self._mode,
+                                            assume_sorted=True)
         handle = ServingHandle(self._engine_opts)
-        handle.install(snapshot)
-        # build the default engine here, on the write/compaction path, so the
-        # first reader against a fresh run never pays engine construction
-        handle.engine(self.default_backend)
+        with span(self.monitor, "lsm.upload", level):
+            handle.install(snapshot)
+            # build the default engine here, on the write/compaction path, so
+            # the first reader against a fresh run never pays engine
+            # construction (and the table's upload to the device)
+            handle.engine(self.default_backend)
         return Run(snapshot=snapshot, handle=handle, tombstones=tombstones,
                    level=level, run_id=epoch, shadow_keys=_EMPTY_KEYS,
                    shadow_cum=_ZERO_CUM)
@@ -763,7 +757,6 @@ class LsmIndexService:
         if monitor is not None:
             monitor.record(CH_SPILL, float(view.n_keys),
                            float(time.perf_counter_ns() - t0))
-            monitor.record(CH_RUN_COUNT, float(len(runs)))
         return successor
 
     # -- compaction --------------------------------------------------------
@@ -790,27 +783,28 @@ class LsmIndexService:
         (guarded by being the only compaction in flight).
         """
         t0 = time.perf_counter_ns()
-        kill = _EMPTY_KEYS
-        parts_k: list[np.ndarray] = []
-        parts_p: list[np.ndarray] = []
-        tombs: set[float] = set()
-        for run in group:
-            run_keys = run.snapshot.table.keys
-            if kill.size and run_keys.size:
-                live = ~np.isin(run_keys, kill)
-                parts_k.append(run_keys[live])
-                if self.has_payload:
-                    parts_p.append(run.snapshot.payload[live])
-            else:
-                parts_k.append(run_keys)
-                if self.has_payload:
-                    parts_p.append(run.snapshot.payload)
-            tombs.update(run.tombstones.tolist())
-            kill = _sorted_unique(tombs)
-        # stable merge keeps newest-first order among equal keys, preserving
-        # the fan-in's duplicate payload ordering after the merge
-        merged_keys, merged_payload = merge_sorted_sources(
-            parts_k, parts_p if self.has_payload else None)
+        with span(self.monitor, "lsm.merge"):
+            kill = _EMPTY_KEYS
+            parts_k: list[np.ndarray] = []
+            parts_p: list[np.ndarray] = []
+            tombs: set[float] = set()
+            for run in group:
+                run_keys = run.snapshot.table.keys
+                if kill.size and run_keys.size:
+                    live = ~np.isin(run_keys, kill)
+                    parts_k.append(run_keys[live])
+                    if self.has_payload:
+                        parts_p.append(run.snapshot.payload[live])
+                else:
+                    parts_k.append(run_keys)
+                    if self.has_payload:
+                        parts_p.append(run.snapshot.payload)
+                tombs.update(run.tombstones.tolist())
+                kill = _sorted_unique(tombs)
+            # stable merge keeps newest-first order among equal keys,
+            # preserving the fan-in's duplicate payload ordering after it
+            merged_keys, merged_payload = merge_sorted_sources(
+                parts_k, parts_p if self.has_payload else None)
         run = self._make_run(
             merged_keys, merged_payload, level=group[0].level + 1,
             tombstones=_EMPTY_KEYS if drop_tombstones else _sorted_unique(
@@ -844,9 +838,6 @@ class LsmIndexService:
             self._level_set = LevelSet(version=level_set.version + 1,
                                        memtable=level_set.memtable,
                                        runs=_with_shadows(runs))
-            monitor = self.monitor
-            if monitor is not None:
-                monitor.record(CH_RUN_COUNT, float(len(runs)))
 
     # -- maintenance (pipeline duck-type) ----------------------------------
     def publish(self) -> dict:
@@ -862,9 +853,6 @@ class LsmIndexService:
         merged = self.compact()
         if merged:
             out["compacted"] = merged
-        monitor = self.monitor
-        if monitor is not None:
-            self._record_occupancy()
         return out
 
     def _maybe_spill(self) -> int:
@@ -876,15 +864,6 @@ class LsmIndexService:
             spilled = memtable.size
             self._spill_locked(level_set)
             return spilled
-
-    def _record_occupancy(self) -> None:
-        level_set = self._level_set
-        memtable = level_set.memtable
-        monitor = self.monitor
-        if monitor is not None:
-            monitor.record(CH_MEMTABLE, float(memtable.size),
-                           float(memtable.tombstone_count),
-                           float(memtable.capacity))
 
     # -- read path ---------------------------------------------------------
     def _pin_view(self, backend: str | None = None) -> _LsmView:
@@ -920,30 +899,26 @@ class LsmIndexService:
         shadowed occurrences subtracted (same merge the cross-shard stitcher
         performs over contiguous shards, generalized to overlapping
         sources)."""
-        flat = np.asarray(queries, dtype=np.float64).ravel()
-        ranks = np.searchsorted(view.mem.keys, flat,
-                                side=side).astype(np.int64)
-        for run, engine, (extra_keys, extra_cum) in zip(
-                view.level_set.runs, view.engines, view.extras):
-            local = np.asarray(engine.search(flat, side),
-                               dtype=np.int64).ravel()
-            if run.shadow_keys.size:
-                local = local - run.shadow_cum[
-                    np.searchsorted(run.shadow_keys, flat, side=side)]
-            if extra_keys.size:
-                local = local - extra_cum[
-                    np.searchsorted(extra_keys, flat, side=side)]
-            ranks += local
+        with span(self.monitor, "lsm.read"):
+            flat = np.asarray(queries, dtype=np.float64).ravel()
+            ranks = np.searchsorted(view.mem.keys, flat,
+                                    side=side).astype(np.int64)
+            for run, engine, (extra_keys, extra_cum) in zip(
+                    view.level_set.runs, view.engines, view.extras):
+                local = np.asarray(engine.search(flat, side),
+                                   dtype=np.int64).ravel()
+                if run.shadow_keys.size:
+                    local = local - run.shadow_cum[
+                        np.searchsorted(run.shadow_keys, flat, side=side)]
+                if extra_keys.size:
+                    local = local - extra_cum[
+                        np.searchsorted(extra_keys, flat, side=side)]
+                ranks += local
         return ranks
 
     def _count(self, verb: str, n: int = 1) -> None:
         with self._counts_lock:
             self._query_counts[verb] += n
-
-    def _record_mix(self, verb_idx: int) -> None:
-        monitor = self.monitor
-        if monitor is not None:
-            monitor.record(CH_QUERY_MIX, float(verb_idx))
 
     # -- verbs -------------------------------------------------------------
     def search(self, queries, side: str = "left",
@@ -955,7 +930,6 @@ class LsmIndexService:
             arr = np.asarray(queries, dtype=np.float64)
             ranks = self._search_view(view, arr, side)
         self._count("searches", max(int(arr.size), 1))
-        self._record_mix(5)
         return ranks.reshape(arr.shape) if arr.shape != ranks.shape else ranks
 
     def lookup(self, queries, backend: str | None = None) -> np.ndarray:
@@ -971,7 +945,6 @@ class LsmIndexService:
             lo = int(self._search_view(view, q, "left")[0])
             hi = int(self._search_view(view, q, "right")[0])
         self._count("points")
-        self._record_mix(0)
         return PointResult(rank=lo if hi > lo else -1, found=hi > lo)
 
     def count(self, lo: float, hi: float,
@@ -983,7 +956,6 @@ class LsmIndexService:
             lo_rank = int(self._search_view(view, bounds[:1], "left")[0])
             hi_rank = int(self._search_view(view, bounds[1:], "right")[0])
         self._count("counts")
-        self._record_mix(2)
         return max(hi_rank - lo_rank, 0)
 
     def range(self, lo: float, hi: float,
@@ -1000,7 +972,6 @@ class LsmIndexService:
                                                 "right")[0]), lo_rank)
             keys_out, payload_out = self._materialize_range(view, lo, hi)
         self._count("ranges")
-        self._record_mix(1)
         return RangeResult(lo=lo, hi=hi, lo_rank=lo_rank, hi_rank=hi_rank,
                            keys=keys_out, payload=payload_out)
 
@@ -1043,7 +1014,6 @@ class LsmIndexService:
             q = np.asarray([query], dtype=np.float64)
             rank = int(self._search_view(view, q, "right")[0]) - 1
         self._count("predecessors")
-        self._record_mix(3)
         return PointResult(rank=rank, found=rank >= 0)
 
     def successor(self, query: float,
@@ -1055,7 +1025,6 @@ class LsmIndexService:
             rank = int(self._search_view(view, q, "left")[0])
             total = view.total
         self._count("successors")
-        self._record_mix(4)
         return PointResult(rank=rank, found=rank < total)
 
     # -- observability -----------------------------------------------------
@@ -1141,7 +1110,7 @@ class LsmIndexService:
             if plan.level_fanout:
                 self.level_fanout = int(plan.level_fanout)
                 self.compactor.fanout = max(2, int(plan.level_fanout))
-            self._engine_opts = _inject_monitor(
+            self._engine_opts = inject_monitor(
                 plan.merge_engine_opts(None), self.monitor)
         if prewarm:
             self.prewarm()

@@ -69,11 +69,11 @@ from repro_torch.analysis.contracts import hot_path
 from repro_torch.index.table import (SegmentTable, route_keys,
                                      shard_boundaries, shard_partition)
 
+from .engine import inject_monitor
 from .query import PointResult, RangeResult, check_range, check_side
 from .snapshot import ServingHandle, Snapshot, SnapshotPublisher
-from .telemetry import (CH_PUBLISH, CH_QUERY_MIX, CH_REBALANCE,
-                        CH_SERVED_KEYS, CH_SHARD_LOAD, CH_SKEW, Monitor,
-                        ServiceMetrics, ShardMetrics, tier_metrics)
+from .telemetry import (CH_PUBLISH, CH_REBALANCE, CH_SERVED_KEYS, Monitor,
+                        ServiceMetrics, ShardMetrics, span, tier_metrics)
 
 if TYPE_CHECKING:  # runtime import is lazy (fit builds services via plans)
     from .fit import IndexPlan
@@ -82,17 +82,6 @@ if TYPE_CHECKING:  # runtime import is lazy (fit builds services via plans)
 # reservoir (CH_SERVED_KEYS); keeps the hot-path telemetry cost amortized
 _KEY_SAMPLE_EVERY = 8
 _KEY_SAMPLE_WIDTH = 64
-
-
-def _inject_monitor(engine_opts: dict[str, dict],
-                    monitor: Monitor | None) -> dict[str, dict]:
-    """Thread the service's monitor into the dispatch-engine kwargs (the
-    per-tier latency hook) without mutating the caller's / the plan's dict."""
-    if monitor is None:
-        return engine_opts
-    opts = {k: dict(v) for k, v in (engine_opts or {}).items()}
-    opts.setdefault("dispatch", {})["monitor"] = monitor
-    return opts
 
 
 class PackedShardTables(NamedTuple):
@@ -270,8 +259,8 @@ class ShardedIndexService:
         buffer_size, backend = plan.buffer_size, plan.backend
         publish_every = plan.publish_every
         self.monitor = monitor
-        engine_opts = _inject_monitor(plan.merge_engine_opts(engine_opts),
-                                      monitor)
+        engine_opts = inject_monitor(plan.merge_engine_opts(engine_opts),
+                                     monitor)
 
         if publish_every is not None and buffer_size == 0:
             raise ValueError("publish_every requires buffer_size > 0 "
@@ -528,26 +517,9 @@ class ShardedIndexService:
                 except ValueError:   # < n_shards distinct keys: no safe recut
                     self._rebalance_skipped += 1
             if published and self.monitor is not None:
-                self._record_publish(len(published),
-                                     time.perf_counter_ns() - t0)
+                self.monitor.record(CH_PUBLISH, len(published),
+                                    time.perf_counter_ns() - t0)
             return published
-
-    def _record_publish(self, n_published: int, wall_ns: int) -> None:
-        """Publish-cadence telemetry: duration, skew, per-shard load, and the
-        cumulative query-shape mix (the Replanner's range-fraction input)."""
-        mon = self.monitor
-        mon.record(CH_PUBLISH, n_published, wall_ns)
-        mon.record(CH_SKEW, self.imbalance())
-        for d, load in enumerate(self.shard_loads()):
-            mon.record(CH_SHARD_LOAD, d, float(load))
-        # copy under the lock, record after releasing it: Monitor.record
-        # takes Monitor._make_lock, which ranks *above* _counts_lock in
-        # contracts.LOCK_ORDER -- recording while holding the counter lock
-        # is exactly the inversion the runtime watchdog exists to catch
-        with self._counts_lock:
-            c = dict(self._query_counts)
-        mon.record(CH_QUERY_MIX, c["points"], c["ranges"], c["counts"],
-                   c["predecessors"], c["successors"], c["searches"])
 
     # ------------------------------------------------------------- rebalance
     def shard_loads(self) -> np.ndarray:
@@ -684,8 +656,8 @@ class ShardedIndexService:
             if disp is not None:
                 for k in ("small_max", "large_min", "monitor"):
                     disp.pop(k, None)
-            engine_opts = _inject_monitor(new_plan.merge_engine_opts(base),
-                                          self.monitor)
+            engine_opts = inject_monitor(new_plan.merge_engine_opts(base),
+                                         self.monitor)
             structural = (int(new_plan.error) != self.error
                           or int(new_plan.buffer_size) != self.buffer_size
                           or (reshard
@@ -816,13 +788,26 @@ class ShardedIndexService:
         Exact because shard cuts are duplicate-safe: no run straddles a
         shard, so local searchsorted + offset == global searchsorted."""
         ss, _, engines, offsets, _ = view
-        q = np.asarray(queries, np.float64)
-        sid = route_keys(ss.boundaries, q)
-        out = np.empty(q.shape, np.int64)
-        for d in np.unique(sid):
-            mask = sid == d
-            out[mask] = np.asarray(engines[d].search(q[mask], side),
-                                   np.int64) + offsets[d]
+        mon = self.monitor
+        with span(mon, "service.route"):
+            q = np.asarray(queries, np.float64)
+            sid = route_keys(ss.boundaries, q)
+            shards = np.unique(sid)
+            out = np.empty(q.shape, np.int64)
+        for d in shards:
+            with span(mon, "service.scatter"):
+                mask = sid == d
+                qd = q[mask]
+            local = engines[d].search(qd, side)
+            # free each batch-sized temporary as soon as it is spent: held to
+            # the return, they leave the allocator a free top to give back,
+            # and every call then faults its pages in again
+            del qd
+            with span(mon, "service.scatter"):
+                lifted = np.asarray(local, np.int64) + offsets[d]
+                del local
+                out[mask] = lifted
+                del lifted
         return out
 
     def search(self, queries, side: str = "left",

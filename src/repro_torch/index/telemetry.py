@@ -19,8 +19,27 @@ planner (``repro_torch.index.fit``) leaves open:
       AsyncIndexService     pipeline.queue_depth / pipeline.flush (cause,
                             fused batch size) / pipeline.sojourn (ns)
       ShardedIndexService   service.publish / service.rebalance (wall ns),
-                            service.shard_load, service.skew,
-                            service.query_mix, served.keys (query samples)
+                            served.keys (query samples)
+      LsmIndexService       lsm.spill / lsm.compaction (wall ns),
+                            lsm.read_amp (sampled fan-in)
+
+  :meth:`Monitor.span` times one host section onto ``span.<name>`` as
+  ``(start_unix_ns, dur_ns, *tags)``.  The start is on the unix clock, the
+  clock ``torch.profiler`` stamps its host events with, and while a profiler
+  runs the span also opens a ``record_function`` range of the same name, so
+  a trace shows it over the device work it launched.  The spans:
+
+      service.route         ShardedIndexService._search_view: queries to
+                            f64, route_keys, np.unique
+      service.scatter       the same: a shard's mask and gather, and the
+                            lifted scatter back (the engine call outside)
+      engine.stage          _DeviceEngine: queries to an f32 host tensor
+      engine.cast           _DeviceEngine: the answers copied back to numpy
+                            ranks
+      lsm.read              LsmIndexService._search_view: the whole fan-in
+      lsm.merge             compaction's tombstone kill and sorted merge
+      lsm.fit (level)       a run's fit (Snapshot.from_arrays)
+      lsm.upload (level)    a run's install and engine build (the upload)
 
   Backends are pluggable: :class:`MemoryBackend` (default, rings only) and
   :class:`JSONLBackend` (same rings; ``flush()`` appends rows recorded since
@@ -55,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import sys
 import time
 
 import numpy as np
@@ -71,23 +91,19 @@ CH_TIER_PREFIX = "tier."            # + small|medium|large: (batch, wall_ns)
 CH_SERVED_KEYS = "served.keys"      # vector rows: sampled query keys
 CH_PUBLISH = "service.publish"      # (shards_published, wall_ns)
 CH_REBALANCE = "service.rebalance"  # (moved_keys, wall_ns)
-CH_SHARD_LOAD = "service.shard_load"  # (shard, load)
-CH_SKEW = "service.skew"            # (imbalance,)
-CH_QUERY_MIX = "service.query_mix"  # (points, ranges, counts, preds, succs,
-                                    #  searches) cumulative at publish time
 CH_QUEUE_DEPTH = "pipeline.queue_depth"  # (queued_queries,)
 CH_FLUSH = "pipeline.flush"         # (cause, fused_batch)
 CH_SOJOURN = "pipeline.sojourn"     # (ns,) per-request enqueue->resolve
 CH_REPLAN = "replan"                # (applied, win, small_max, large_min,
                                     #  n_shards)
-CH_MEMTABLE = "lsm.memtable"        # (keys, tombstones, capacity) occupancy
 CH_SPILL = "lsm.spill"              # (spilled_keys, wall_ns)
 CH_COMPACT = "lsm.compaction"       # (runs_merged, merged_keys, wall_ns)
 CH_READ_AMP = "lsm.read_amp"        # (fan_in_sources,) sampled per verb
-CH_RUN_COUNT = "lsm.runs"           # (n_runs,) after each manifest swap
 CH_DEVICE_PUBLISH = "device.publish"  # (dirty_shards, bytes, wall_ns, full)
 CH_DEVICE_COLLECTIVE = "device.collective"  # (strategy, batch, wall_ns)
 CH_DEVICE_OVERFLOW = "device.overflow"  # (overflow_queries,) a2a slack misses
+CH_SPAN_PREFIX = "span."            # + span name: (start_unix_ns, dur_ns,
+                                    #  *tags)
 
 # device.collective strategy codes
 XCHG_ALLGATHER, XCHG_A2A = 0, 1
@@ -262,6 +278,11 @@ class Monitor:
             ring = self._make(name, "vector")
         ring.append(np.array(values, np.float64).ravel())
 
+    def span(self, name: str, *tags):
+        """A context that times its body onto ``span.<name>`` (see
+        :class:`_Span`); the shared null context while disabled."""
+        return _Span(self, name, tags) if self.enabled else _NULL_SPAN
+
     def _make(self, name: str, kind: str) -> _Ring:
         with self._make_lock:
             ring = self._channels.get(name)
@@ -313,6 +334,64 @@ class Monitor:
                 self._channels = {}
             else:
                 self._channels.pop(name, None)
+
+
+class _NullSpan:
+    """The span of a missing or disabled monitor: records nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """One timed host section: on exit it appends ``(start_unix_ns, dur_ns,
+    *tags)`` to ``span.<name>``.  The start is ``time.time_ns()``, the clock
+    ``torch.profiler`` stamps host events with; the duration is
+    ``perf_counter_ns``.  Only while a profiler runs does the span also open
+    ``record_function(name)`` (which costs microseconds even with none), and
+    torch is looked up, never imported: this module loads without it."""
+    __slots__ = ("monitor", "name", "tags", "start", "t0", "range")
+
+    def __init__(self, monitor: Monitor, name: str, tags: tuple):
+        self.monitor = monitor
+        self.name = name
+        self.tags = tags
+        self.range = None
+
+    @hot_path
+    def __enter__(self):
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is not None and prof._is_profiler_enabled:
+            self.range = prof.record_function(self.name)
+            self.range.__enter__()
+        self.start = time.time_ns()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    @hot_path
+    def __exit__(self, *exc) -> bool:
+        dur = time.perf_counter_ns() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        self.monitor.record(CH_SPAN_PREFIX + self.name, self.start, dur,
+                            *self.tags)
+        return False
+
+
+@hot_path
+def span(monitor: Monitor | None, name: str, *tags):
+    """``monitor.span(name, *tags)``, or the shared null context where the
+    monitor is None or disabled: a span site then costs a None check."""
+    if monitor is None:
+        return _NULL_SPAN
+    return monitor.span(name, *tags)
 
 
 # ==================================================================== metrics

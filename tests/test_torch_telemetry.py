@@ -10,9 +10,11 @@ profile's numbers, as test input), to tolerance 0.
 import dataclasses
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.cost_model import TPUCostParams
 from repro.index import fit as ref_fit
@@ -20,11 +22,13 @@ from repro.index import telemetry as ref_tel
 from repro.index.sharded import ShardedIndexService as RefSharded
 from repro_torch.core.cost_model import GPUCostParams
 from repro_torch.index import fit, telemetry as tel
+from repro_torch.index.lsm import LsmIndexService
 from repro_torch.index.sharded import ShardedIndexService
 from repro_torch.serve import IndexService
 
 CPU = {"device": "cpu"}
 ON_CPU = {"cuda": CPU, "torch-bisect": CPU, "dispatch": CPU}
+ALL_ON_CPU = {**ON_CPU, "torch-window": CPU}
 
 
 def _gpu(tpu):
@@ -225,3 +229,185 @@ def test_dispatch_records_tier_samples_and_metrics_round_trip():
     ref_m = ref.metrics()
     assert dataclasses.asdict(tel.ServiceMetrics.from_json(
         ref_m.to_json())) == dataclasses.asdict(ref_m)
+
+
+# ------------------------------------------------------------------ spans
+def _cpu_profiler():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _count_record_functions(monkeypatch) -> list:
+    """Patch the profiler's ``record_function`` to note each range a span
+    opens (the span looks it up on the module at every entry)."""
+    opened = []
+    real = torch.autograd.profiler.record_function
+
+    def counting(name, *args):
+        opened.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", counting)
+    return opened
+
+
+@pytest.mark.parametrize("state", ["none", "disabled"])
+def test_a_span_without_an_enabled_monitor_records_and_opens_nothing(
+        monkeypatch, state):
+    mon = None if state == "none" else tel.Monitor()
+    if mon is not None:
+        mon.enabled = False
+    opened = _count_record_functions(monkeypatch)
+    with _cpu_profiler():
+        ctx = tel.span(mon, "engine.stage", 3)
+        with ctx:
+            pass
+        if mon is not None:
+            assert mon.span("engine.stage") is ctx
+            assert mon.channels() == []
+    # one shared null context, whatever the name or tags
+    assert ctx is tel.span(None, "lsm.fit", 1) is tel._NULL_SPAN
+    assert opened == []
+
+
+def test_an_enabled_span_records_start_duration_and_tags():
+    mon = tel.Monitor()
+    before = time.time_ns()
+    with tel.span(mon, "lsm.fit", 2):
+        time.sleep(0.002)
+    with mon.span("lsm.fit", 3):
+        pass
+    after = time.time_ns()
+    assert mon.channels() == [tel.CH_SPAN_PREFIX + "lsm.fit"]
+    rows = mon.channel("span.lsm.fit")
+    assert rows.shape == (2, 3)
+    assert np.all((rows[:, 0] >= before - 1e3) & (rows[:, 0] <= after + 1e3))
+    assert rows[0, 0] <= rows[1, 0]
+    assert rows[0, 1] >= 2e6 and rows[1, 1] < rows[0, 1]
+    np.testing.assert_array_equal(rows[:, 2], [2, 3])
+    with pytest.raises(KeyError):          # an error inside still records
+        with mon.span("lsm.fit", 4):
+            raise KeyError("x")
+    assert mon.count("span.lsm.fit") == 3
+
+
+def test_record_function_opens_only_under_a_profiler_and_nests(monkeypatch):
+    mon = tel.Monitor()
+    opened = _count_record_functions(monkeypatch)
+    with mon.span("lsm.read"):
+        with mon.span("engine.stage"):
+            pass
+    assert opened == []
+    with _cpu_profiler() as prof:
+        with mon.span("lsm.read"):
+            with mon.span("engine.stage"):
+                torch.ones(4).add_(1)
+    assert opened == ["lsm.read", "engine.stage"]
+    events = {e.name: e for e in prof.events()}
+    outer, inner = events["lsm.read"], events["engine.stage"]
+    assert inner.cpu_parent is not None and inner.cpu_parent.name == \
+        "lsm.read"
+    assert outer.time_range.start <= inner.time_range.start
+    assert inner.time_range.end <= outer.time_range.end
+    assert mon.count("span.lsm.read") == mon.count("span.engine.stage") == 2
+
+
+def test_span_rows_sit_on_the_profiler_clock():
+    """A row's start is on the unix clock the profiler stamps its host
+    events with: each lies within 1 ms of its event's start."""
+    mon = tel.Monitor()
+    names = ["service.route", "service.scatter", "engine.stage",
+             "engine.cast"]
+    with _cpu_profiler() as prof:
+        for name in names * 3:
+            with mon.span(name):
+                torch.ones(64).sum()
+            time.sleep(0.002)
+    t0_ns = prof.profiler.kineto_results.trace_start_ns()
+    for name in names:
+        starts = sorted(t0_ns + e.time_range.start * 1e3
+                        for e in prof.events() if e.name == name)
+        rows = mon.channel(tel.CH_SPAN_PREFIX + name)
+        assert len(starts) == rows.shape[0] == 3
+        np.testing.assert_allclose(rows[:, 0], starts, rtol=0, atol=1e6)
+
+
+SERVICE_SPANS = {"service.route", "service.scatter", "engine.stage",
+                 "engine.cast"}
+LSM_SPANS = {"lsm.read", "lsm.merge", "lsm.fit", "lsm.upload",
+             "engine.stage", "engine.cast"}
+
+
+def _spans(mon) -> set:
+    return {c[len(tel.CH_SPAN_PREFIX):] for c in mon.channels()
+            if c.startswith(tel.CH_SPAN_PREFIX)}
+
+
+@pytest.mark.parametrize("backend", ["dispatch", "cuda"])
+def test_one_shard_search_records_every_span_and_answers_alike(backend):
+    keys = np.sort(np.random.default_rng(0).integers(
+        0, 2 ** 20, 40_000)).astype(np.float64)
+    q = np.concatenate([keys[::7], np.random.default_rng(1).integers(
+        -10, 2 ** 20 + 10, 5000).astype(np.float64)])
+    answers = []
+    for mon in (tel.Monitor(), None):
+        svc = IndexService(keys, error=64, backend=backend, monitor=mon,
+                           engine_opts=ALL_ON_CPU, assume_sorted=True)
+        got = [svc.search(q, "left"), svc.search(q, "right"), svc.lookup(q)]
+        answers.append(got)
+        if mon is not None:
+            assert _spans(mon) == SERVICE_SPANS
+            assert mon.count("span.service.route") == 2
+            assert mon.count("span.service.scatter") == 4   # one shard
+            # every engine call stages once and casts once
+            assert mon.count("span.engine.stage") == \
+                mon.count("span.engine.cast") == 3
+            assert not {"service.query_mix", "service.shard_load",
+                        "service.skew"} & set(mon.channels())
+    for ours, plain in zip(*answers):
+        assert ours.dtype == plain.dtype
+        np.testing.assert_array_equal(ours, plain)
+
+
+def test_lsm_read_through_spill_and_compaction_records_every_span():
+    rng = np.random.default_rng(5)
+    base = np.sort(rng.integers(0, 2 ** 20, 20_000)).astype(np.float64)
+    batches = [rng.integers(0, 2 ** 20, 256).astype(np.float64)
+               for _ in range(10)]
+    q = np.concatenate([base[::5], batches[-1], rng.integers(
+        0, 2 ** 20, 3000).astype(np.float64)])
+    answers = []
+    for mon in (tel.Monitor(), None):
+        svc = LsmIndexService(base, error=32, backend="cuda",
+                              memtable_capacity=256, level_fanout=2,
+                              monitor=mon, engine_opts=ALL_ON_CPU,
+                              assume_sorted=True)
+        for keys in batches:
+            svc.insert_many(keys)
+            svc.publish()
+        answers.append([svc.search(q, "left"), svc.search(q, "right"),
+                        svc.lookup(q)])
+        if mon is None:
+            continue
+        assert _spans(mon) == LSM_SPANS
+        compactions = mon.channel(tel.CH_COMPACT)
+        assert compactions.shape[1] == 3 and compactions.shape[0] >= 1
+        assert mon.channel(tel.CH_SPILL).shape[1] == 2
+        fits = mon.channel("span.lsm.fit")
+        levels = fits[:, 2]
+        assert 0 in levels and np.any(levels >= 1)
+        # the bulk run, every spill and every merge: one fit, one upload
+        assert fits.shape[0] == mon.count("span.lsm.upload") == \
+            1 + mon.count(tel.CH_SPILL) + compactions.shape[0]
+        assert mon.count("span.lsm.merge") == compactions.shape[0]
+        # past the bulk run's fit (the first row), a fit at level 1 or
+        # deeper is a compaction's, and lies inside its wall
+        merged = fits[1:][levels[1:] >= 1]
+        assert merged.shape[0] == compactions.shape[0]
+        assert np.all(merged[:, 1] <= compactions[:, 2])
+        assert mon.count("span.lsm.read") == 3
+        assert not {"service.query_mix", "lsm.memtable", "lsm.runs"} & \
+            set(mon.channels())
+    for ours, plain in zip(*answers):
+        assert ours.dtype == plain.dtype
+        np.testing.assert_array_equal(ours, plain)

@@ -786,14 +786,24 @@ class ShardedIndexService:
         """Global insertion ranks against a pinned view: route each query,
         bounded-search its shard, lift by the preceding snapshot key counts.
         Exact because shard cuts are duplicate-safe: no run straddles a
-        shard, so local searchsorted + offset == global searchsorted."""
+        shard, so local searchsorted + offset == global searchsorted.
+
+        A view of one shard routes every query to shard 0 at offset 0, so
+        its engine answers the f64 queries as they are: no route, no gather,
+        no lift and no scatter.  ``service.route`` is tagged with the view's
+        shard count; at one shard it times the f64 conversion and the check,
+        and no ``service.scatter`` is recorded."""
         ss, _, engines, offsets, _ = view
         mon = self.monitor
-        with span(mon, "service.route"):
+        n_shards = len(engines)
+        with span(mon, "service.route", n_shards):
             q = np.asarray(queries, np.float64)
-            sid = route_keys(ss.boundaries, q)
-            shards = np.unique(sid)
-            out = np.empty(q.shape, np.int64)
+            if n_shards > 1:
+                sid = route_keys(ss.boundaries, q)
+                shards = np.unique(sid)
+                out = np.empty(q.shape, np.int64)
+        if n_shards == 1:
+            return np.asarray(engines[0].search(q, side), np.int64)
         for d in shards:
             with span(mon, "service.scatter"):
                 mask = sid == d
@@ -838,6 +848,10 @@ class ShardedIndexService:
             ss = view[0]
             q = np.asarray(queries, np.float64)
             self._count("points", int(q.size))
+            if len(engines) == 1:                   # shard 0, offset 0
+                res = engines[0].point(q)
+                return PointResult(rank=np.where(res.found, res.rank, -1),
+                                   found=res.found)
             sid = route_keys(ss.boundaries, q)
             rank = np.full(q.shape, -1, np.int64)
             found = np.zeros(q.shape, bool)

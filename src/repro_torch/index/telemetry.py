@@ -29,10 +29,13 @@ planner (``repro_torch.index.fit``) leaves open:
   runs the span also opens a ``record_function`` range of the same name, so
   a trace shows it over the device work it launched.  The spans:
 
-      service.route         ShardedIndexService._search_view: queries to
-                            f64, route_keys, np.unique
-      service.scatter       the same: a shard's mask and gather, and the
-                            lifted scatter back (the engine call outside)
+      service.route (n_shards)
+                            ShardedIndexService._search_view: queries to
+                            f64, route_keys, np.unique; at one shard only
+                            the f64 conversion and the shard-count check
+      service.scatter       the same, past one shard: a shard's mask and
+                            gather, and the lifted scatter back (the
+                            engine call outside)
       engine.stage          _DeviceEngine: queries to an f32 host tensor
       engine.cast           _DeviceEngine: the answers copied back to numpy
                             ranks

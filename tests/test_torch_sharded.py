@@ -20,7 +20,7 @@ from repro.index import ShardedIndexService as RefSharded
 from repro.index import pack_shard_tables as ref_pack
 from repro.serve import IndexService as RefService
 from repro_torch.analysis import sanitizer
-from repro_torch.index import IndexPlan, pack_shard_tables
+from repro_torch.index import IndexPlan, pack_shard_tables, sharded
 from repro_torch.serve import IndexService, ShardedIndexService
 
 CPU = {"device": "cpu"}
@@ -249,6 +249,65 @@ def test_index_service_equals_the_reference():
                                                  buffer_size=16),
                                    assume_sorted=True)
     assert one.plan.n_shards == ref_one.plan.n_shards == 1
+
+
+@pytest.mark.parametrize("backend", ["dispatch", "cuda"])
+def test_one_shard_service_answers_unrouted_like_the_reference(backend,
+                                                               monkeypatch):
+    """A one-shard ``IndexService`` answers every verb without routing:
+    batches either side of dispatch's tier crossing (numpy at 3 queries, the
+    device tiers above), f64 queries below the first key, above the last and
+    repeated, a 2-D batch and int64 queries each equal the reference's
+    service and ``np.searchsorted`` bit for bit, and ``metrics()`` too."""
+    routed = []
+    monkeypatch.setattr(sharded, "route_keys",
+                        lambda b, q: routed.append(np.shape(q)) or
+                        np.zeros(np.shape(q), np.int64))
+    keys = _dup_heavy_keys(4000, seed=11)
+    ours = IndexService(keys, error=64, buffer_size=16, backend=backend,
+                        engine_opts=ON_CPU, assume_sorted=True)
+    ref = RefService(keys, error=64, buffer_size=16, backend="numpy",
+                     assume_sorted=True)
+    rng = np.random.default_rng(12)
+    edge = np.array([keys[0] - 1, keys[0], keys[-1], keys[-1] + 1, -2.0 ** 30,
+                     2.0 ** 40, keys[7], keys[7]])
+    big = _queries(keys, rng, 600)
+    batches = [edge[:3], edge, _queries(keys, rng, 40), big,
+               big[:600].reshape(20, 30), big.astype(np.int64),
+               np.concatenate([big, [2 ** 53 + 1, -(2 ** 60) - 3]]).astype(
+                   np.int64)]
+    for q in batches:
+        left = np.searchsorted(keys, q, "left")
+        right = np.searchsorted(keys, q, "right")
+        for side, want in (("left", left), ("right", right)):
+            got = ours.search(q, side)
+            assert got.dtype == np.int64 and got.shape == np.shape(q)
+            np.testing.assert_array_equal(got, ref.search(q, side))
+            np.testing.assert_array_equal(got, want)
+        found = (left < keys.size) & (keys[np.minimum(left, keys.size - 1)]
+                                      == np.asarray(q, np.float64))
+        pt, pt_ref = ours.point(q), ref.point(q)
+        assert pt.rank.dtype == np.int64 and pt.rank.shape == np.shape(q)
+        np.testing.assert_array_equal(pt.rank, np.where(found, left, -1))
+        np.testing.assert_array_equal(pt.found, found)
+        for a, b in ((pt, pt_ref), (ours.predecessor(q), ref.predecessor(q)),
+                     (ours.successor(q), ref.successor(q))):
+            np.testing.assert_array_equal(a.rank, b.rank)
+            np.testing.assert_array_equal(a.found, b.found)
+        count = ours.count(q, q + 40)
+        np.testing.assert_array_equal(count, ref.count(q, q + 40))
+        np.testing.assert_array_equal(count, np.maximum(np.searchsorted(
+            keys, np.asarray(q, np.float64) + 40, "right") - left, 0))
+    assert routed == []
+    for lo, hi in ((-5.0, keys[0]), (keys[3], keys[3]), (keys[100], 2.0 ** 30),
+                   (keys[-1] + 1, 2.0 ** 40)):
+        got, want = ours.range(lo, hi), ref.range(lo, hi)
+        assert (got.lo_rank, got.hi_rank) == (want.lo_rank, want.hi_rank) == (
+            np.searchsorted(keys, lo, "left"),
+            np.searchsorted(keys, hi, "right"))
+        np.testing.assert_array_equal(got.keys, want.keys)
+    assert dataclasses.asdict(ours.metrics()) == \
+        dataclasses.asdict(ref.metrics())
 
 
 def test_services_default_to_the_card():

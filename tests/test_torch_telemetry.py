@@ -332,8 +332,8 @@ def test_span_rows_sit_on_the_profiler_clock():
         np.testing.assert_allclose(rows[:, 0], starts, rtol=0, atol=1e6)
 
 
-SERVICE_SPANS = {"service.route", "service.scatter", "engine.stage",
-                 "engine.cast"}
+SERVICE_SPANS = {"service.route", "engine.stage", "engine.cast"}
+ROUTED_SPANS = SERVICE_SPANS | {"service.scatter"}
 LSM_SPANS = {"lsm.read", "lsm.merge", "lsm.fit", "lsm.upload",
              "engine.stage", "engine.cast"}
 
@@ -356,9 +356,12 @@ def test_one_shard_search_records_every_span_and_answers_alike(backend):
         got = [svc.search(q, "left"), svc.search(q, "right"), svc.lookup(q)]
         answers.append(got)
         if mon is not None:
+            # one shard answers unrouted: no scatter, every route row
+            # tagged with the view's one shard
             assert _spans(mon) == SERVICE_SPANS
-            assert mon.count("span.service.route") == 2
-            assert mon.count("span.service.scatter") == 4   # one shard
+            route = mon.channel("span.service.route")
+            assert route.shape == (2, 3)
+            np.testing.assert_array_equal(route[:, 2], [1, 1])
             # every engine call stages once and casts once
             assert mon.count("span.engine.stage") == \
                 mon.count("span.engine.cast") == 3
@@ -367,6 +370,37 @@ def test_one_shard_search_records_every_span_and_answers_alike(backend):
     for ours, plain in zip(*answers):
         assert ours.dtype == plain.dtype
         np.testing.assert_array_equal(ours, plain)
+
+
+@pytest.mark.parametrize("backend", ["dispatch", "cuda"])
+def test_routed_search_records_the_scatter_and_tags_the_shard_count(backend):
+    keys = np.sort(np.random.default_rng(2).integers(
+        0, 2 ** 20, 40_000)).astype(np.float64)
+    q = np.concatenate([keys[::7], np.random.default_rng(3).integers(
+        -10, 2 ** 20 + 10, 5000).astype(np.float64)])
+    answers = []
+    for mon in (tel.Monitor(), None):
+        # dispatch's tiers pinned so that every shard's batch reaches the
+        # device tier, whose engine records the stage and cast spans
+        svc = ShardedIndexService(
+            keys, error=64, n_shards=3, backend=backend, monitor=mon,
+            engine_opts={**ALL_ON_CPU, "dispatch": {
+                **CPU, "small_max": 4, "large_min": 300}},
+            assume_sorted=True)
+        answers.append([svc.search(q, "left"), svc.search(q, "right")])
+        if mon is not None:
+            assert _spans(mon) == ROUTED_SPANS
+            route = mon.channel("span.service.route")
+            assert route.shape == (2, 3)
+            np.testing.assert_array_equal(route[:, 2], [3, 3])
+            # the queries reach every shard: a gather and a scatter each
+            assert mon.count("span.service.scatter") == 2 * 2 * 3
+            assert mon.count("span.engine.stage") == \
+                mon.count("span.engine.cast") == 2 * 3
+    for ours, plain, side in zip(*answers, ("left", "right")):
+        assert ours.dtype == plain.dtype == np.int64
+        np.testing.assert_array_equal(ours, plain)
+        np.testing.assert_array_equal(ours, np.searchsorted(keys, q, side))
 
 
 def test_lsm_read_through_spill_and_compaction_records_every_span():

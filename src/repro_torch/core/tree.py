@@ -273,18 +273,114 @@ class FITingTree:
     # ----------------------------------------------------------------- insert
     def insert(self, key: float, value=None) -> None:
         """Alg. 4: buffer the key; merge + re-segment on overflow."""
+        self.insert_many([key], [value])
+
+    def insert_many(self, keys, values=None) -> None:
+        """Alg. 4 over a batch, in arrival order, with the batch routed at
+        once (``insert`` is a batch of one).
+
+        An overflow re-fits a segment into segments that start at keys of
+        its merged run, so they cover the old segment's key range and no
+        other: a key routed to a segment stays among that segment's
+        replacements.  Each touched segment therefore takes its keys in
+        arrival order, merges (Alg. 4 lines 5-9) at the key that fills its
+        buffer and routes the keys after it among its replacements; the
+        segment arrays are spliced and the router rebuilt once."""
         if self.buffer_size == 0:
             raise ValueError("tree built read-only (buffer_size=0)")
-        sid = self._segment_of(key)
-        buf = self.buffers[sid]
-        j = bisect.bisect_left(buf, key)
-        buf.insert(j, key)
-        if self.payloads is not None:
-            self.buf_payloads[sid].insert(j, value)
+        keys = np.asarray(keys, np.float64).ravel()
+        n = keys.shape[0]
+        if values is not None and len(values) != n:
+            raise ValueError(f"{len(values)} values for {n} keys")
+        if n == 0:
+            return
+        vals = [None] * n if values is None else list(values)
+        sids = route_keys(self.start_keys, keys)
+        order = np.argsort(sids, kind="stable")
+        grouped = sids[order]
+        cuts = np.flatnonzero(np.diff(grouped)) + 1
+        klist = keys.tolist()
+        replaced = {}
+        for a, b in zip(np.r_[0, cuts].tolist(), np.r_[cuts, n].tolist()):
+            sid = int(grouped[a])
+            idx = order[a:b].tolist()
+            ks, vs = [klist[i] for i in idx], [vals[i] for i in idx]
+            if len(self.buffers[sid]) + len(ks) < self.buffer_size:
+                self._buffer(self.buffers[sid], self.buf_payloads[sid], ks, vs)
+            else:                           # overflows at one key at least
+                replaced[sid] = self._insert_group(sid, ks, vs)
         self._flat_cache = None
         self._table_cache = None
-        if len(buf) >= self.buffer_size:
-            self._merge_segment(sid)
+        if replaced:
+            self._splice(replaced)
+
+    def _buffer(self, buf: list, buf_pl: list, ks: list, vs: list) -> None:
+        """Alg. 4 lines 1-4 for keys that fit the buffer: sorted inserts,
+        a key before its equals."""
+        for k, v in zip(ks, vs):
+            j = bisect.bisect_left(buf, k)
+            buf.insert(j, k)
+            if self.payloads is not None:
+                buf_pl.insert(j, v)
+
+    def _insert_group(self, sid: int, ks: list, vs: list):
+        """One segment's keys in arrival order, each overflow merged at the
+        key that fills the buffer.  Returns the segment's replacements:
+        (start keys, slopes, pages, payload pages, buffers, buffer
+        payloads)."""
+        starts = [float(self.start_keys[sid])]
+        slopes = [float(self.slopes[sid])]
+        pages = [self.pages[sid]]
+        pls = [None if self.payloads is None else self.payloads[sid]]
+        bufs = [self.buffers[sid]]
+        bpls = [self.buf_payloads[sid]]
+        for k, v in zip(ks, vs):
+            j = max(bisect.bisect_right(starts, k) - 1, 0)
+            self._buffer(bufs[j], bpls[j], [k], [v])
+            if len(bufs[j]) < self.buffer_size:
+                continue
+            g = self._replacement(*self._refit_run(pages[j], bufs[j], pls[j],
+                                                   bpls[j]))
+            starts[j:j + 1] = g[0].tolist()
+            slopes[j:j + 1] = g[1].tolist()
+            pages[j:j + 1], pls[j:j + 1] = g[2], g[3]
+            bufs[j:j + 1], bpls[j:j + 1] = g[4], g[5]
+        return (np.asarray(starts, np.float64), np.asarray(slopes, np.float64),
+                pages, pls, bufs, bpls)
+
+    def _replacement(self, pages: list, pls: list | None, segs) -> tuple:
+        """A re-fit run's segments as a group for :meth:`_splice`, their
+        buffers empty."""
+        m = segs.n_segments
+        return (segs.start_key, segs.slope, list(pages),
+                [None] * m if pls is None else list(pls),
+                [[] for _ in range(m)], [[] for _ in range(m)])
+
+    def _splice(self, replaced: dict) -> None:
+        """Put each replaced segment's group (start keys, slopes, pages,
+        payload pages, buffers, buffer payloads) in its place: one pass,
+        one metadata concat, one router rebuild."""
+        pages, payloads, buffers, buf_pls = [], [], [], []
+        start_keys, slopes = [], []
+        prev = 0
+        for sid in sorted(replaced):
+            g_starts, g_slopes, g_pages, g_pls, g_bufs, g_bpls = replaced[sid]
+            pages += self.pages[prev:sid] + g_pages
+            buffers += self.buffers[prev:sid] + g_bufs
+            buf_pls += self.buf_payloads[prev:sid] + g_bpls
+            if self.payloads is not None:
+                payloads += self.payloads[prev:sid] + g_pls
+            start_keys += [self.start_keys[prev:sid], g_starts]
+            slopes += [self.slopes[prev:sid], g_slopes]
+            prev = sid + 1
+        self.pages = pages + self.pages[prev:]
+        self.buffers = buffers + self.buffers[prev:]
+        self.buf_payloads = buf_pls + self.buf_payloads[prev:]
+        if self.payloads is not None:
+            self.payloads = payloads + self.payloads[prev:]
+        self.start_keys = np.concatenate(start_keys + [self.start_keys[prev:]])
+        self.slopes = np.concatenate(slopes + [self.slopes[prev:]])
+        self.router = PackedRouter(self.start_keys, self.fanout)
 
     def dirty_segments(self) -> list[int]:
         """Segments whose insert buffer holds keys not yet merged into pages."""
@@ -297,37 +393,11 @@ class FITingTree:
 
         All splices land in one pass (one metadata reconcat + one router
         rebuild), so the cost is O(dirty work + S), not O(dirty * S)."""
-        dirty = set(self.dirty_segments())
+        dirty = self.dirty_segments()
         if not dirty:
             return 0
-        pages, payloads, buffers, buf_pls = [], [], [], []
-        start_keys, slopes = [], []
-        for sid in range(self.n_segments):
-            if sid in dirty:
-                new_pages, new_payloads, segs = self._refit_segment(sid)
-                pages += new_pages
-                buffers += [[] for _ in range(segs.n_segments)]
-                buf_pls += [[] for _ in range(segs.n_segments)]
-                if new_payloads is not None:
-                    payloads += new_payloads
-                start_keys.append(segs.start_key)
-                slopes.append(segs.slope)
-            else:
-                pages.append(self.pages[sid])
-                buffers.append(self.buffers[sid])
-                buf_pls.append(self.buf_payloads[sid])
-                if self.payloads is not None:
-                    payloads.append(self.payloads[sid])
-                start_keys.append(self.start_keys[sid:sid + 1])
-                slopes.append(self.slopes[sid:sid + 1])
-        self.pages = pages
-        self.buffers = buffers
-        self.buf_payloads = buf_pls
-        if self.payloads is not None:
-            self.payloads = payloads
-        self.start_keys = np.concatenate(start_keys)
-        self.slopes = np.concatenate(slopes)
-        self.router = PackedRouter(self.start_keys, self.fanout)
+        self._splice({sid: self._replacement(*self._refit_segment(sid))
+                      for sid in dirty})
         self._flat_cache = None
         self._table_cache = None
         return len(dirty)
@@ -336,33 +406,21 @@ class FITingTree:
         """Alg. 4 lines 5-7: merge sid's buffer into its page and re-run
         ShrinkingCone on the merged run.  Pure: returns (pages, payloads|None,
         segs) for the k >= 1 replacement segments without mutating the tree."""
-        page = self.pages[sid]
-        buf = np.asarray(self.buffers[sid], np.float64)
-        pl_page = None if self.payloads is None else self.payloads[sid]
+        return self._refit_run(self.pages[sid], self.buffers[sid],
+                               None if self.payloads is None else
+                               self.payloads[sid], self.buf_payloads[sid])
+
+    def _refit_run(self, page: np.ndarray, buffer: list,
+                   pl_page: np.ndarray | None, buf_pl: list):
+        """Merge one buffer into its page and re-fit the run (Alg. 4 lines
+        5-7): (pages, payloads|None, segs) of the replacements."""
+        buf = np.asarray(buffer, np.float64)
         pl_buf = (None if pl_page is None else
-                  np.asarray(self.buf_payloads[sid], dtype=pl_page.dtype))
+                  np.asarray(buf_pl, dtype=pl_page.dtype))
         merged, pl_merged = _merge_sorted(page, buf, pl_page, pl_buf)
         segs = shrinking_cone(merged, self.err_seg, mode=self.mode)
         new_pages, new_payloads = _paginate(merged, pl_merged, segs)
         return new_pages, new_payloads, segs
-
-    def _merge_segment(self, sid: int) -> None:
-        """Alg. 4 lines 5-9: replace one overflowed segment in place (the
-        insert hot path; flush() batches the same refit across segments)."""
-        new_pages, new_payloads, segs = self._refit_segment(sid)
-        k = segs.n_segments
-        self.pages[sid:sid + 1] = new_pages
-        self.buffers[sid:sid + 1] = [[] for _ in range(k)]
-        self.buf_payloads[sid:sid + 1] = [[] for _ in range(k)]
-        if self.payloads is not None:
-            self.payloads[sid:sid + 1] = new_payloads
-        self.start_keys = np.concatenate([
-            self.start_keys[:sid], segs.start_key, self.start_keys[sid + 1:]])
-        self.slopes = np.concatenate([
-            self.slopes[:sid], segs.slope, self.slopes[sid + 1:]])
-        self.router = PackedRouter(self.start_keys, self.fanout)
-        self._flat_cache = None
-        self._table_cache = None
 
     # ----------------------------------------------- shard migration (splice)
     def extract_range(self, lo_key: float, hi_key: float

@@ -139,6 +139,11 @@ class AsyncIndexService:
       many inserts to take; ``None`` when the plan has no cadence (read-only
       plan) -- the cadence thread then only runs if a period is passed
       explicitly.
+    * ``cadence`` -- False: no cadence thread, whatever the plan's
+      ``publish_every``; the service publishes on its own (a sharded
+      plan's auto-publish after ``publish_every`` pending inserts) or the
+      caller does.  It takes no ``publish_interval_s`` and no
+      ``replanner``, which rides the cadence.
     * ``prewarm`` -- build and run every serving engine (and every
       dispatch tier) before accepting traffic, so the first fused flush does
       not pay the device upload or the kernel library's build.
@@ -155,8 +160,13 @@ class AsyncIndexService:
                  pad_batches: bool = True,
                  prewarm: bool = True,
                  monitor: Monitor | None = None,
-                 replanner: Replanner | None = None):
+                 replanner: Replanner | None = None,
+                 cadence: bool = True):
         plan = getattr(service, "plan", None)
+        if not cadence and (publish_interval_s is not None
+                            or replanner is not None):
+            raise ValueError("cadence=False runs no cadence thread: pass no "
+                             "publish_interval_s and no replanner")
         # telemetry defaults to the service's monitor so the pipeline channels
         # (queue depth / flush cause / sojourn) land next to the tier samples
         self.monitor = monitor if monitor is not None \
@@ -182,7 +192,7 @@ class AsyncIndexService:
             queue_depth = getattr(plan, "queue_depth", None)
         if queue_depth is None:
             queue_depth = DEFAULT_QUEUE_DEPTH_FLUSHES * int(flush_threshold)
-        if publish_interval_s is None:
+        if cadence and publish_interval_s is None:
             publish_interval_s = _plan_publish_interval(plan)
         if flush_threshold < 1:
             raise ValueError(f"flush_threshold must be >= 1, got "
@@ -196,7 +206,7 @@ class AsyncIndexService:
                              "on the deadline")
         if publish_interval_s is not None and publish_interval_s <= 0:
             raise ValueError(f"publish_interval_s must be > 0 (or None for "
-                             f"no cadence), got {publish_interval_s!r}")
+                             f"the plan's cadence), got {publish_interval_s!r}")
 
         self.service = service
         self.flush_threshold = int(flush_threshold)

@@ -314,8 +314,10 @@ class ShardedIndexService:
                                 payload[offsets[d]:offsets[d] + split.shape[0]]),
                        assume_sorted=True)
             for d, split in enumerate(splits)]
-        self.publishers = [SnapshotPublisher(t) for t in self.writers]
-        handles = tuple(ServingHandle(engine_opts) for _ in self.writers)
+        self.publishers = [SnapshotPublisher(t, monitor)
+                           for t in self.writers]
+        handles = tuple(ServingHandle(engine_opts, monitor)
+                        for _ in self.writers)
         self._pending = [0] * n_shards
         for pub, handle in zip(self.publishers, handles):
             handle.install(pub.publish())     # epoch 1 everywhere
@@ -457,21 +459,60 @@ class ShardedIndexService:
     # ------------------------------------------------------------- write path
     def insert(self, key: float, value=None) -> None:
         """Buffer an insert in the owning shard (Alg. 4).  Invisible to
-        lookups until that shard publishes."""
+        lookups until that shard publishes.  A batch of one:
+        :meth:`insert_many`."""
+        self.insert_many([key], None if value is None else [value])
+
+    def insert_many(self, keys, values=None) -> None:
+        """Buffer a batch of inserts in arrival order, each in its owning
+        shard (Alg. 4).  ``_write_lock`` is taken once and one
+        ``route_keys`` call routes the batch; each shard takes its keys in
+        arrival order (``FITingTree.insert_many``).  An auto-publish lands
+        after exactly the key that brings the pending count to
+        ``publish_every``, and the keys after it stay pending.  Only a
+        rebalance inside that publish (``auto_rebalance``) has the rest
+        routed again, by the new cuts."""
         if self.buffer_size == 0:
             raise ValueError("service built read-only; pass buffer_size > 0 "
                              "to enable inserts")
-        if value is not None and not self.has_payload:
+        if values is not None and not self.has_payload:
             raise ValueError("service built without payloads (clustered "
                              "index); pass payload= at construction to store "
                              "values")
+        keys = np.asarray(keys, np.float64).ravel()
+        n = keys.shape[0]
+        if values is not None and len(values) != n:
+            raise ValueError(f"{len(values)} values for {n} keys")
+        vals = None if values is None else list(values)
+        mon = self.monitor
         with self._write_lock:
-            sid = self.shard_of(key)
-            self.writers[sid].insert(key, value)
-            self._pending[sid] += 1
-            if self.publish_every is not None and \
-                    self.pending_inserts >= self.publish_every:
-                self.publish()
+            a, routed_by = 0, None
+            while a < n:
+                b = n
+                if self.publish_every is not None:
+                    b = min(n, a + max(self.publish_every
+                                       - self.pending_inserts, 1))
+                with span(mon, "sharded.insert") as sp:
+                    ss = self._shard_set
+                    if ss is not routed_by:          # first, or recut
+                        routed_by, first = ss, a
+                        owner = route_keys(ss.boundaries, keys[a:])
+                    part = owner[a - first:b - first]
+                    order = np.argsort(part, kind="stable")
+                    shards, starts = np.unique(part[order], return_index=True)
+                    ends = np.r_[starts[1:], b - a]
+                    for d, s, e in zip(shards.tolist(), starts.tolist(),
+                                       ends.tolist()):
+                        idx = order[s:e] + a
+                        self.writers[d].insert_many(
+                            keys[idx], None if vals is None else
+                            [vals[i] for i in idx.tolist()])
+                        self._pending[d] += e - s
+                    sp.tag(b - a, len(shards))
+                a = b
+                if self.publish_every is not None and \
+                        self.pending_inserts >= self.publish_every:
+                    self.publish()
 
     def _shard_dirty(self, sid: int) -> bool:
         """Unpublished writes on shard ``sid``: service-routed inserts,
@@ -507,8 +548,11 @@ class ShardedIndexService:
             for sid in targets:
                 if not force and not self._shard_dirty(sid):
                     continue
-                snap = self.publishers[sid].publish()
-                ss.handles[sid].install(snap)
+                with span(self.monitor, "sharded.publish") as sp:
+                    before = self.writers[sid].n_segments
+                    snap = self.publishers[sid].publish()
+                    ss.handles[sid].install(snap)
+                    sp.tag(sid, snap.n_refit, before, snap.table.n_segments)
                 self._pending[sid] = 0
                 published[sid] = snap
             if self.auto_rebalance and published and self.needs_rebalance():
@@ -609,7 +653,7 @@ class ShardedIndexService:
             self.writers[t].splice_run(run[order],
                                        None if pl is None else pl[order])
 
-        new_handles = tuple(ServingHandle(self._engine_opts)
+        new_handles = tuple(ServingHandle(self._engine_opts, self.monitor)
                             for _ in self.writers)
         for pub, handle in zip(self.publishers, new_handles):
             handle.install(pub.publish())
@@ -666,7 +710,7 @@ class ShardedIndexService:
                 new_plan = self._rebuild(new_plan, engine_opts, reshard)
             else:
                 ss = self._shard_set
-                handles = tuple(ServingHandle(engine_opts)
+                handles = tuple(ServingHandle(engine_opts, self.monitor)
                                 for _ in ss.handles)
                 for old, new in zip(ss.handles, handles):
                     new.install(old.current())
@@ -717,8 +761,9 @@ class ShardedIndexService:
                                         + split.shape[0]]),
                        assume_sorted=True)
             for d, split in enumerate(splits)]
-        publishers = [SnapshotPublisher(t) for t in writers]
-        handles = tuple(ServingHandle(engine_opts) for _ in writers)
+        publishers = [SnapshotPublisher(t, self.monitor) for t in writers]
+        handles = tuple(ServingHandle(engine_opts, self.monitor)
+                        for _ in writers)
         for pub, handle in zip(publishers, handles):
             handle.install(pub.publish())     # epoch 1 everywhere (restart)
         version = self._shard_set.version + 1

@@ -29,6 +29,7 @@ from repro_torch.analysis.sanitizer import make_lock, published_array
 from .engine import LookupEngine, make_engine
 from .query import PointResult, RangeResult
 from .table import SegmentTable
+from .telemetry import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +79,13 @@ class SnapshotPublisher:
 
     Duck-typed on the tree: it needs ``flush()`` (re-fit dirty segments,
     return how many), ``as_table(epoch=)``, ``payload_column()`` and
-    ``dirty_segments()``, as ``repro.core.tree.FITingTree`` has them."""
+    ``dirty_segments()``, as ``repro.core.tree.FITingTree`` has them.
+    With a ``monitor`` each publish's flush is the ``tree.flush`` span,
+    tagged with the segments it re-fit."""
 
-    def __init__(self, tree):
+    def __init__(self, tree, monitor=None):
         self.tree = tree
+        self.monitor = monitor
         self._epoch = 0
 
     @property
@@ -99,7 +103,9 @@ class SnapshotPublisher:
         Cost is O(sum of dirty segment lengths) for the re-fit plus O(N + S)
         to assemble the flat arrays; clean segments are never re-segmented.
         """
-        n_refit = self.tree.flush()
+        with span(self.monitor, "tree.flush") as sp:
+            n_refit = self.tree.flush()
+            sp.tag(n_refit)
         self._epoch += 1
         table = self.tree.as_table(epoch=self._epoch)
         # freeze-on-publish: the payload column escapes into serving threads
@@ -114,11 +120,15 @@ class ServingHandle:
 
     Engines are built lazily per backend per snapshot and cached alongside the
     snapshot they serve, so a swap atomically retires both the table and its
-    compiled lookup closures.
+    compiled lookup closures.  With a ``monitor`` each build is the
+    ``engine.build`` span (the table's device form and its upload), tagged
+    with the table's keys and segments.
     """
 
-    def __init__(self, engine_opts: dict[str, dict] | None = None):
+    def __init__(self, engine_opts: dict[str, dict] | None = None,
+                 monitor=None):
         self._engine_opts = engine_opts or {}
+        self.monitor = monitor
         self._lock = make_lock("ServingHandle._lock")
         self._state: tuple[Snapshot, dict[str, LookupEngine]] | None = None
 
@@ -151,8 +161,12 @@ class ServingHandle:
             with self._lock:
                 eng = engines.get(backend)
                 if eng is None:
-                    eng = make_engine(snapshot.table, backend,
-                                      **self._engine_opts.get(backend, {}))
+                    table = snapshot.table
+                    with span(self.monitor, "engine.build", table.n_keys,
+                              table.n_segments):
+                        eng = make_engine(table, backend,
+                                          **self._engine_opts.get(backend,
+                                                                  {}))
                     engines[backend] = eng
         return eng
 

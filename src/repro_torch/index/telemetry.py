@@ -43,6 +43,20 @@ planner (``repro_torch.index.fit``) leaves open:
       lsm.merge             compaction's tombstone kill and sorted merge
       lsm.fit (level)       a run's fit (Snapshot.from_arrays)
       lsm.upload (level)    a run's install and engine build (the upload)
+      sharded.insert (keys, shards)
+                            ShardedIndexService.insert_many: routing and
+                            the Alg. 4 buffer work of the keys up to an
+                            auto-publish (the publish outside)
+      sharded.publish (shard, refit, segments_before, segments_after)
+                            one shard's SnapshotPublisher.publish and install
+      tree.flush (refit)    SnapshotPublisher.publish: FITingTree.flush, the
+                            merge and re-fit of the dirty segments
+      engine.build (keys, segments)
+                            ServingHandle: make_engine, the table's device
+                            form and its upload
+
+  A span whose tags are known only inside its body sets them there
+  (``with span(mon, name) as sp: ...; sp.tag(*tags)``).
 
   Backends are pluggable: :class:`MemoryBackend` (default, rings only) and
   :class:`JSONLBackend` (same rings; ``flush()`` appends rows recorded since
@@ -349,6 +363,9 @@ class _NullSpan:
     def __exit__(self, *exc) -> bool:
         return False
 
+    def tag(self, *tags) -> None:
+        """Nothing to tag."""
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -386,6 +403,11 @@ class _Span:
         self.monitor.record(CH_SPAN_PREFIX + self.name, self.start, dur,
                             *self.tags)
         return False
+
+    @hot_path
+    def tag(self, *tags) -> None:
+        """Set the row's tags where they are known only inside the body."""
+        self.tags = tags
 
 
 @hot_path

@@ -120,6 +120,11 @@ class IndexService:
         Read-only / no-payload misuse is rejected by the underlying service."""
         self._sharded.insert(key, value)
 
+    def insert_many(self, keys, values=None) -> None:
+        """Buffer a batch of inserts in arrival order, routed at once (see
+        ``ShardedIndexService.insert_many``)."""
+        self._sharded.insert_many(keys, values)
+
     def publish(self) -> Snapshot:
         """Cut a new epoch and swap it into serving atomically.
 

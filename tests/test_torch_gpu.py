@@ -345,6 +345,48 @@ def test_sharded_service_on_the_card_matches_its_numpy_backend(
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("payload,publish_every", [(False, None),
+                                                   (True, 700)])
+def test_sharded_insert_many_on_the_card_equals_the_loop(
+        cuda_device, payload, publish_every):
+    """``insert_many`` against the loop of ``insert`` on services serving
+    from the card: the same trees, pending counts and epochs after batches
+    that cross the publish cadence, and the same answers."""
+    from repro_torch.index import ShardedIndexService
+    keys = _dup_keys(90_000, seed=9)
+    pl = np.arange(keys.size) * 2 if payload else None
+    kw = dict(error=64, n_shards=9, buffer_size=16, payload=pl,
+              publish_every=publish_every, assume_sorted=True)
+    loop, batch = ShardedIndexService(keys, **kw), \
+        ShardedIndexService(keys, **kw)
+    rng = np.random.default_rng(10)
+    for size in (1, 500, 3_000):
+        new = np.concatenate([keys[rng.integers(0, keys.size, size // 2)],
+                              np.round(rng.uniform(-20, keys[-1] + 20,
+                                                   size - size // 2))])
+        vals = list(range(size)) if payload else None
+        for i, k in enumerate(new):
+            loop.insert(float(k), None if vals is None else vals[i])
+        batch.insert_many(new, vals)
+        assert batch._pending == loop._pending
+        assert batch.epochs() == loop.epochs()
+        for a, b in zip(batch.writers, loop.writers):
+            np.testing.assert_array_equal(a.start_keys, b.start_keys)
+            assert a.buffers == b.buffers
+            assert a.buf_payloads == b.buf_payloads
+            assert all(np.array_equal(x, y) for x, y in zip(a.pages,
+                                                              b.pages))
+        q = _queries(keys, rng, 5_000)
+        for got, want in zip(_verbs(batch, q, "cuda"),
+                             _verbs(loop, q, "cuda")):
+            np.testing.assert_array_equal(got, want)
+    batch.publish(), loop.publish()
+    q = _queries(keys, rng, 5_000)
+    for got, want in zip(_verbs(batch, q, "cuda"), _verbs(batch, q, "numpy")):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
 def test_sharded_publish_reuploads_only_dirty_shards(cuda_device):
     """A publish replaces the device form of the dirty shard alone; clean
     shards keep their tensors, and retired generations are freed."""

@@ -281,6 +281,32 @@ def test_cadence_drives_lsm_compaction_under_a_write_heavy_spec():
         sanitizer.set_enabled(prev)
 
 
+def test_no_cadence_leaves_publishing_to_an_inplace_plans_count():
+    """``cadence=False`` over an in-place plan that has a ``publish_every``
+    starts no cadence thread: the service publishes at the count alone, so
+    inserts short of it stay unseen however long the pipe runs; with a
+    period or a replanner it is refused."""
+    keys = _keys(4096, seed=4)
+    svc = fit.open_index(keys, fit.FitSpec(error=32, insert_rate=64.0),
+                         assume_sorted=True, engine_opts=ON_CPU)
+    pe = svc.plan.publish_every
+    assert svc.plan.write_mode == "inplace" and pe == 64
+    assert _plan_publish_interval(svc.plan) == 1.0
+    with pytest.raises(ValueError, match="cadence=False"):
+        AsyncIndexService(svc, publish_interval_s=0.01, cadence=False,
+                          prewarm=False)
+    with AsyncIndexService(svc, cadence=False, prewarm=False) as pipe:
+        assert pipe._maintenance is None and pipe.publish_interval_s is None
+        new = np.arange(1.0, 4 * pe, 2.0)[:pe + 5]    # one publish, 5 left
+        svc.insert_many(new)
+        assert svc.pending_inserts == 5
+        time.sleep(1.5)                  # past the plan's 1 s period
+        live = np.sort(np.concatenate([keys, new[:pe]]))
+        np.testing.assert_array_equal(pipe.search(live[::7], "left", T),
+                                      np.searchsorted(live, live[::7]))
+        assert svc.pending_inserts == 5
+
+
 def test_launch_counter_is_exact_under_threads():
     """``_count_launch`` is the counters' one increment: many threads with a
     short switch interval lose no update."""

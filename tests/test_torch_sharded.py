@@ -350,3 +350,166 @@ def test_a_verb_that_sees_two_shard_sets_raises_under_the_sanitizer():
         sanitizer.observe_pin(3)                  # outside a scope: no-op
     finally:
         sanitizer.set_enabled(prev)
+
+
+def _same_state(a, b):
+    """Two services' whole state: routing view, pending counts, epochs,
+    every writer's tree, every installed snapshot and ``metrics()``."""
+    a, b = getattr(a, "_sharded", a), getattr(b, "_sharded", b)
+    assert a._pending == b._pending
+    assert a.epochs() == b.epochs()
+    assert a.shard_set.version == b.shard_set.version
+    np.testing.assert_array_equal(a.boundaries, b.boundaries)
+    for wa, wb in zip(a.writers, b.writers, strict=True):
+        np.testing.assert_array_equal(wa.start_keys, wb.start_keys)
+        np.testing.assert_array_equal(wa.slopes, wb.slopes)
+        assert len(wa.pages) == len(wb.pages)
+        for pa, pb in zip(wa.pages, wb.pages):
+            np.testing.assert_array_equal(pa, pb)
+        assert wa.buffers == wb.buffers
+        assert wa.buf_payloads == wb.buf_payloads
+        if wa.payloads is not None:
+            for pa, pb in zip(wa.payloads, wb.payloads, strict=True):
+                np.testing.assert_array_equal(pa, pb)
+        np.testing.assert_array_equal(wa.router.levels[-1],
+                                      wb.router.levels[-1])
+        assert wa.dirty_segments() == wb.dirty_segments()
+    for ha, hb in zip(a.handles, b.handles, strict=True):
+        sa, sb = ha.current(), hb.current()
+        assert (sa.epoch, sa.n_refit) == (sb.epoch, sb.n_refit)
+        for f in ("keys", "start_key", "slope", "base", "seg_end"):
+            np.testing.assert_array_equal(getattr(sa.table, f),
+                                          getattr(sb.table, f))
+        if sa.payload is not None:
+            np.testing.assert_array_equal(sa.payload, sb.payload)
+    assert dataclasses.asdict(a.metrics()) == dataclasses.asdict(b.metrics())
+
+
+# (n_shards, payload, publish_every, auto_rebalance, below the first key,
+#  batch sizes); n_shards 1 is the one-shard IndexService
+INSERT_MANY_CASES = [
+    (4, False, None, False, False, (1, 60, 900)),
+    (4, True, None, False, True, (400, 400)),
+    (3, False, 256, False, False, (100, 1000, 5)),  # the cadence mid-batch
+    (3, True, 97, False, True, (700,)),
+    (4, False, 512, True, False, (2600,)),  # a publish there rebalances
+    (1, False, 200, False, True, (450, 30)),
+    (1, True, None, False, False, (300,)),
+]
+
+
+@pytest.mark.parametrize(
+    "n_shards,payload,publish_every,auto_rebalance,below,batches",
+    INSERT_MANY_CASES)
+def test_insert_many_leaves_the_per_key_loops_state(
+        n_shards, payload, publish_every, auto_rebalance, below, batches):
+    """``insert_many`` equals ``insert`` key by key on the port and on the
+    JAX package: buffers, pending counts, auto-publishes at the same key
+    (epochs, snapshots), a rebalance inside one, ``metrics()``."""
+    rng = np.random.default_rng(n_shards * 100 + len(batches))
+    keys = np.sort(rng.choice(2 ** 20, size=6000, replace=False)
+                   ).astype(np.float64)
+    pl = (keys * 3).astype(np.int64) if payload else None
+    kw = dict(error=32, buffer_size=8, publish_every=publish_every,
+              payload=pl, assume_sorted=True)
+    if n_shards == 1:
+        make = lambda: IndexService(keys, engine_opts=ON_CPU, **kw)  # noqa
+        ref = RefService(keys, backend="numpy", **kw)
+    else:
+        kw.update(n_shards=n_shards, auto_rebalance=auto_rebalance,
+                  skew_threshold=1.3)
+        make = lambda: ShardedIndexService(keys, engine_opts=ON_CPU,  # noqa
+                                           **kw)
+        ref = RefSharded(keys, backend="numpy", **kw)
+    loop, batch = make(), make()
+    if auto_rebalance:          # a hot range: one shard outgrows the rest
+        new = np.setdiff1d(np.arange(0, 2 ** 18, 7, dtype=np.float64),
+                           keys)[:sum(batches)]
+    else:
+        new = np.concatenate([keys[rng.integers(0, keys.size, 600)],
+                              np.floor(rng.uniform(0, 2 ** 20, 900))])
+        if below:
+            new = np.concatenate([new, keys[0] - 1 - np.arange(30.0)])
+        rng.shuffle(new)
+    vals = (-np.arange(new.size) - 1) if payload else None
+    a = 0
+    for size in batches:
+        part = new[a:a + size]
+        for i, k in enumerate(part):
+            v = None if vals is None else int(vals[a + i])
+            loop.insert(float(k), v)
+            ref.insert(float(k), v)
+        batch.insert_many(part, None if vals is None else
+                          vals[a:a + size].tolist())
+        a += size
+        _same_state(batch, loop)
+        assert batch.pending_inserts == ref.pending_inserts
+        assert dataclasses.asdict(batch.metrics()) == \
+            dataclasses.asdict(ref.metrics())
+    if publish_every is not None:
+        assert max(getattr(batch, "_sharded", batch).epochs()) > 1
+    if auto_rebalance:
+        assert batch.metrics().rebalances >= 1
+    batch.publish(), loop.publish(), ref.publish()
+    _same_state(batch, loop)
+    merged = np.sort(np.concatenate([keys, new[:a]]))
+    q = _queries(merged, rng, 300)
+    left, right, hit = _oracle(merged, q)
+    np.testing.assert_array_equal(batch.search(q, "left"), left)
+    np.testing.assert_array_equal(batch.search(q, "right"), right)
+    np.testing.assert_array_equal(batch.lookup(q), hit)
+
+
+def test_insert_many_refuses_what_insert_refuses():
+    keys = _dup_heavy_keys(2000, seed=3)
+    ro = ShardedIndexService(keys, error=32, n_shards=2, engine_opts=ON_CPU,
+                             assume_sorted=True)
+    with pytest.raises(ValueError, match="read-only"):
+        ro.insert_many(keys[:4])
+    svc = ShardedIndexService(keys, error=32, n_shards=2, buffer_size=4,
+                              engine_opts=ON_CPU, assume_sorted=True)
+    with pytest.raises(ValueError, match="payloads"):
+        svc.insert_many(keys[:2], [1, 2])
+    assert svc.pending_inserts == 0
+
+
+class _CountingLock:
+    """A lock wrapper counting outermost acquisitions."""
+
+    def __init__(self, lock):
+        self.lock, self.depth, self.outer = lock, 0, 0
+
+    def __enter__(self):
+        self.lock.__enter__()
+        self.depth += 1
+        self.outer += self.depth == 1
+        return self
+
+    def __exit__(self, *exc):
+        self.depth -= 1
+        return self.lock.__exit__(*exc)
+
+
+def test_insert_many_takes_the_write_lock_once_in_the_declared_order():
+    """Under the sanitizer's watchdog a batch that crosses three
+    auto-publishes takes ``_write_lock`` once (the loop: once a key), and
+    every lock taken under it comes later in ``LOCK_ORDER``."""
+    from repro_torch.analysis.contracts import LOCK_RANK
+    from repro_torch.index.telemetry import Monitor
+    prev = sanitizer.set_enabled(True)
+    try:
+        keys = _dup_heavy_keys(4000, seed=12)
+        svc = ShardedIndexService(keys, error=32, n_shards=3, buffer_size=8,
+                                  publish_every=100, engine_opts=ON_CPU,
+                                  assume_sorted=True, monitor=Monitor())
+        assert type(svc._write_lock).__name__ == "_SanitizedLock"
+        svc._write_lock = _CountingLock(svc._write_lock)
+        svc.insert_many(np.arange(1.0, 2 ** 20, 2 ** 20 / 350))
+        assert svc._write_lock.outer == 1
+        assert svc.monitor.count("service.publish") == 3
+        assert svc.pending_inserts == 50
+        for held, taken in sanitizer.lock_graph_edges():
+            if held == "ShardedIndexService._write_lock":
+                assert LOCK_RANK[taken] > LOCK_RANK[held], taken
+    finally:
+        sanitizer.set_enabled(prev)

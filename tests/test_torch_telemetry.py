@@ -332,7 +332,10 @@ def test_span_rows_sit_on_the_profiler_clock():
         np.testing.assert_allclose(rows[:, 0], starts, rtol=0, atol=1e6)
 
 
-SERVICE_SPANS = {"service.route", "engine.stage", "engine.cast"}
+# the construction's publish flushes each tree (tree.flush) and the first
+# search builds each shard's engine (engine.build)
+SERVICE_SPANS = {"service.route", "engine.stage", "engine.cast",
+                 "tree.flush", "engine.build"}
 ROUTED_SPANS = SERVICE_SPANS | {"service.scatter"}
 LSM_SPANS = {"lsm.read", "lsm.merge", "lsm.fit", "lsm.upload",
              "engine.stage", "engine.cast"}

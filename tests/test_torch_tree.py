@@ -191,3 +191,77 @@ def test_publisher_round_trip_over_the_ported_tree():
     old_handle = ServingHandle(engine_opts={"cuda": cpu})
     old_handle.install(old)
     assert np.all(old_handle.lookup(new[:20]) == -1)
+
+
+def _insert_stream(keys, n, seed, below=False):
+    """Inserts drawn from a seed: copies of column keys, uniform floats over
+    the column's range and (``below``) keys under its first key."""
+    rng = np.random.default_rng(seed)
+    new = [keys[rng.integers(0, keys.shape[0], n // 2)],
+           rng.uniform(keys[0], keys[-1], n - n // 2)]
+    if below:
+        new.append(keys[0] - rng.uniform(1, 1e3, 40))
+    out = np.concatenate(new)
+    rng.shuffle(out)
+    return out
+
+
+# (name, buffer_size, payload, below the first key, batch sizes)
+INSERT_MANY_CASES = [
+    ("uniform", 16, False, False, (1, 7, 300)),
+    ("uniform", 16, True, False, (64, 500)),
+    ("iot_like", 4, False, False, (2000,)),          # overflows mid-batch
+    ("iot_like", 4, True, True, (1500, 1)),
+    ("step_data", 8, False, True, (800, 800)),
+    ("step_data", 8, True, False, (3000,)),
+]
+
+
+@pytest.mark.parametrize("name,buffer_size,payload,below,batches",
+                         INSERT_MANY_CASES)
+def test_insert_many_leaves_the_per_key_loops_tree(name, buffer_size,
+                                                   payload, below, batches):
+    """``insert_many`` equals ``insert`` key by key, field by field: pages,
+    buffers, payloads, start keys, slopes, the router's leaves and the
+    dirty segments, after each batch and after a flush; and the JAX
+    package's per-key ``insert`` gives the same tree."""
+    keys = DATA[name]()
+    pl = np.arange(keys.shape[0]) * 10 if payload else None
+    kw = dict(error=64 if buffer_size == 16 else 32, buffer_size=buffer_size,
+              payload=pl)
+    loop, ref = _pair(keys, **kw)
+    batch = FITingTree(keys, **kw)
+    new = _insert_stream(keys, sum(batches), seed=len(batches), below=below)
+    vals = -np.arange(new.shape[0]) - 1 if payload else None
+    a = 0
+    for size in batches:
+        part = new[a:a + size]
+        pv = None if vals is None else vals[a:a + size]
+        for i, k in enumerate(part):
+            v = None if pv is None else int(pv[i])
+            loop.insert(float(k), v)
+            ref.insert(float(k), v)
+        batch.insert_many(part, None if pv is None else pv.tolist())
+        a += size
+        for tree in (batch, ref):
+            _assert_same(tree, loop)
+        assert batch.dirty_segments() == loop.dirty_segments()
+        np.testing.assert_array_equal(batch.router.levels[-1],
+                                      loop.router.levels[-1])
+        assert batch.router.height == loop.router.height
+    # some buffer overflowed mid-batch: merged keys sit in pages
+    assert sum(p.shape[0] for p in batch.pages) > keys.shape[0]
+    assert batch.flush() == loop.flush() == ref.flush()
+    _assert_same(batch, loop)
+    _assert_same(ref, loop)
+
+
+def test_insert_many_refuses_what_insert_refuses():
+    keys = _uniform(500)
+    with pytest.raises(ValueError, match="read-only"):
+        FITingTree(keys, error=16).insert_many(keys[:3])
+    tree = FITingTree(keys, error=16, buffer_size=4)
+    with pytest.raises(ValueError, match="values"):
+        tree.insert_many(keys[:3], [1, 2])
+    tree.insert_many(np.empty(0))
+    assert not tree.dirty_segments()

@@ -19,10 +19,10 @@ and fails (non-zero exit, no result line) where no CUDA card is present or
 the port's sources are missing.  Phases, each of which raises on failure:
 
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
-2. The build: compile ``csrc/fitting_lookup.cu``, ``flash_attention.cu`` and
-   ``rglru_scan.cu`` (the scan's forward and backward kernels) with ``nvcc``
-   for sm_90a, one process each, all at once, and print ``ptxas``'s
-   register/spill report.
+2. The build: compile ``csrc/fitting_lookup.cu``, ``flash_attention.cu``,
+   ``rglru_scan.cu`` (the scan's forward and backward kernels) and
+   ``shrinking_cone.cu`` with ``nvcc`` for sm_90a, one process each, all at
+   once, and print ``ptxas``'s register/spill report.
 3. The data: ``iot_like(2**23)`` keys, rescaled to [0, 2^23] and floored to
    integers (exact in f32; duplicates stay), a 32 MB f32 column on the card,
    fitted at each error e in {16, 64, 256} through ``Snapshot.from_arrays``.
@@ -46,9 +46,16 @@ the port's sources are missing.  Phases, each of which raises on failure:
    torch-window, torch-bisect and dispatch, every answer checked equal to
    ``np.searchsorted`` on the f32 column.  The fused kernel's launch count
    is set to 0 just before this phase and read just after; it must be > 0.
+5b. The re-fit at the in-place cell's shape (``refit_phase``): one shard of
+   the 2^24-key Weblogs column (the fifth of nine cuts, error 64, buffers
+   of 16) before its fourth publish of 1,820 inserts; its dirty runs fitted
+   by the batched ShrinkingCone kernel, equal to its twin, timed one call,
+   in bursts and by the profiler beside its bound and the twin's wall;
+   then ``flush`` on copies of the tree the per-segment way, batched on
+   the host and batched on the card, medians of 3, the three trees equal.
 6. The write path, planning and sharded serving, on the same column, with
    the fused kernel's launch count set to 0 before it and read after it
-   (> 0): ``calibrate_device`` times the dispatch tiers and fits the card's
+   (> 0; the batched ShrinkingCone's count too, from its publishes): ``calibrate_device`` times the dispatch tiers and fits the card's
    ``GPUCostParams``; ``plan`` resolves a latency budget (the e = 64
    candidate's own prediction, so feasible) with batches (1; 1,000; 2^20)
    and 65,536 inserts a second under that profile, prints ``explain()``,
@@ -3684,11 +3691,131 @@ def op_dispatch(torch, dev) -> dict:
     return res
 
 
+# the in-place cell's shard: the fifth of nine equal cuts of the 2^24-key
+# Weblogs column (fitbench's generator, seed 0), error 64, buffers of 16,
+# 1,820 inserts a publish (16,384 over nine shards), 3/4 copies of its keys
+REFIT_COLUMN = 2 ** 24
+REFIT_CUT = (4, 9)
+REFIT_INSERTS = 1820
+REFIT_PUBLISHES = 4
+
+
+def flush_per_segment(tree) -> int:
+    """The flush before the batched one: one merge and one
+    ``shrinking_cone`` call a dirty segment (``_refit_run``), one splice."""
+    dirty = tree.dirty_segments()
+    tree._splice({sid: tree._replacement(*tree._refit_run(
+        tree.pages[sid], tree.buffers[sid], None, tree.buf_payloads[sid]))
+        for sid in dirty})
+    tree._flat_cache = tree._table_cache = None
+    return len(dirty)
+
+
+def refit_phase(torch, dev, card) -> dict:
+    """The batched ShrinkingCone at the in-place cell's shape: one shard's
+    dirty runs before its fourth publish, fitted by the kernel (one call,
+    in bursts, the profiler's kernel time) beside its bound and its twin,
+    then the whole ``flush`` three ways on copies of the one tree: the
+    per-segment path, the batched flush on the host, the batched flush on
+    the card; all three trees must be equal."""
+    import copy
+
+    from fitbench import keys as K
+    from fitbench.datasets import weblogs_like
+    from repro_torch.core.tree import FITingTree
+    from repro_torch.kernels import shrinking_cone as sc
+    t0 = time.perf_counter()
+    column = K.integer_column(torch, weblogs_like.generate(
+        torch, REFIT_COLUMN, SEED, dev), REFIT_COLUMN)
+    a, b = (column.shape[0] * c // REFIT_CUT[1]
+            for c in (REFIT_CUT[0], REFIT_CUT[0] + 1))
+    shard = column[a:b]
+    tree = FITingTree(shard, error=64, buffer_size=16, assume_sorted=True)
+    rng = np.random.default_rng(SEED + 33)
+
+    def inserts():
+        keys = tree.as_table().keys
+        c = REFIT_INSERTS * 3 // 4
+        new = np.concatenate([keys[rng.integers(0, keys.shape[0], c)],
+                              np.floor(rng.uniform(shard[0], shard[-1],
+                                                   REFIT_INSERTS - c))])
+        rng.shuffle(new)
+        return new
+
+    for _ in range(REFIT_PUBLISHES - 1):
+        tree.insert_many(inserts())
+        tree.flush(dev)
+    tree.insert_many(inserts())
+    dirty = tree.dirty_segments()
+    merged, _, off = tree._merge_dirty(dirty)
+    out = {"shard_keys": int(shard.shape[0]), "segments": tree.n_segments,
+           "runs": len(dirty), "run_keys": int(merged.shape[0]),
+           "longest_run": int(np.diff(off).max()), "mode": "paper",
+           "setup_s": time.perf_counter() - t0}
+    host_keys = torch.from_numpy(merged)
+    keys_dev = host_keys.to(dev)
+
+    def call():
+        return sc.shrinking_cone_runs_cuda(keys_dev, off, tree.err_seg)
+
+    t0 = time.perf_counter()
+    want = sc.shrinking_cone_runs_torch(host_keys, off, tree.err_seg)
+    out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    got = call()
+    torch.cuda.synchronize()
+    if not torch.equal(got[0].cpu(), want[0]):
+        raise AssertionError("shrinking_cone kernel != its twin on the "
+                             "shard's dirty runs")
+    out["segments_fitted"] = int(want[0].sum())
+    out["ms"] = median_ms(torch, call)
+    out["burst_ms"] = burst_ms(torch, call)
+    out["device_ms"] = device_ms(torch, call, "shrinking_cone")
+    # keys and offsets read once, one flag a key written
+    out["bytes"] = 9 * merged.shape[0] + 8 * off.shape[0]
+    out["bound_ms"] = out["bytes"] / HBM_BPS * 1e3
+    out["bound_by"] = "bytes"
+    out["share"] = out["bound_ms"] / out["ms"]
+    walls = {"per_segment": [], "host": [], "card": []}
+    for _ in range(3):
+        trees = [copy.deepcopy(tree) for _ in walls]
+        for (name, w), t in zip(walls.items(), trees):
+            t0 = time.perf_counter()
+            n = (flush_per_segment(t) if name == "per_segment" else
+                 t.flush(None if name == "host" else dev))
+            w.append((time.perf_counter() - t0) * 1e3)
+            if n != len(dirty):
+                raise AssertionError(f"{name} flush re-fit {n} runs")
+        for t in trees[1:]:
+            same = (np.array_equal(t.start_keys, trees[0].start_keys)
+                    and np.array_equal(t.slopes.view(np.int64),
+                                       trees[0].slopes.view(np.int64))
+                    and len(t.pages) == len(trees[0].pages)
+                    and all(np.array_equal(x, y)
+                            for x, y in zip(t.pages, trees[0].pages)))
+            if not same:
+                raise AssertionError("the batched flush left another tree "
+                                     "than the per-segment flush")
+    out["flush_ms"] = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"refit: shard of {out['shard_keys']} keys, {out['segments']} "
+          f"segments, {out['runs']} dirty runs of {out['run_keys']} keys "
+          f"(longest {out['longest_run']}) -> {out['segments_fitted']} "
+          f"segments; kernel one call {fmt_ms(out['ms'])} ms, bursts "
+          f"{fmt_ms(out['burst_ms'])}, profiler {fmt_ms(out['device_ms'])}, "
+          f"bound {out['bound_ms']:.4f} ({out['share']:.1%}), twin "
+          f"{out['plain_ms']:.1f} ms; flush per segment "
+          f"{out['flush_ms']['per_segment']:.1f} ms, batched on the host "
+          f"{out['flush_ms']['host']:.1f}, on the card "
+          f"{out['flush_ms']['card']:.1f} (medians of 3, trees equal) "
+          f"[{card}]", flush=True)
+    return out
+
+
 def build_all(_build) -> None:
     """Compile every kernel source at once (one nvcc each, in parallel) and
     print ptxas's register and spill report."""
     from concurrent.futures import ThreadPoolExecutor
-    names = ("fitting_lookup", "flash_attention", "rglru_scan")
+    names = ("fitting_lookup", "flash_attention", "rglru_scan",
+             "shrinking_cone")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(_build.build, names)))
@@ -3754,9 +3881,16 @@ def main() -> int:
     if launches <= 0:
         raise AssertionError("the read path never launched fitting_search")
 
+    from repro_torch.kernels.shrinking_cone import shrinking_cone_runs_cuda
+    refit = refit_phase(torch, dev, card)
+    shrinking_cone_runs_cuda.launches = 0
     fitting_search_cuda.launches = 0
     t0 = time.perf_counter()
     writes = write_path(torch, dev, keys, card)
+    refit["launches_write_path"] = shrinking_cone_runs_cuda.launches
+    if refit["launches_write_path"] <= 0:
+        raise AssertionError("the write path's publishes never launched "
+                             "shrinking_cone")
     write_launches = fitting_search_cuda.launches
     writes["s"] = time.perf_counter() - t0
     print(f"write path: {write_launches} fused kernel launches "
@@ -3892,6 +4026,21 @@ def main() -> int:
                      "n": N_KEYS, "q": Q_KERNEL},
         "breakdown": parts, "fused": fused, "cases": cases,
     }
+    refit_entry = {
+        "name": "shrinking_cone", "route": "cuda",
+        "source": "src/repro_torch/csrc/shrinking_cone.cu",
+        "replaces": "none (the JAX package fits on the host: "
+                    "src/repro/core/segmentation.py shrinking_cone)",
+        "design": "a warp a run, 32 keys a step, the cone by shuffle "
+                  "scans, the break by ballot",
+        "launches": refit["launches_write_path"],
+        "equal": True,
+        **{k: refit[k] for k in ("ms", "burst_ms", "device_ms", "plain_ms",
+                                 "bound_ms", "bound_by", "share",
+                                 "flush_ms")},
+        "headline": {k: refit[k] for k in ("runs", "run_keys",
+                                           "longest_run", "mode")},
+    }
     flash_head = flash_cases[0]
     lm_entries = [{
         "name": "flash_attention", "route": "cuda",
@@ -3980,7 +4129,7 @@ def main() -> int:
                            lm_entries[1]["ms"]))))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
-    print(json.dumps({"kernels": [entry, *lm_entries]}))
+    print(json.dumps({"kernels": [entry, refit_entry, *lm_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import itertools
 import math
 
 import numpy as np
@@ -31,7 +32,7 @@ import numpy as np
 from repro_torch.index.table import (SegmentTable, numpy_lookup, numpy_search,
                                route_keys)
 
-from .segmentation import Mode, Segments, shrinking_cone
+from .segmentation import Mode, Segments, _finalize, shrinking_cone
 
 
 class PackedRouter:
@@ -386,29 +387,77 @@ class FITingTree:
         """Segments whose insert buffer holds keys not yet merged into pages."""
         return [sid for sid, buf in enumerate(self.buffers) if buf]
 
-    def flush(self) -> int:
+    def flush(self, device=None) -> int:
         """Merge every non-empty insert buffer into its page (Alg. 4 lines
         5-9 applied per dirty segment), re-segmenting only those runs.  The
         publish path (repro_torch.index.snapshot); returns #segments re-fit.
 
-        All splices land in one pass (one metadata reconcat + one router
+        Every dirty run is merged at once and fitted by one call of
+        ``shrinking_cone_runs`` on ``device``: the card's kernel for a CUDA
+        device, its host twin for the CPU (None).  Each run's first key
+        opens a segment, so no segment crosses a run, and the segments,
+        pages and slopes are those of ``shrinking_cone`` run by run.  All
+        splices land in one pass (one metadata reconcat + one router
         rebuild), so the cost is O(dirty work + S), not O(dirty * S)."""
         dirty = self.dirty_segments()
         if not dirty:
             return 0
-        self._splice({sid: self._replacement(*self._refit_segment(sid))
-                      for sid in dirty})
+        import torch      # lazy: the tree module loads without torch
+        from repro_torch.kernels.shrinking_cone import shrinking_cone_runs
+        merged, pl_merged, offsets = self._merge_dirty(dirty)
+        dev = torch.device("cpu" if device is None else device)
+        keys = torch.from_numpy(merged)
+        is_start, slope = shrinking_cone_runs(
+            keys if dev.type == "cpu" else keys.to(dev), offsets,
+            self.err_seg, self.mode)
+        starts = np.flatnonzero(is_start.cpu().numpy())
+        segs = _finalize(merged, starts, self.err_seg,
+                         None if slope is None else slope.cpu().numpy()[starts])
+        # each page its own copy: a view would keep the whole merged array
+        # alive while any one of its pages survives later publishes
+        bounds = np.append(starts, merged.shape[0]).tolist()
+        cuts = list(zip(bounds[:-1], bounds[1:]))
+        pages = [merged[a:b].copy() for a, b in cuts]
+        pls = (None if pl_merged is None else
+               [pl_merged[a:b].copy() for a, b in cuts])
+        first = np.searchsorted(starts, offsets).tolist()  # a run's segments
+        replaced = {}
+        for sid, a, b in zip(dirty, first[:-1], first[1:]):
+            replaced[sid] = (segs.start_key[a:b], segs.slope[a:b], pages[a:b],
+                             [None] * (b - a) if pls is None else pls[a:b],
+                             [[] for _ in range(b - a)],
+                             [[] for _ in range(b - a)])
+        self._splice(replaced)
         self._flat_cache = None
         self._table_cache = None
         return len(dirty)
 
-    def _refit_segment(self, sid: int):
-        """Alg. 4 lines 5-7: merge sid's buffer into its page and re-run
-        ShrinkingCone on the merged run.  Pure: returns (pages, payloads|None,
-        segs) for the k >= 1 replacement segments without mutating the tree."""
-        return self._refit_run(self.pages[sid], self.buffers[sid],
-                               None if self.payloads is None else
-                               self.payloads[sid], self.buf_payloads[sid])
+    def _merge_dirty(self, dirty: list[int]):
+        """Alg. 4 lines 5-7's merge for every dirty segment at once: the
+        dirty pages and buffers concatenated in segment order, each buffer
+        key placed in its own segment's page after the page's equal keys.
+        Returns (merged keys, merged payloads|None, run offsets)."""
+        pages = [self.pages[s] for s in dirty]
+        bufs = [self.buffers[s] for s in dirty]
+        n_page = np.fromiter((p.shape[0] for p in pages), np.int64, len(dirty))
+        n_buf = np.fromiter((len(b) for b in bufs), np.int64, len(dirty))
+        page_keys = np.concatenate(pages)
+        buf_keys = np.fromiter(itertools.chain.from_iterable(bufs),
+                               np.float64, int(n_buf.sum()))
+        p_end = np.cumsum(n_page)
+        run = np.repeat(np.arange(len(dirty)), n_buf)
+        # the pages are sorted across segments, so a global search clipped
+        # to the key's own page is that page's side="right" search
+        at = np.clip(np.searchsorted(page_keys, buf_keys, side="right"),
+                     (p_end - n_page)[run], p_end[run])
+        offsets = np.concatenate([[0], np.cumsum(n_page + n_buf)])
+        merged = np.insert(page_keys, at, buf_keys)
+        if self.payloads is None:
+            return merged, None, offsets
+        pl_page = np.concatenate([self.payloads[s] for s in dirty])
+        pl_buf = np.asarray(list(itertools.chain.from_iterable(
+            self.buf_payloads[s] for s in dirty)), dtype=pl_page.dtype)
+        return merged, np.insert(pl_page, at, pl_buf), offsets
 
     def _refit_run(self, page: np.ndarray, buffer: list,
                    pl_page: np.ndarray | None, buf_pl: list):

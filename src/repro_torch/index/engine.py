@@ -263,6 +263,22 @@ def make_engine(table: SegmentTable, backend: str = "cuda", *, device=None,
     return cls(table, **opts)
 
 
+def serving_device(backend: str,
+                   engine_opts: dict[str, dict] | None = None) -> torch.device:
+    """The device ``backend``'s tables serve on: the host for a backend
+    without one (``numpy``), else its ``device`` option, None naming the
+    CUDA card (left unresolved, so asking needs no card)."""
+    try:
+        cls = _BACKENDS[backend]
+    except KeyError:
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"available: {available_backends()}") from None
+    if not getattr(cls, "uses_device", False):
+        return torch.device("cpu")
+    dev = (engine_opts or {}).get(backend, {}).get("device")
+    return torch.device("cuda" if dev is None else dev)
+
+
 def inject_monitor(engine_opts: dict[str, dict] | None,
                    monitor) -> dict[str, dict]:
     """``engine_opts`` with ``monitor`` threaded into every device backend's
@@ -504,6 +520,7 @@ __all__ = [
     "available_backends", "device_index", "inject_monitor", "kernel_lookup",
     "kernel_search", "make_engine", "make_plan", "predict_positions",
     "register_backend",
-    "resolve_device", "snap_leftmost", "snap_side", "torch_lookup",
+    "resolve_device", "serving_device", "snap_leftmost", "snap_side",
+    "torch_lookup",
     "torch_search",
 ]

@@ -52,7 +52,10 @@ launch of the fused search kernel per shard a batch touches, each with its
 own copy in and out) unless the caller names another backend or passes
 ``engine_opts={"cuda": {"device": "cpu"}}``.  Publishing re-converts only the
 dirty shards: a clean shard keeps its snapshot, so its table keeps its cached
-device form (``repro_torch.index.engine.device_index``).
+device form (``repro_torch.index.engine.device_index``).  A publish re-fits
+where the shard's tables serve: on the card (one launch of the batched
+ShrinkingCone kernel a shard) for a backend on a CUDA device, on the host for
+``numpy`` or a CPU device.
 """
 from __future__ import annotations
 
@@ -63,13 +66,15 @@ import warnings
 from typing import TYPE_CHECKING, NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.analysis import sanitizer
 from repro_torch.analysis.contracts import hot_path
 from repro_torch.index.table import (SegmentTable, route_keys,
                                      shard_boundaries, shard_partition)
+from repro_torch.kernels.shrinking_cone import load_library
 
-from .engine import inject_monitor
+from .engine import inject_monitor, serving_device
 from .query import PointResult, RangeResult, check_range, check_side
 from .snapshot import ServingHandle, Snapshot, SnapshotPublisher
 from .telemetry import (CH_PUBLISH, CH_REBALANCE, CH_SERVED_KEYS, Monitor,
@@ -82,6 +87,17 @@ if TYPE_CHECKING:  # runtime import is lazy (fit builds services via plans)
 # reservoir (CH_SERVED_KEYS); keeps the hot-path telemetry cost amortized
 _KEY_SAMPLE_EVERY = 8
 _KEY_SAMPLE_WIDTH = 64
+
+
+def _refit_device(backend: str, engine_opts: dict,
+                  buffer_size: int) -> torch.device:
+    """Where a shard's publish re-fits: where its tables serve.  A service
+    that takes inserts loads the fit kernel's library there now, so that no
+    publish pays for it; a read-only one never re-fits."""
+    device = serving_device(backend, engine_opts)
+    if buffer_size > 0:
+        load_library(device)
+    return device
 
 
 class PackedShardTables(NamedTuple):
@@ -314,7 +330,8 @@ class ShardedIndexService:
                                 payload[offsets[d]:offsets[d] + split.shape[0]]),
                        assume_sorted=True)
             for d, split in enumerate(splits)]
-        self.publishers = [SnapshotPublisher(t, monitor)
+        self._fit_device = _refit_device(backend, engine_opts, buffer_size)
+        self.publishers = [SnapshotPublisher(t, monitor, self._fit_device)
                            for t in self.writers]
         handles = tuple(ServingHandle(engine_opts, monitor)
                         for _ in self.writers)
@@ -614,7 +631,7 @@ class ShardedIndexService:
         t0 = time.perf_counter_ns()
         ss = self._shard_set    # one pinned read, reused through the swap
         for w in self.writers:
-            w.flush()
+            w.flush(self._fit_device)
         merged = np.concatenate([w.as_table().keys for w in self.writers])
         new_bounds = shard_boundaries(merged, self.n_shards)
         if not force and np.array_equal(new_bounds, ss.boundaries):
@@ -717,6 +734,10 @@ class ShardedIndexService:
                 self._shard_set = ShardSet(version=ss.version + 1,
                                            boundaries=ss.boundaries,
                                            handles=handles)
+                self._fit_device = _refit_device(new_plan.backend, engine_opts,
+                                                 self.buffer_size)
+                for pub in self.publishers:
+                    pub.device = self._fit_device
                 if new_plan.n_shards != self.n_shards:
                     new_plan = dataclasses.replace(new_plan,
                                                    n_shards=self.n_shards)
@@ -736,7 +757,7 @@ class ShardedIndexService:
         error/buffer, publish epoch 1 everywhere, swap one fresh ShardSet."""
         from repro_torch.core.tree import FITingTree
         for w in self.writers:
-            w.flush()
+            w.flush(self._fit_device)
         keys = np.concatenate([w.as_table().keys for w in self.writers])
         payload = (np.concatenate([w.payload_column()
                                    for w in self.writers])
@@ -761,7 +782,10 @@ class ShardedIndexService:
                                         + split.shape[0]]),
                        assume_sorted=True)
             for d, split in enumerate(splits)]
-        publishers = [SnapshotPublisher(t, self.monitor) for t in writers]
+        self._fit_device = _refit_device(new_plan.backend, engine_opts,
+                                         buffer_size)
+        publishers = [SnapshotPublisher(t, self.monitor, self._fit_device)
+                      for t in writers]
         handles = tuple(ServingHandle(engine_opts, self.monitor)
                         for _ in writers)
         for pub, handle in zip(publishers, handles):

@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.analysis.sanitizer import make_lock, published_array
 
@@ -77,15 +78,18 @@ class Snapshot:
 class SnapshotPublisher:
     """Write-side: turns a mutable tree into a stream of snapshots.
 
-    Duck-typed on the tree: it needs ``flush()`` (re-fit dirty segments,
-    return how many), ``as_table(epoch=)``, ``payload_column()`` and
-    ``dirty_segments()``, as ``repro.core.tree.FITingTree`` has them.
-    With a ``monitor`` each publish's flush is the ``tree.flush`` span,
-    tagged with the segments it re-fit."""
+    Duck-typed on the tree: it needs ``flush(device)`` (re-fit dirty
+    segments on ``device``, return how many), ``as_table(epoch=)``,
+    ``payload_column()`` and ``dirty_segments()``, as
+    ``repro_torch.core.tree.FITingTree`` has them.  ``device`` is where the
+    published tables serve (None: the host); the re-fit runs there.  With a
+    ``monitor`` each publish's flush is the ``tree.flush`` span, tagged with
+    the segments it re-fit and those of them fitted on a CUDA card."""
 
-    def __init__(self, tree, monitor=None):
+    def __init__(self, tree, monitor=None, device=None):
         self.tree = tree
         self.monitor = monitor
+        self.device = torch.device("cpu" if device is None else device)
         self._epoch = 0
 
     @property
@@ -104,8 +108,8 @@ class SnapshotPublisher:
         to assemble the flat arrays; clean segments are never re-segmented.
         """
         with span(self.monitor, "tree.flush") as sp:
-            n_refit = self.tree.flush()
-            sp.tag(n_refit)
+            n_refit = self.tree.flush(self.device)
+            sp.tag(n_refit, n_refit if self.device.type == "cuda" else 0)
         self._epoch += 1
         table = self.tree.as_table(epoch=self._epoch)
         # freeze-on-publish: the payload column escapes into serving threads

@@ -49,8 +49,10 @@ planner (``repro_torch.index.fit``) leaves open:
                             auto-publish (the publish outside)
       sharded.publish (shard, refit, segments_before, segments_after)
                             one shard's SnapshotPublisher.publish and install
-      tree.flush (refit)    SnapshotPublisher.publish: FITingTree.flush, the
-                            merge and re-fit of the dirty segments
+      tree.flush (refit, refit_on_card)
+                            SnapshotPublisher.publish: FITingTree.flush, the
+                            merge and re-fit of the dirty segments; the
+                            second tag counts those fitted on a CUDA card
       engine.build (keys, segments)
                             ServingHandle: make_engine, the table's device
                             form and its upload

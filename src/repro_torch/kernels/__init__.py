@@ -18,6 +18,11 @@ rglru_scan      -- the RG-LRU linear recurrence over time (``rglru_scan_cuda``,
                    read the inputs, one thread a channel elsewhere; and
                    the same two designs run backwards in time for
                    ``RGLRUScan``'s gradient (``rglru_scan_backward``)
+shrinking_cone  -- ShrinkingCone (Alg. 2) over many sorted runs in one
+                   launch, a warp a run: the re-fit of a shard's dirty
+                   segments at publish (``shrinking_cone_runs_cuda``, its
+                   twin ``shrinking_cone_runs_torch``, and
+                   ``shrinking_cone_runs``, which picks by device)
 ops.py          -- the device-index-level wrapper ``ops.fitting_lookup``
 ref.py          -- the torch oracles ``lookup_ref``, ``attention_ref``,
                    ``rglru_ref``
@@ -29,10 +34,13 @@ from .flash_attention import flash_attention_cuda, flash_attention_torch
 from .ops import LookupPlan, make_lookup_fn, make_plan
 from .ref import attention_ref, lookup_ref, rglru_ref
 from .rglru_scan import rglru_scan_cuda, rglru_scan_torch
+from .shrinking_cone import (shrinking_cone_runs, shrinking_cone_runs_cuda,
+                             shrinking_cone_runs_torch)
 
 __all__ = ["LookupPlan", "attention_ref", "fitting_lookup_cuda",
            "fitting_lookup_torch", "fitting_lookup_window", "fitting_search",
            "fitting_search_cuda", "fitting_search_torch",
            "flash_attention_cuda", "flash_attention_torch", "lookup_ref",
            "make_lookup_fn", "make_plan", "rglru_ref", "rglru_scan_cuda",
-           "rglru_scan_torch"]
+           "rglru_scan_torch", "shrinking_cone_runs",
+           "shrinking_cone_runs_cuda", "shrinking_cone_runs_torch"]

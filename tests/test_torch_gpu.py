@@ -832,3 +832,104 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
                                rtol=1e-4, atol=1e-4)
     for g, w in zip(tree_leaves(got_p), tree_leaves(want_p)):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-3, atol=1e-4)
+
+
+# ------------------------------------------------ the batched ShrinkingCone
+def _bits(t):
+    return t.cpu().view(torch.int64)
+
+
+def _cone_on_card(keys, off, error, mode, dev):
+    from repro_torch.kernels import shrinking_cone as sc
+    want = sc.shrinking_cone_runs_torch(torch.from_numpy(keys), off, error,
+                                        mode)
+    before = sc.shrinking_cone_runs_cuda.launches
+    got = sc.shrinking_cone_runs(torch.from_numpy(keys).to(dev), off, error,
+                                 mode)
+    torch.cuda.synchronize()
+    assert sc.shrinking_cone_runs_cuda.launches == before + 1
+    assert got[0].is_cuda and torch.equal(got[0].cpu(), want[0])
+    if mode == "clamped":
+        assert torch.equal(_bits(got[1]), _bits(want[1]))
+    else:
+        assert got[1] is None and want[1] is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["paper", "clamped"])
+@pytest.mark.parametrize("case", ["short runs", "all duplicates",
+                                  "subnormal spans", "past a warp",
+                                  "past 1e5", "error 0"])
+def test_shrinking_cone_kernel_matches_twin_bit_for_bit(cuda_device, case,
+                                                        mode):
+    from _cone_cases import cone_cases
+    _cone_on_card(*cone_cases()[case], mode, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["paper", "clamped"])
+def test_shrinking_cone_kernel_on_a_weblogs_shards_dirty_runs(cuda_device,
+                                                              mode):
+    """A shard of 2^20 Weblogs-shaped keys with 2,000 buffered inserts: the
+    kernel fits its hundreds of dirty runs as the twin does."""
+    from _cone_cases import weblogs_tree
+    tree = weblogs_tree(2 ** 20, 2000, seed=4, mode=mode)
+    dirty = tree.dirty_segments()
+    assert len(dirty) > 300
+    merged, _, off = tree._merge_dirty(dirty)
+    _cone_on_card(merged, off, tree.err_seg, mode, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["paper", "clamped"])
+def test_flush_on_the_card_launches_once_and_equals_the_host(cuda_device,
+                                                             mode):
+    import copy
+
+    from _cone_cases import weblogs_tree
+    from repro_torch.kernels import shrinking_cone as sc
+    card = weblogs_tree(2 ** 17, 400, seed=5, mode=mode)
+    host = copy.deepcopy(card)
+    before = sc.shrinking_cone_runs_cuda.launches
+    n = card.flush(cuda_device)
+    assert n == host.flush() > 0
+    assert sc.shrinking_cone_runs_cuda.launches == before + 1
+    assert card.flush(cuda_device) == 0          # nothing dirty: no launch
+    assert sc.shrinking_cone_runs_cuda.launches == before + 1
+    assert torch.equal(_bits(torch.from_numpy(card.slopes)),
+                       _bits(torch.from_numpy(host.slopes)))
+    np.testing.assert_array_equal(card.start_keys, host.start_keys)
+    assert len(card.pages) == len(host.pages)
+    assert all(np.array_equal(a, b) for a, b in zip(card.pages, host.pages))
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_service_refits_on_the_card_as_numpy_on_the_host(
+        cuda_device):
+    """A ``cuda``-backend service publishes the tables of a ``numpy``-backend
+    one after the same inserts, through a rebalance too; its flush rows say
+    every re-fit ran on the card, the host's say none did."""
+    from repro_torch.index import ShardedIndexService
+    from repro_torch.index.telemetry import Monitor
+    keys = _dup_keys(120_000, seed=12)
+    kw = dict(error=64, n_shards=4, buffer_size=16, assume_sorted=True)
+    card = ShardedIndexService(keys, monitor=Monitor(), **kw)
+    host = ShardedIndexService(keys, backend="numpy", monitor=Monitor(),
+                               **kw)
+    assert all(p.device.type == "cuda" for p in card.publishers)
+    rng = np.random.default_rng(13)
+    for step in range(3):
+        new = np.concatenate([keys[rng.integers(0, keys.size, 3000)],
+                              np.round(rng.uniform(0, keys[-1], 1000))])
+        for svc in (card, host):
+            svc.insert_many(new)
+            svc.publish()
+            if step == 1:
+                svc.rebalance(force=True)
+        for a, b in zip(card.handles, host.handles):
+            t, r = a.current().table, b.current().table
+            for f in ("start_key", "slope", "base", "seg_end", "keys"):
+                np.testing.assert_array_equal(getattr(t, f), getattr(r, f))
+    rows = card.monitor.channel("span.tree.flush")
+    assert rows[:, 2].sum() > 0 and np.array_equal(rows[:, 3], rows[:, 2])
+    assert not host.monitor.channel("span.tree.flush")[:, 3].any()

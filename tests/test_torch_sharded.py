@@ -513,3 +513,34 @@ def test_insert_many_takes_the_write_lock_once_in_the_declared_order():
                 assert LOCK_RANK[taken] > LOCK_RANK[held], taken
     finally:
         sanitizer.set_enabled(prev)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_publishes_refit_where_the_tables_serve_and_tag_it(backend):
+    """Each shard's publisher re-fits on its tables' device (here the host,
+    for every backend), and a ``tree.flush`` row carries the runs re-fit
+    and, second, those fitted on a card: 0 on the host.  The published
+    tables are the reference service's, through a rebalance too."""
+    from repro_torch.index.telemetry import Monitor
+    keys = _dup_heavy_keys(6000, seed=13)
+    kw = dict(error=32, n_shards=3, buffer_size=8, assume_sorted=True)
+    ours = ShardedIndexService(keys, backend=backend, engine_opts=ON_CPU,
+                               monitor=Monitor(), **kw)
+    ref = RefSharded(keys, backend="numpy", **kw)
+    assert all(p.device.type == "cpu" for p in ours.publishers)
+    new = np.random.default_rng(14).integers(0, 2 ** 20, 900).astype(float)
+    for svc in (ours, ref):
+        for k in new:
+            svc.insert(float(k))
+        svc.publish()
+        svc.rebalance(force=True)
+        for k in new[::3] + 0.5:
+            svc.insert(float(k))
+        svc.publish()
+    rows = ours.monitor.channel("span.tree.flush")
+    assert rows.shape[1] == 4 and rows[:, 2].sum() > 0
+    assert not rows[:, 3].any()
+    for a, b in zip(ours.handles, ref.handles):
+        t, r = a.current().table, b.current().table
+        for f in ("start_key", "slope", "base", "seg_end", "keys"):
+            np.testing.assert_array_equal(getattr(t, f), getattr(r, f))

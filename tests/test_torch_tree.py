@@ -9,12 +9,17 @@ fixed seeds.
 """
 import numpy as np
 import pytest
+import torch
 
+from _cone_cases import MODES, cone_cases, weblogs_tree
 from repro.core.datasets import iot_like, step_data
 from repro.core.tree import FITingTree as RefTree
 from repro.core.tree import PackedRouter as RefRouter
+from repro_torch.core.segmentation import shrinking_cone, shrinking_cone_py
 from repro_torch.core.tree import FITingTree, PackedRouter
 from repro_torch.index import ServingHandle, SnapshotPublisher
+from repro_torch.kernels.shrinking_cone import (shrinking_cone_runs,
+                                                shrinking_cone_runs_cuda)
 
 
 def _uniform(n=5000, seed=0):
@@ -265,3 +270,148 @@ def test_insert_many_refuses_what_insert_refuses():
         tree.insert_many(keys[:3], [1, 2])
     tree.insert_many(np.empty(0))
     assert not tree.dirty_segments()
+
+
+# ------------------------------------------- the batched flush and its fit
+CONE_CASES = cone_cases()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", sorted(CONE_CASES))
+def test_run_fitter_twin_is_shrinking_cone_run_by_run(case, mode):
+    """The host path of ``shrinking_cone_runs`` flags each run's
+    ``shrinking_cone`` starts (and, clamped, gives its slopes) bit for bit;
+    the readable Alg. 2 finds the same starts."""
+    keys, off, error = CONE_CASES[case]
+    is_start, slope = shrinking_cone_runs(torch.from_numpy(keys), off, error,
+                                          mode)
+    assert is_start.dtype == torch.uint8 and is_start.shape == keys.shape
+    assert (slope is None) == (mode == "paper")
+    for a, b in zip(off[:-1].tolist(), off[1:].tolist()):
+        segs = shrinking_cone(keys[a:b], error, mode=mode)
+        np.testing.assert_array_equal(
+            np.flatnonzero(is_start[a:b].numpy()), segs.base)
+        if slope is not None:
+            np.testing.assert_array_equal(slope[a:b].numpy()[segs.base],
+                                          segs.slope)
+        if b - a <= 1000:
+            np.testing.assert_array_equal(
+                shrinking_cone_py(keys[a:b], error, mode=mode).base,
+                segs.base)
+
+
+def test_run_fitter_refuses_what_its_kernel_cannot_take():
+    keys = torch.arange(10, dtype=torch.float64)
+    for off in ([0, 5], [1, 10], [0, 5, 5, 10], [[0, 10]], [0.0, 10.0]):
+        with pytest.raises(ValueError, match="offsets"):
+            shrinking_cone_runs(keys, np.asarray(off), 4)
+    with pytest.raises(ValueError, match="float64"):
+        shrinking_cone_runs(keys.float(), [0, 10], 4)
+    with pytest.raises(ValueError, match="mode"):
+        shrinking_cone_runs(keys, [0, 10], 4, "greedy")
+    with pytest.raises(ValueError, match="CUDA"):
+        shrinking_cone_runs_cuda(keys, [0, 10], 4)
+    with pytest.raises(ValueError, match="no shrinking_cone kernel"):
+        shrinking_cone_runs(keys.to("meta"), [0, 10], 4)
+
+
+def _straddling_keys():
+    """Duplicate runs of up to 120 keys: at error 32 segments start and end
+    inside them, so equal keys sit on both sides of a boundary."""
+    rng = np.random.default_rng(11)
+    return np.repeat(np.arange(0.0, 3000.0, 10.0),
+                     rng.integers(1, 120, 300))
+
+
+def _flush_inserts(scenario, tree):
+    """Keys (one batch) that leave the scenario's dirty segments."""
+    rng = np.random.default_rng(5)
+    keys = tree.as_table().keys
+    if scenario == "one dirty segment":
+        page = tree.pages[tree.n_segments // 2]
+        return page[[0, page.shape[0] // 2, -1]] + 0.25
+    if scenario == "every segment dirty":
+        return tree.start_keys.copy()
+    if scenario == "straddling duplicates":
+        return np.concatenate([tree.start_keys,
+                               keys[rng.integers(0, keys.shape[0], 300)]])
+    # below the first start key, and in every other segment
+    return np.concatenate([keys[0] - rng.uniform(1, 50, 3),
+                           tree.start_keys[1::2] + 0.25])
+
+
+FLUSH_SCENARIOS = ("one dirty segment", "every segment dirty",
+                   "straddling duplicates", "below the first key")
+
+
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("scenario", FLUSH_SCENARIOS)
+def test_batched_flush_gives_the_reference_tree(scenario, mode, payload):
+    """One merge and one fit over every dirty run leave the JAX package's
+    per-segment flush: pages, payload pages, start keys, slopes, buffers,
+    the return value and ``as_table()``."""
+    keys = (_straddling_keys() if scenario == "straddling duplicates"
+            else _uniform(4000, seed=3))
+    pl = np.arange(keys.shape[0]) * 10 if payload else None
+    kw = dict(error=32, buffer_size=8, mode=mode, payload=pl)
+    ours, ref = _pair(keys, **kw)
+    new = _flush_inserts(scenario, ours)
+    vals = -np.arange(new.shape[0]) - 1 if payload else None
+    ours.insert_many(new, None if vals is None else vals.tolist())
+    for i, k in enumerate(new):
+        ref.insert(float(k), None if vals is None else int(vals[i]))
+    _assert_same(ours, ref)
+    dirty = ours.dirty_segments()
+    if scenario == "one dirty segment":
+        assert len(dirty) == 1
+    if scenario == "every segment dirty":
+        assert len(dirty) == ours.n_segments
+    if scenario == "below the first key":
+        assert dirty[0] == 0 and min(ours.buffers[0]) < ours.start_keys[0]
+    assert ours.flush() == ref.flush() == len(dirty)
+    _assert_same(ours, ref)
+    assert ours.flush() == ref.flush() == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_batched_flush_on_a_weblogs_shard_gives_the_reference_tree(mode):
+    """A Weblogs-shaped shard through three publishes of spread inserts."""
+    ours = weblogs_tree(2 ** 15, 0, seed=2, mode=mode)
+    ref = RefTree(ours.as_table().keys, error=64, buffer_size=16, mode=mode,
+                  assume_sorted=True)
+    rng = np.random.default_rng(8)
+    for _ in range(3):
+        keys = ours.as_table().keys
+        new = np.concatenate([keys[rng.integers(0, keys.shape[0], 150)],
+                              np.floor(rng.uniform(0, 2 ** 15, 50))])
+        ours.insert_many(new)
+        for k in new:
+            ref.insert(float(k))
+        assert len(ours.dirty_segments()) > 20
+        assert ours.flush() == ref.flush()
+        _assert_same(ours, ref)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_extract_range_and_splice_run_after_inserts_equal(mode):
+    """Rebalancing's migration flushes first: after inserts that dirty many
+    segments, the batched flush inside it leaves the reference's trees."""
+    keys = _straddling_keys()
+    pl = np.arange(keys.shape[0])
+    ours, ref = _pair(keys, error=32, buffer_size=8, mode=mode, payload=pl)
+    new = keys[::7] + 0.5
+    ours.insert_many(new, [-1] * new.shape[0])
+    for k in new:
+        ref.insert(float(k), -1)
+    lo, hi = keys[keys.shape[0] // 4], keys[keys.shape[0] // 2]
+    got, want = ours.extract_range(lo, hi), ref.extract_range(lo, hi)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    _assert_same(ours, ref)
+    ours.insert_many(got[0][::5] + 0.25, [-2] * got[0][::5].shape[0])
+    for k in got[0][::5] + 0.25:
+        ref.insert(float(k), -2)
+    ours.splice_run(got[0], got[1])
+    ref.splice_run(want[0], want[1])
+    _assert_same(ours, ref)

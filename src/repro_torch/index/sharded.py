@@ -37,10 +37,14 @@ single reference assignment (the same discipline as
 mix old routing with new offsets.  Pass ``auto_rebalance=True`` to trigger
 the check after every ``publish()``.
 
-``stats()`` exposes per-shard observability (epoch, segment count, key count,
-pending inserts, the routing cut *and* the installed snapshot's actual first
-key) and ``service_stats()`` the service-level view (ShardSet version,
-rebalance counters, current imbalance) for cadence tuning and dashboards.
+``metrics()`` exposes the service-level view (ShardSet version, rebalance
+counters, current imbalance, query counters) and one row per shard (epoch,
+segment count, key count, pending inserts, the routing cut *and* the
+installed snapshot's actual first key) for cadence tuning and dashboards.
+
+Every read verb pins one :class:`PinnedView` and answers through one routing
+loop, which a view of one shard skips: ``IndexService`` is this service at
+one shard.
 
 ``pack_shard_tables`` is the shared builder bridge: it pads a list of
 per-shard ``SegmentTable``s into rectangular (D, S_max) metadata arrays, the
@@ -175,6 +179,18 @@ class ShardSet:
         # its routing column change underneath it (freeze copies scratch views)
         object.__setattr__(self, "boundaries",
                            sanitizer.published_array(self.boundaries))
+
+
+@dataclasses.dataclass(frozen=True)
+class PinnedView:
+    """One read verb's pinned view: a ShardSet and, from one pin of each of
+    its handles, every shard's snapshot and engine, with the rank offsets
+    and total key count of those snapshots."""
+    shard_set: ShardSet
+    snaps: tuple[Snapshot, ...]
+    engines: tuple               # one LookupEngine per shard, same order
+    offsets: np.ndarray          # (D,) i64 keys in the preceding snapshots
+    n_keys: int                  # keys in all the pinned snapshots
 
 
 @dataclasses.dataclass(frozen=True)
@@ -428,7 +444,7 @@ class ShardedIndexService:
     def stats(self) -> list[ShardStats]:
         """Deprecated: use :meth:`metrics`\\ ``().shards``.  Per-shard
         observability sample in the legacy ``ShardStats`` shape."""
-        warnings.warn("ShardedIndexService.stats() is deprecated; use "
+        warnings.warn(f"{type(self).__name__}.stats() is deprecated; use "
                       "metrics().shards", DeprecationWarning, stacklevel=2)
         m = self.metrics()
         return [ShardStats(shard=s.shard, boundary=s.boundary, epoch=s.epoch,
@@ -441,8 +457,9 @@ class ShardedIndexService:
     def service_stats(self) -> dict:
         """Deprecated: use :meth:`metrics`.  The legacy service-level dict,
         derived field-for-field from the typed snapshot."""
-        warnings.warn("ShardedIndexService.service_stats() is deprecated; "
-                      "use metrics()", DeprecationWarning, stacklevel=2)
+        warnings.warn(f"{type(self).__name__}.service_stats() is "
+                      "deprecated; use metrics()", DeprecationWarning,
+                      stacklevel=2)
         m = self.metrics()
         return {"version": m.shard_set_version,
                 "n_shards": m.n_shards,
@@ -555,7 +572,7 @@ class ShardedIndexService:
         With ``auto_rebalance=True`` a skew check runs after the sweep and
         may recut boundaries (see :meth:`rebalance`); a recut that is
         impossible (fewer distinct keys than shards) is skipped and counted
-        in ``service_stats()['rebalance_skipped']``.
+        in ``metrics().rebalance_skipped``.
         """
         with self._write_lock:
             t0 = time.perf_counter_ns()
@@ -616,7 +633,7 @@ class ShardedIndexService:
         Readers never block: an in-flight lookup keeps the old set, whose
         retired snapshots still serve their own epochs correctly.
 
-        Returns a summary dict (also kept in ``service_stats()``):
+        Returns a summary dict (also kept as ``metrics().last_rebalance``):
         version, keys moved, and the imbalance before/after.
         """
         with self._write_lock:
@@ -802,92 +819,80 @@ class ShardedIndexService:
         return new_plan
 
     # -------------------------------------------------------------- read path
-    def lookup(self, queries, backend: str | None = None) -> np.ndarray:
-        """Global rank of each query across the current shard snapshots, -1
-        if absent.  Queries are routed to their owning shard and answered by
-        that shard's engine; local ranks are lifted to global ranks with the
-        preceding shards' snapshot key counts.
-
-        The ``ShardSet`` is pinned once (a single reference read), then all
-        shard engines are pinned from it up front, so the routing, the
-        offsets and the answers come from one self-consistent view even if a
-        publish or rebalance lands mid-batch (engines are cached per snapshot
-        per backend inside each handle, so pinning is an O(1) dict hit after
-        the first call)."""
-        backend = backend or self.default_backend
-        self._count("points", int(np.size(queries)))
-        self._sample_keys(queries)
-        with sanitizer.pin_scope("lookup"):
-            ss = self._pin_shard_set()              # pin the routing view
-            if len(ss.handles) == 1:                # the IndexService path
-                return ss.handles[0].lookup(queries, backend)
-            engines = [h.engine(backend) for h in ss.handles]
-            q = np.asarray(queries, np.float64)
-            sid = route_keys(ss.boundaries, q)
-            sizes = [e.table.n_keys for e in engines]
-            offsets = np.concatenate([[0],
-                                      np.cumsum(sizes)[:-1]]).astype(np.int64)
-            out = np.full(q.shape, -1, np.int64)
-            for d in np.unique(sid):
-                mask = sid == d
-                local = np.asarray(engines[d].lookup(q[mask]), np.int64)
-                out[mask] = np.where(local >= 0, local + offsets[d], -1)
-            return out
-
-    # ------------------------------------------------------ typed query plane
-    def _pin_view(self, backend: str | None):
+    def _pin_view(self, backend: str | None) -> PinnedView:
         """Pin ONE consistent read view: the current ShardSet, plus each
         shard's (snapshot, engine) resolved from the same per-handle pin, so
         routing, rank offsets, materialized keys/payloads and answers all
         come from a single epoch combination -- a concurrent publish or
-        rebalance can never tear a scan that already pinned its view."""
+        rebalance can never tear a batch or a scan that already pinned its
+        view.  Engines are cached per snapshot per backend inside each
+        handle, so pinning is an O(1) dict hit after the first call."""
         backend = backend or self.default_backend
         ss = self._pin_shard_set()
         states = [h._pin() for h in ss.handles]
-        engines = [h._engine_from(st, backend)
-                   for h, st in zip(ss.handles, states)]
-        snaps = [st[0] for st in states]
+        engines = tuple(h._engine_from(st, backend)
+                        for h, st in zip(ss.handles, states))
+        snaps = tuple(st[0] for st in states)
         sizes = np.asarray([s.n_keys for s in snaps], np.int64)
         offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-        return ss, snaps, engines, offsets, int(sizes.sum())
+        return PinnedView(ss, snaps, engines, offsets, int(sizes.sum()))
 
-    def _search_view(self, view, queries, side: str) -> np.ndarray:
-        """Global insertion ranks against a pinned view: route each query,
-        bounded-search its shard, lift by the preceding snapshot key counts.
-        Exact because shard cuts are duplicate-safe: no run straddles a
-        shard, so local searchsorted + offset == global searchsorted.
+    def _routed(self, view: PinnedView, queries, per_shard,
+                keep_absent: bool = False) -> np.ndarray:
+        """The read path's one routing loop: global i64 ranks of ``queries``
+        against a pinned view.  Each query goes to its owning shard, whose
+        engine answers ``per_shard(engine, shard_queries)`` with local ranks,
+        lifted by the preceding snapshots' key counts (a ``-1`` stays ``-1``
+        where ``keep_absent``).  Exact because shard cuts are duplicate-safe:
+        no run straddles a shard, so local rank + offset == global rank.
 
         A view of one shard routes every query to shard 0 at offset 0, so
         its engine answers the f64 queries as they are: no route, no gather,
         no lift and no scatter.  ``service.route`` is tagged with the view's
         shard count; at one shard it times the f64 conversion and the check,
         and no ``service.scatter`` is recorded."""
-        ss, _, engines, offsets, _ = view
         mon = self.monitor
-        n_shards = len(engines)
+        n_shards = len(view.engines)
         with span(mon, "service.route", n_shards):
             q = np.asarray(queries, np.float64)
             if n_shards > 1:
-                sid = route_keys(ss.boundaries, q)
+                sid = route_keys(view.shard_set.boundaries, q)
                 shards = np.unique(sid)
                 out = np.empty(q.shape, np.int64)
         if n_shards == 1:
-            return np.asarray(engines[0].search(q, side), np.int64)
+            return np.asarray(per_shard(view.engines[0], q), np.int64)
         for d in shards:
             with span(mon, "service.scatter"):
                 mask = sid == d
                 qd = q[mask]
-            local = engines[d].search(qd, side)
+            local = per_shard(view.engines[d], qd)
             # free each batch-sized temporary as soon as it is spent: held to
             # the return, they leave the allocator a free top to give back,
             # and every call then faults its pages in again
             del qd
             with span(mon, "service.scatter"):
-                lifted = np.asarray(local, np.int64) + offsets[d]
+                lifted = np.asarray(local, np.int64) + view.offsets[d]
+                if keep_absent:
+                    lifted[local < 0] = -1
                 del local
                 out[mask] = lifted
                 del lifted
         return out
+
+    def _search_view(self, view: PinnedView, queries,
+                     side: str) -> np.ndarray:
+        """Global insertion ranks against a pinned view: the routed
+        ``search`` primitive the other verbs here derive from."""
+        return self._routed(view, queries, lambda e, qd: e.search(qd, side))
+
+    def lookup(self, queries, backend: str | None = None) -> np.ndarray:
+        """Global rank of each query across the current shard snapshots, -1
+        if absent, all against one pinned view (:meth:`_pin_view`)."""
+        self._count("points", int(np.size(queries)))
+        self._sample_keys(queries)
+        with sanitizer.pin_scope("lookup"):
+            return self._routed(self._pin_view(backend), queries,
+                                lambda e, qd: e.lookup(qd), keep_absent=True)
 
     def search(self, queries, side: str = "left",
                backend: str | None = None) -> np.ndarray:
@@ -910,26 +915,14 @@ class ShardedIndexService:
             mon.record_many(CH_SERVED_KEYS, q[:_KEY_SAMPLE_WIDTH])
 
     def point(self, queries, backend: str | None = None) -> PointResult:
-        """Typed membership: global leftmost rank + found flag per query."""
+        """Typed membership: global leftmost rank + found flag per query
+        (each shard's engine checks equality on the f64 queries)."""
         with sanitizer.pin_scope("point"):
             view = self._pin_view(backend)
-            _, _, engines, offsets, _ = view
-            ss = view[0]
-            q = np.asarray(queries, np.float64)
-            self._count("points", int(q.size))
-            if len(engines) == 1:                   # shard 0, offset 0
-                res = engines[0].point(q)
-                return PointResult(rank=np.where(res.found, res.rank, -1),
-                                   found=res.found)
-            sid = route_keys(ss.boundaries, q)
-            rank = np.full(q.shape, -1, np.int64)
-            found = np.zeros(q.shape, bool)
-            for d in np.unique(sid):
-                mask = sid == d
-                res = engines[d].point(q[mask])
-                found[mask] = res.found
-                rank[mask] = np.where(res.found, res.rank + offsets[d], -1)
-            return PointResult(rank=rank, found=found)
+            self._count("points", int(np.size(queries)))
+            rank = self._routed(view, queries, lambda e, qd: e.point(qd).rank,
+                                keep_absent=True)
+            return PointResult(rank=rank, found=rank >= 0)
 
     def count(self, lo, hi, backend: str | None = None) -> np.ndarray:
         """Keys in the inclusive ``[lo, hi]`` ranges (vectorized), resolved
@@ -959,15 +952,16 @@ class ShardedIndexService:
     def _range_pinned(self, lo, hi, *, materialize: bool,
                       backend: str | None) -> RangeResult:
         view = self._pin_view(backend)
-        ss, snaps, engines, offsets, _ = view
+        bounds, snaps, offsets = (view.shard_set.boundaries, view.snaps,
+                                  view.offsets)
         self._count("ranges", 1)
         lo_rank = int(self._search_view(view, np.asarray([lo]), "left")[0])
         hi_rank = max(int(self._search_view(view, np.asarray([hi]),
                                             "right")[0]), lo_rank)
         keys = payload = None
         if materialize:
-            d0 = int(route_keys(ss.boundaries, np.float64(lo)))
-            d1 = int(route_keys(ss.boundaries, np.float64(hi)))
+            d0 = int(route_keys(bounds, np.float64(lo)))
+            d1 = int(route_keys(bounds, np.float64(hi)))
             k_parts, p_parts = [], []
             for d in range(d0, d1 + 1):
                 n_d = snaps[d].n_keys
@@ -991,19 +985,16 @@ class ShardedIndexService:
         occurrence), found=False where every key is above the query."""
         with sanitizer.pin_scope("predecessor"):
             view = self._pin_view(backend)
-            q = np.asarray(queries, np.float64)
-            self._count("predecessors", int(q.size))
-            rank = self._search_view(view, q, "right") - 1
-            found = rank >= 0
-            return PointResult(rank=np.where(found, rank, -1), found=found)
+            self._count("predecessors", int(np.size(queries)))
+            rank = self._search_view(view, queries, "right") - 1
+            return PointResult(rank=rank, found=rank >= 0)
 
     def successor(self, queries, backend: str | None = None) -> PointResult:
         """Global rank of the smallest key >= each query (leftmost
         occurrence), found=False where every key is below the query."""
         with sanitizer.pin_scope("successor"):
             view = self._pin_view(backend)
-            q = np.asarray(queries, np.float64)
-            self._count("successors", int(q.size))
-            rank = self._search_view(view, q, "left")
-            found = rank < view[4]
+            self._count("successors", int(np.size(queries)))
+            rank = self._search_view(view, queries, "left")
+            found = rank < view.n_keys
             return PointResult(rank=np.where(found, rank, -1), found=found)

@@ -30,9 +30,11 @@ planner (``repro_torch.index.fit``) leaves open:
   a trace shows it over the device work it launched.  The spans:
 
       service.route (n_shards)
-                            ShardedIndexService._search_view: queries to
-                            f64, route_keys, np.unique; at one shard only
-                            the f64 conversion and the shard-count check
+                            ShardedIndexService._routed, the routing loop of
+                            lookup, search (and the verbs derived from it)
+                            and point: queries to f64, route_keys,
+                            np.unique; at one shard only the f64 conversion
+                            and the shard-count check
       service.scatter       the same, past one shard: a shard's mask and
                             gather, and the lifted scatter back (the
                             engine call outside)

@@ -290,6 +290,10 @@ def test_one_shard_service_answers_unrouted_like_the_reference(backend,
         assert pt.rank.dtype == np.int64 and pt.rank.shape == np.shape(q)
         np.testing.assert_array_equal(pt.rank, np.where(found, left, -1))
         np.testing.assert_array_equal(pt.found, found)
+        hit = ours.lookup(q)
+        assert hit.dtype == np.int64 and hit.shape == np.shape(q)
+        np.testing.assert_array_equal(hit, ref.lookup(q))
+        np.testing.assert_array_equal(hit, np.where(found, left, -1))
         for a, b in ((pt, pt_ref), (ours.predecessor(q), ref.predecessor(q)),
                      (ours.successor(q), ref.successor(q))):
             np.testing.assert_array_equal(a.rank, b.rank)
@@ -308,6 +312,40 @@ def test_one_shard_service_answers_unrouted_like_the_reference(backend,
         np.testing.assert_array_equal(got.keys, want.keys)
     assert dataclasses.asdict(ours.metrics()) == \
         dataclasses.asdict(ref.metrics())
+
+
+def test_index_service_is_the_sharded_service_at_one_shard():
+    """``IndexService`` is ``ShardedIndexService`` with one shard through a
+    plan and ``apply_plan``, equal to the reference's service there, and its
+    deprecated ``stats()`` / ``service_stats()`` warn under its own name and
+    equal the reference's."""
+    keys = _dup_heavy_keys(3000, seed=13)
+    ours = IndexService.from_plan(
+        keys, IndexPlan(error=32, n_shards=3, buffer_size=8),
+        engine_opts=ON_CPU, assume_sorted=True)
+    ref = RefService.from_plan(
+        keys, RefPlan(error=32, n_shards=3, buffer_size=8),
+        assume_sorted=True)
+    assert isinstance(ours, ShardedIndexService)
+    assert not hasattr(ours, "_sharded")
+    assert ours.n_shards == ours.plan.n_shards == 1
+    plan = ours.apply_plan(ours.plan.replace(error=16, n_shards=4))
+    ref_plan = ref.apply_plan(ref.plan.replace(error=16, n_shards=4))
+    assert (plan.error, plan.n_shards) == \
+        (ref_plan.error, ref_plan.n_shards) == (16, 1)
+    assert ours.n_shards == 1 and ours.epoch == ref.epoch == 1
+    assert ours.tree is ours.writers[0] and ours.handle is ours.handles[0]
+    with pytest.warns(DeprecationWarning, match=r"^IndexService\.stats\(\)"):
+        got = ours.stats()
+    with pytest.warns(DeprecationWarning):
+        want = ref.stats()
+    assert [dataclasses.asdict(s) for s in got] == \
+        [dataclasses.asdict(s) for s in want]
+    with pytest.warns(DeprecationWarning,
+                      match=r"^IndexService\.service_stats\(\)"):
+        got = ours.service_stats()
+    with pytest.warns(DeprecationWarning):
+        assert got == ref.service_stats()
 
 
 def test_services_default_to_the_card():

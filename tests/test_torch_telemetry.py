@@ -360,11 +360,11 @@ def test_one_shard_search_records_every_span_and_answers_alike(backend):
         answers.append(got)
         if mon is not None:
             # one shard answers unrouted: no scatter, every route row
-            # tagged with the view's one shard
+            # (both searches and the lookup) tagged with the view's one shard
             assert _spans(mon) == SERVICE_SPANS
             route = mon.channel("span.service.route")
-            assert route.shape == (2, 3)
-            np.testing.assert_array_equal(route[:, 2], [1, 1])
+            assert route.shape == (3, 3)
+            np.testing.assert_array_equal(route[:, 2], [1, 1, 1])
             # every engine call stages once and casts once
             assert mon.count("span.engine.stage") == \
                 mon.count("span.engine.cast") == 3
@@ -375,8 +375,35 @@ def test_one_shard_search_records_every_span_and_answers_alike(backend):
         np.testing.assert_array_equal(ours, plain)
 
 
+# each routed verb as two calls (`_routed_oracle` gives their answers)
+ROUTED_VERBS = {
+    "search": lambda svc, q: [svc.search(q, "left"), svc.search(q, "right")],
+    "lookup": lambda svc, q: [svc.lookup(q), svc.lookup(q[::-1])],
+    "point": lambda svc, q: [svc.point(q).rank, svc.point(q[::-1]).rank],
+}
+
+
+def _routed_oracle(verb, keys, q):
+    if verb == "search":
+        return [np.searchsorted(keys, q, side) for side in ("left", "right")]
+    out = []
+    for x in (q, q[::-1]):
+        left = np.searchsorted(keys, x, "left")
+        hit = (left < keys.size) & (keys[np.minimum(left, keys.size - 1)]
+                                    == x)
+        out.append(np.where(hit, left, -1))
+    return out
+
+
+@pytest.mark.parametrize("verb", sorted(ROUTED_VERBS))
 @pytest.mark.parametrize("backend", ["dispatch", "cuda"])
-def test_routed_search_records_the_scatter_and_tags_the_shard_count(backend):
+def test_routed_search_records_the_scatter_and_tags_the_shard_count(backend,
+                                                                    verb):
+    """Every routed read verb (``search``, ``lookup``, ``point``) goes
+    through the one routing loop: a ``service.route`` row tagged with the
+    shard count a call, a gather and a scatter row for each shard the batch
+    reaches, and answers equal to the unmonitored service's and the
+    oracle's."""
     keys = np.sort(np.random.default_rng(2).integers(
         0, 2 ** 20, 40_000)).astype(np.float64)
     q = np.concatenate([keys[::7], np.random.default_rng(3).integers(
@@ -390,7 +417,7 @@ def test_routed_search_records_the_scatter_and_tags_the_shard_count(backend):
             engine_opts={**ALL_ON_CPU, "dispatch": {
                 **CPU, "small_max": 4, "large_min": 300}},
             assume_sorted=True)
-        answers.append([svc.search(q, "left"), svc.search(q, "right")])
+        answers.append(ROUTED_VERBS[verb](svc, q))
         if mon is not None:
             assert _spans(mon) == ROUTED_SPANS
             route = mon.channel("span.service.route")
@@ -400,10 +427,10 @@ def test_routed_search_records_the_scatter_and_tags_the_shard_count(backend):
             assert mon.count("span.service.scatter") == 2 * 2 * 3
             assert mon.count("span.engine.stage") == \
                 mon.count("span.engine.cast") == 2 * 3
-    for ours, plain, side in zip(*answers, ("left", "right")):
+    for ours, plain, want in zip(*answers, _routed_oracle(verb, keys, q)):
         assert ours.dtype == plain.dtype == np.int64
         np.testing.assert_array_equal(ours, plain)
-        np.testing.assert_array_equal(ours, np.searchsorted(keys, q, side))
+        np.testing.assert_array_equal(ours, want)
 
 
 def test_lsm_read_through_spill_and_compaction_records_every_span():

@@ -66,11 +66,12 @@ the port's sources are missing.  Phases, each of which raises on failure:
    advance that shard's epoch alone and re-upload its device form alone;
    a rebalance, which must act; four more publish cycles, after each of
    which ``memory_allocated`` must stay within one generation of the
-   shards' device forms plus ``MEM_SLACK``.  Every verb at 2^20 queries
-   equals ``np.searchsorted`` on the merged column after each step.  Then
-   one ``IndexService`` on the dispatch backend with the cost model's
-   thresholds (the tier each of 1, 1,000 and 2^20 takes), 300 dispatch
-   batches of mixed sizes under a ``Monitor``, and one
+   shards' device forms and the view's (the shards end to end, which a read
+   past one shard searches in one launch) plus ``MEM_SLACK``.  Every verb
+   at 2^20 queries equals ``np.searchsorted`` on the merged column after
+   each step.  Then one ``IndexService`` on the dispatch backend with the
+   cost model's thresholds (the tier each of 1, 1,000 and 2^20 takes), 300
+   dispatch batches of mixed sizes under a ``Monitor``, and one
    ``Replanner.replan()``.  It prints inserts a second, publish walls,
    ``search`` host walls (median of 5) at the three batch sizes, device
    memory per cycle and the thresholds before and after, each with the
@@ -842,6 +843,14 @@ def device_forms(svc, dev):
     return [h.current().table._device_cache.get(dev) for h in svc.handles]
 
 
+def view_form(svc, dev):
+    """The device form of the service's last pinned view past one shard
+    (None before one was read on ``dev``)."""
+    view = svc._view
+    return None if view is None else \
+        view[2].current().table._device_cache.get(dev)
+
+
 def forms_bytes(forms) -> int:
     """Bytes of device forms (keys and four segment fields; None skipped)."""
     return sum(f.keys.numel() * 4 + f.seg_start.numel() * 16
@@ -876,9 +885,10 @@ def search_walls(svc, keys, rng, backend=None):
 
 
 def engine_walls(svc, keys, rng) -> float:
-    """Median host wall (ms) of the shards' cuda engine calls alone, each
-    on its share of Q_KERNEL queries routed beforehand: the part of a
-    sharded search that is not routing and stitching on the host."""
+    """Median host wall (ms) of the shards' own cuda engine calls, each on
+    its share of Q_KERNEL queries routed beforehand: what a sharded search
+    that routed on the host spent in its engines, beside the one engine
+    call over the view that answers it now."""
     from repro_torch.index.table import route_keys
     q = make_queries(keys, Q_KERNEL, rng)
     sid = route_keys(svc.boundaries, q)
@@ -1022,23 +1032,23 @@ def write_path(torch, dev, keys, card):
         torch.cuda.synchronize()
         gc.collect()
         mem.append(torch.cuda.memory_allocated() - mem_base)
-        gen = forms_bytes(device_forms(svc, dev))
+        gen = forms_bytes(device_forms(svc, dev) + [view_form(svc, dev)])
     rec["memory_bytes"] = mem
     rec["generation_bytes"] = gen
     print(f"memory_allocated above the phase's start after each of 4 publish "
           f"cycles: {[m / 2 ** 20 for m in mem]} MiB; one generation of the "
-          f"shards' device forms {gen / 2 ** 20:.2f} MiB + slack "
-          f"{MEM_SLACK / 2 ** 20:.0f} MiB {tag}", flush=True)
+          f"shards' and the view's device forms {gen / 2 ** 20:.2f} MiB + "
+          f"slack {MEM_SLACK / 2 ** 20:.0f} MiB {tag}", flush=True)
     if max(mem) > gen + MEM_SLACK:
         raise AssertionError(f"device memory grew across publish cycles: "
                              f"{mem} bytes against {gen} + {MEM_SLACK}")
     rec["sharded_search_ms"] = search_walls(svc, keys, rng)
     rec["sharded_engines_ms"] = engine_walls(svc, keys, rng)
     print(f"search(left) of {Q_KERNEL} queries over {WRITE_SHARDS} shards: "
-          f"{rec['sharded_search_ms'][Q_KERNEL]:.3f} ms host wall, of which "
-          f"the {WRITE_SHARDS} engine calls on pre-routed queries take "
-          f"{rec['sharded_engines_ms']:.3f} ms; routing and stitching on "
-          f"the host the rest {tag}", flush=True)
+          f"{rec['sharded_search_ms'][Q_KERNEL]:.3f} ms host wall, one "
+          f"engine call over the view; the {WRITE_SHARDS} shards' own engine "
+          f"calls on pre-routed queries take {rec['sharded_engines_ms']:.3f} "
+          f"ms {tag}", flush=True)
     del svc
     gc.collect()
 

@@ -15,7 +15,8 @@ Module map:
                  ``DeviceIndex`` device form, and ``DispatchEngine``
   snapshot.py -- ``Snapshot`` + ``ServingHandle`` atomic swap into serving
   sharded.py  -- ``ShardedIndexService``: N key-partitioned writers with
-                 per-shard epoch streams; ``pack_shard_tables``
+                 per-shard epoch streams, read through one ``ViewTable``
+                 (the pinned shards end to end); ``pack_shard_tables``
   fit.py      -- ``FitSpec`` -> ``plan()`` -> ``IndexPlan`` -> ``open_index``:
                  the Sec. 6 cost model resolving SLOs into every knob above
   lsm.py      -- ``LsmIndexService``: memtable -> learned runs -> size-tiered

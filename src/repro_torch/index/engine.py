@@ -67,20 +67,26 @@ def resolve_device(device=None) -> torch.device:
 def device_index(table: SegmentTable, device=None) -> DeviceIndex:
     """Convert (and cache on the table, per device -- snapshots are shared
     by engines).  Table arrays are read-only, so each is copied into a fresh
-    tensor rather than shared."""
+    tensor rather than shared.  A table with an ``assemble(device)`` method
+    (a sharded view's, ``repro_torch.index.sharded.ViewTable``) builds its
+    device form itself, from its parts' device forms."""
     dev = resolve_device(device)
     idx = table._device_cache.get(dev)
     if idx is None:
-        def put(arr, dtype):
-            return torch.tensor(np.asarray(arr, dtype), device=dev)
-        idx = DeviceIndex(
-            seg_start=put(table.start_key, np.float32),
-            slope=put(table.slope, np.float32),
-            base=put(table.base, np.int32),
-            seg_end=put(table.seg_end, np.int32),
-            keys=put(table.keys, np.float32),
-            error=int(table.error),
-        )
+        assemble = getattr(table, "assemble", None)
+        if assemble is not None:
+            idx = assemble(dev)
+        else:
+            def put(arr, dtype):
+                return torch.tensor(np.asarray(arr, dtype), device=dev)
+            idx = DeviceIndex(
+                seg_start=put(table.start_key, np.float32),
+                slope=put(table.slope, np.float32),
+                base=put(table.base, np.int32),
+                seg_end=put(table.seg_end, np.int32),
+                keys=put(table.keys, np.float32),
+                error=int(table.error),
+            )
         table._device_cache[dev] = idx
     return idx
 

@@ -42,21 +42,26 @@ counters, current imbalance, query counters) and one row per shard (epoch,
 segment count, key count, pending inserts, the routing cut *and* the
 installed snapshot's actual first key) for cadence tuning and dashboards.
 
-Every read verb pins one :class:`PinnedView` and answers through one routing
-loop, which a view of one shard skips: ``IndexService`` is this service at
-one shard.
+Every read verb pins one :class:`PinnedView` and answers with one engine
+call.  Past one shard the view's engine runs over a :class:`ViewTable`: the
+pinned snapshots' tables end to end, one error-bounded table over the whole
+column, so the engine's own segment route takes the place of a shard route
+and its ranks are global.  A view of one shard answers from shard 0's own
+engine: ``IndexService`` is this service at one shard.
 
 ``pack_shard_tables`` is the shared builder bridge: it pads a list of
 per-shard ``SegmentTable``s into rectangular (D, S_max) metadata arrays, the
 form a device-sharded plane consumes.
 
-Port of ``repro.index.sharded`` (host code, copied).  Raw-knob services
-default to the ``cuda`` backend, so each shard serves on the CUDA card (one
-launch of the fused search kernel per shard a batch touches, each with its
-own copy in and out) unless the caller names another backend or passes
-``engine_opts={"cuda": {"device": "cpu"}}``.  Publishing re-converts only the
-dirty shards: a clean shard keeps its snapshot, so its table keeps its cached
-device form (``repro_torch.index.engine.device_index``).  A publish re-fits
+Port of ``repro.index.sharded`` (host code, copied; the view table is the
+port's own).  Raw-knob services default to the ``cuda`` backend, so a read
+serves on the CUDA card (one launch of the fused search kernel over the
+view, with one copy in and one out) unless the caller names another backend
+or passes ``engine_opts={"cuda": {"device": "cpu"}}``.  Publishing
+re-converts only the dirty shards: a clean shard keeps its snapshot, so its
+table keeps its cached device form
+(``repro_torch.index.engine.device_index``), from which the next view's form
+is assembled on the device.  A publish re-fits
 where the shard's tables serve: on the card (one launch of the batched
 ShrinkingCone kernel a shard) for a backend on a CUDA device, on the host for
 ``numpy`` or a CPU device.
@@ -64,6 +69,7 @@ ShrinkingCone kernel a shard) for a backend on a CUDA device, on the host for
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 import warnings
@@ -78,7 +84,9 @@ from repro_torch.index.table import (SegmentTable, route_keys,
                                      shard_boundaries, shard_partition)
 from repro_torch.kernels.shrinking_cone import load_library
 
-from .engine import inject_monitor, serving_device
+from .device import DeviceIndex
+from .engine import (LookupEngine, device_index, inject_monitor,
+                     serving_device)
 from .query import PointResult, RangeResult, check_range, check_side
 from .snapshot import ServingHandle, Snapshot, SnapshotPublisher
 from .telemetry import (CH_PUBLISH, CH_REBALANCE, CH_SERVED_KEYS, Monitor,
@@ -181,14 +189,96 @@ class ShardSet:
                            sanitizer.published_array(self.boundaries))
 
 
+class ViewTable:
+    """The pinned snapshots' tables end to end: one table over the column.
+
+    Duplicate-safe cuts, and inserts that land by routing, put every key of
+    shard d-1 below every key of shard d.  So the non-empty tables end to
+    end -- ``base`` and ``seg_end`` raised by the keys of the preceding
+    snapshots -- are one valid error-bounded table: each segment still
+    predicts its keys within its shard's error, the start keys still
+    ascend, and a window crossing a shard edge crosses into keys all below
+    the query on the left or all above it on the right.  So an engine's
+    ranks over it are the global ranks.  ``error`` is the largest shard
+    error (a wider window stays exact).
+
+    Its device form is assembled on the device from the shards' cached
+    forms (:meth:`assemble`, called by ``engine.device_index``), so a clean
+    shard is never uploaded again.  The host arrays (:attr:`host`) are built
+    only when a host path first asks, e.g. the ``numpy`` tier or
+    ``point``'s f64 compare."""
+
+    def __init__(self, tables: Sequence[SegmentTable], offsets: Sequence[int],
+                 monitor: Monitor | None = None):
+        self.tables = tuple(tables)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.n_keys = self.offsets[-1] + self.tables[-1].n_keys
+        self.n_segments = sum(t.n_segments for t in self.tables)
+        self.error = max(int(t.error) for t in self.tables)
+        self.monitor = monitor
+        self._device_cache: dict = {}
+
+    @classmethod
+    def of(cls, snaps: Sequence[Snapshot], offsets: np.ndarray,
+           monitor: Monitor | None = None) -> "ViewTable | SegmentTable":
+        """The view of ``snaps`` at their rank ``offsets``: an empty shard
+        adds nothing, and with no keys at all it is an empty table."""
+        parts = [(s.table, o) for s, o in zip(snaps, offsets.tolist())
+                 if s.n_keys]
+        if not parts:
+            return SegmentTable.empty(max(s.table.error for s in snaps))
+        tables, offs = zip(*parts)
+        return cls(tables, offs, monitor)
+
+    def assemble(self, device: torch.device) -> DeviceIndex:
+        """The device form: each shard's cached form (uploaded where it has
+        none yet), concatenated on ``device``, ``base`` and ``seg_end``
+        raised by the shard's offset there.  Positions must fit the form's
+        int32."""
+        if self.n_keys > 2 ** 31 - 1:
+            raise ValueError(f"a view of {self.n_keys} keys does not fit the "
+                             "device form's int32 positions")
+        with span(self.monitor, "service.view_build", len(self.tables),
+                  self.n_segments):
+            forms = [device_index(t, device) for t in self.tables]
+
+            def cat(field, lift=False):
+                return torch.cat([getattr(f, field) + o if lift
+                                  else getattr(f, field)
+                                  for f, o in zip(forms, self.offsets)])
+            return DeviceIndex(seg_start=cat("seg_start"), slope=cat("slope"),
+                               base=cat("base", True),
+                               seg_end=cat("seg_end", True), keys=cat("keys"),
+                               error=self.error)
+
+    @functools.cached_property
+    def host(self) -> SegmentTable:
+        """The host arrays, built on first use."""
+        def cat(field, lift=False):
+            return np.concatenate([getattr(t, field) + o if lift
+                                   else getattr(t, field)
+                                   for t, o in zip(self.tables, self.offsets)])
+        return SegmentTable(start_key=cat("start_key"), slope=cat("slope"),
+                            base=cat("base", True),
+                            seg_end=cat("seg_end", True), keys=cat("keys"),
+                            error=self.error)
+
+    def __getattr__(self, name: str):
+        # every other table attribute (keys, window, ...) is the host's
+        if name.startswith("_") or name == "host":
+            raise AttributeError(name)
+        return getattr(self.host, name)
+
+
 @dataclasses.dataclass(frozen=True)
 class PinnedView:
     """One read verb's pinned view: a ShardSet and, from one pin of each of
-    its handles, every shard's snapshot and engine, with the rank offsets
-    and total key count of those snapshots."""
+    its handles, every shard's snapshot, the rank offsets and total key
+    count of those snapshots, and the one engine that answers the view:
+    shard 0's own at one shard, else one over their :class:`ViewTable`."""
     shard_set: ShardSet
     snaps: tuple[Snapshot, ...]
-    engines: tuple               # one LookupEngine per shard, same order
+    engine: LookupEngine         # the one engine answering the view
     offsets: np.ndarray          # (D,) i64 keys in the preceding snapshots
     n_keys: int                  # keys in all the pinned snapshots
 
@@ -356,6 +446,8 @@ class ShardedIndexService:
             handle.install(pub.publish())     # epoch 1 everywhere
         self._shard_set = ShardSet(version=1, boundaries=bounds,
                                    handles=handles)
+        # the last pinned view past one shard: (ShardSet, snapshots, handle)
+        self._view: tuple | None = None
 
     @classmethod
     def from_plan(cls, keys: np.ndarray, plan: "IndexPlan", *,
@@ -478,17 +570,16 @@ class ShardedIndexService:
 
     def prewarm(self, backend: str | None = None,
                 batch_sizes: Sequence[int] | None = None) -> None:
-        """Build every shard's engine for ``backend`` (placing each table on
-        its device) and run it once at ``batch_sizes`` before serving
-        traffic, so the first batch skips the lazy conversion and the
-        kernel's first-use build.  Engines without a ``prewarm`` (custom
-        registered backends) are just built."""
-        backend = backend or self.default_backend
-        for handle in self._shard_set.handles:
-            eng = handle.engine(backend)
-            warm = getattr(eng, "prewarm", None)
-            if warm is not None:
-                warm(batch_sizes=batch_sizes)
+        """Build the engine reads use for ``backend`` (placing the tables on
+        its device: past one shard, assembling the view's form) and run it
+        once at ``batch_sizes`` before serving traffic, so the first batch
+        skips the lazy conversion and the kernel's first-use build.  An
+        engine without a ``prewarm`` (a custom registered backend) is just
+        built."""
+        eng = self._pin_view(backend).engine
+        warm = getattr(eng, "prewarm", None)
+        if warm is not None:
+            warm(batch_sizes=batch_sizes)
 
     # ------------------------------------------------------------- write path
     def insert(self, key: float, value=None) -> None:
@@ -821,69 +912,59 @@ class ShardedIndexService:
     # -------------------------------------------------------------- read path
     def _pin_view(self, backend: str | None) -> PinnedView:
         """Pin ONE consistent read view: the current ShardSet, plus each
-        shard's (snapshot, engine) resolved from the same per-handle pin, so
-        routing, rank offsets, materialized keys/payloads and answers all
-        come from a single epoch combination -- a concurrent publish or
-        rebalance can never tear a batch or a scan that already pinned its
-        view.  Engines are cached per snapshot per backend inside each
-        handle, so pinning is an O(1) dict hit after the first call."""
+        shard's snapshot from one pin of its handle, and the engine over
+        exactly those snapshots, so rank offsets, materialized keys/payloads
+        and answers all come from a single epoch combination -- a
+        concurrent publish or rebalance can never tear a batch or a scan
+        that already pinned its view.  At one shard the engine is shard 0's
+        own; past one, the engine over the snapshots' :class:`ViewTable`
+        (:meth:`_view_for`).  Engines are cached per backend, so pinning
+        is a few identity checks and a dict hit after the first call."""
         backend = backend or self.default_backend
         ss = self._pin_shard_set()
         states = [h._pin() for h in ss.handles]
-        engines = tuple(h._engine_from(st, backend)
-                        for h, st in zip(ss.handles, states))
         snaps = tuple(st[0] for st in states)
         sizes = np.asarray([s.n_keys for s in snaps], np.int64)
         offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-        return PinnedView(ss, snaps, engines, offsets, int(sizes.sum()))
+        if len(snaps) == 1:
+            engine = ss.handles[0]._engine_from(states[0], backend)
+        else:
+            engine = self._view_for(ss, snaps, offsets).engine(backend)
+        return PinnedView(ss, snaps, engine, offsets, int(sizes.sum()))
 
-    def _routed(self, view: PinnedView, queries, per_shard,
-                keep_absent: bool = False) -> np.ndarray:
-        """The read path's one routing loop: global i64 ranks of ``queries``
-        against a pinned view.  Each query goes to its owning shard, whose
-        engine answers ``per_shard(engine, shard_queries)`` with local ranks,
-        lifted by the preceding snapshots' key counts (a ``-1`` stays ``-1``
-        where ``keep_absent``).  Exact because shard cuts are duplicate-safe:
-        no run straddles a shard, so local rank + offset == global rank.
+    def _view_for(self, ss: ShardSet, snaps: tuple[Snapshot, ...],
+                  offsets: np.ndarray) -> ServingHandle:
+        """The serving handle of the view of ``snaps`` (pinned from ``ss``):
+        the last one built while it is still that combination, else a new
+        one over their :class:`ViewTable`.  Its engines are built by the
+        handle, lazily, under its lock, with ``ss``'s engine options; a
+        reader holding an older view keeps that view's engine."""
+        last = self._view
+        if last is not None and last[0] is ss and all(
+                a is b for a, b in zip(last[1], snaps)):
+            return last[2]
+        handle = ServingHandle(ss.handles[0]._engine_opts, self.monitor)
+        handle.install(Snapshot(ViewTable.of(snaps, offsets, self.monitor),
+                                epoch=0, n_refit=0))
+        self._view = (ss, snaps, handle)
+        return handle
 
-        A view of one shard routes every query to shard 0 at offset 0, so
-        its engine answers the f64 queries as they are: no route, no gather,
-        no lift and no scatter.  ``service.route`` is tagged with the view's
-        shard count; at one shard it times the f64 conversion and the check,
-        and no ``service.scatter`` is recorded."""
-        mon = self.monitor
-        n_shards = len(view.engines)
-        with span(mon, "service.route", n_shards):
+    def _routed(self, view: PinnedView, queries, answer) -> np.ndarray:
+        """The read path: global i64 ranks of ``queries`` against a pinned
+        view, ``answer(engine, f64 queries)`` from the view's one engine.
+        Its ranks are global already (shard 0's at one shard; past one, the
+        view table's), and a miss is already ``-1``.  ``service.route``
+        times the f64 conversion, tagged with the view's shard count and
+        the engine calls the read makes: 1."""
+        with span(self.monitor, "service.route", len(view.snaps), 1):
             q = np.asarray(queries, np.float64)
-            if n_shards > 1:
-                sid = route_keys(view.shard_set.boundaries, q)
-                shards = np.unique(sid)
-                out = np.empty(q.shape, np.int64)
-        if n_shards == 1:
-            return np.asarray(per_shard(view.engines[0], q), np.int64)
-        for d in shards:
-            with span(mon, "service.scatter"):
-                mask = sid == d
-                qd = q[mask]
-            local = per_shard(view.engines[d], qd)
-            # free each batch-sized temporary as soon as it is spent: held to
-            # the return, they leave the allocator a free top to give back,
-            # and every call then faults its pages in again
-            del qd
-            with span(mon, "service.scatter"):
-                lifted = np.asarray(local, np.int64) + view.offsets[d]
-                if keep_absent:
-                    lifted[local < 0] = -1
-                del local
-                out[mask] = lifted
-                del lifted
-        return out
+        return np.asarray(answer(view.engine, q), np.int64)
 
     def _search_view(self, view: PinnedView, queries,
                      side: str) -> np.ndarray:
-        """Global insertion ranks against a pinned view: the routed
-        ``search`` primitive the other verbs here derive from."""
-        return self._routed(view, queries, lambda e, qd: e.search(qd, side))
+        """Global insertion ranks against a pinned view: the ``search``
+        primitive the other verbs here derive from."""
+        return self._routed(view, queries, lambda e, q: e.search(q, side))
 
     def lookup(self, queries, backend: str | None = None) -> np.ndarray:
         """Global rank of each query across the current shard snapshots, -1
@@ -892,7 +973,7 @@ class ShardedIndexService:
         self._sample_keys(queries)
         with sanitizer.pin_scope("lookup"):
             return self._routed(self._pin_view(backend), queries,
-                                lambda e, qd: e.lookup(qd), keep_absent=True)
+                                lambda e, q: e.lookup(q))
 
     def search(self, queries, side: str = "left",
                backend: str | None = None) -> np.ndarray:
@@ -920,8 +1001,7 @@ class ShardedIndexService:
         with sanitizer.pin_scope("point"):
             view = self._pin_view(backend)
             self._count("points", int(np.size(queries)))
-            rank = self._routed(view, queries, lambda e, qd: e.point(qd).rank,
-                                keep_absent=True)
+            rank = self._routed(view, queries, lambda e, q: e.point(q).rank)
             return PointResult(rank=rank, found=rank >= 0)
 
     def count(self, lo, hi, backend: str | None = None) -> np.ndarray:

@@ -29,15 +29,15 @@ planner (``repro_torch.index.fit``) leaves open:
   runs the span also opens a ``record_function`` range of the same name, so
   a trace shows it over the device work it launched.  The spans:
 
-      service.route (n_shards)
-                            ShardedIndexService._routed, the routing loop of
+      service.route (n_shards, engine_calls)
+                            ShardedIndexService._routed, the read path of
                             lookup, search (and the verbs derived from it)
-                            and point: queries to f64, route_keys,
-                            np.unique; at one shard only the f64 conversion
-                            and the shard-count check
-      service.scatter       the same, past one shard: a shard's mask and
-                            gather, and the lifted scatter back (the
-                            engine call outside)
+                            and point: the queries to f64 before the
+                            view's one engine call (the call outside)
+      service.view_build (shards, segments)
+                            ViewTable.assemble: a pinned view's device
+                            form, from the shards' forms (each uploaded
+                            where it has none yet) end to end on the device
       engine.stage          _DeviceEngine: queries to an f32 host tensor
       engine.cast           _DeviceEngine: the answers copied back to numpy
                             ranks

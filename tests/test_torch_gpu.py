@@ -420,6 +420,50 @@ def test_sharded_publish_reuploads_only_dirty_shards(cuda_device):
 
 
 @pytest.mark.gpu
+def test_a_nine_shard_read_is_one_fused_launch_on_the_card(cuda_device):
+    """Every read verb of a nine-shard service is one launch of the fused
+    search over the view's table, equal to the host numpy backend and
+    ``np.searchsorted``; a one-shard publish re-uploads that shard alone
+    (the others keep their ``data_ptr``) and the next read, still one
+    launch, assembles the new view on the card."""
+    from repro_torch.index import ShardedIndexService
+    keys = _dup_keys(300_000, seed=15)
+    svc = ShardedIndexService(keys, error=64, n_shards=9, buffer_size=16,
+                              assume_sorted=True)
+    rng = np.random.default_rng(16)
+    merged = keys
+    for step in range(2):
+        q = _queries(merged, rng, 100_000)
+        reads = {"left": lambda: svc.search(q, "left"),
+                 "right": lambda: svc.search(q, "right"),
+                 "lookup": lambda: svc.lookup(q)}
+        for name, read in reads.items():
+            launches = fl.fitting_search_cuda.launches
+            got = read()
+            assert fl.fitting_search_cuda.launches == launches + 1, name
+            want = (svc.lookup(q, "numpy") if name == "lookup" else
+                    svc.search(q, name, "numpy"))
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(svc.search(q, "left"),
+                                      np.searchsorted(merged, q, "left"))
+        if step == 0:
+            before = [h.current().table._device_cache[cuda_device]
+                      for h in svc.handles]
+            new = np.arange(8) + svc.boundaries[4] + 0.5
+            svc.insert_many(new)
+            assert sorted(svc.publish()) == [4]
+            merged = np.sort(np.concatenate([keys, new]))
+    after = [h.current().table._device_cache[cuda_device]
+             for h in svc.handles]
+    assert [a is not b for a, b in zip(after, before)] == \
+        [d == 4 for d in range(9)]
+    assert all(a.keys.data_ptr() == b.keys.data_ptr()
+               for d, (a, b) in enumerate(zip(after, before)) if d != 4)
+    view = svc._view[2].current().table._device_cache[cuda_device]
+    assert view.keys.numel() == merged.size and view.base.dtype == torch.int32
+
+
+@pytest.mark.gpu
 def test_index_service_dispatch_and_calibration_on_the_card(cuda_device):
     """IndexService serves on the card by default; dispatch takes the cost
     model's thresholds; calibrate_device measures positive params."""

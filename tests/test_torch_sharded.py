@@ -582,3 +582,221 @@ def test_publishes_refit_where_the_tables_serve_and_tag_it(backend):
         t, r = a.current().table, b.current().table
         for f in ("start_key", "slope", "base", "seg_end", "keys"):
             np.testing.assert_array_equal(getattr(t, f), getattr(r, f))
+
+
+# ------------------------------------------ the view: one engine past a shard
+def _routed_oracle(svc, q, answer, backend):
+    """A read the way the service routed it before its view: each query to
+    its owning shard by the cuts, that shard's own engine's local answer
+    lifted by the preceding snapshots' key counts, a miss kept -1."""
+    ss = svc.shard_set
+    snaps = [h.current() for h in ss.handles]
+    offsets = np.cumsum([0] + [s.n_keys for s in snaps[:-1]])
+    q = np.asarray(q, np.float64)
+    sid = sharded.route_keys(ss.boundaries, q)
+    out = np.empty(q.shape, np.int64)
+    for d in np.unique(sid):
+        mask = sid == d
+        local = np.asarray(answer(ss.handles[d].engine(backend), q[mask]),
+                           np.int64)
+        out[mask] = np.where(local < 0, -1, local + offsets[d])
+    return out
+
+
+# The backends that answer a +inf query exactly.  A batch of more than 8
+# queries meets two faults at +inf, in the shard route as in the view: the
+# host window search (numpy, and so the reference's numpy backend) casts
+# the infinite prediction to int64, and the fused search counts the
+# column's +inf padding in its window (``lookup`` finds it, ``search``
+# right counts it).  Elsewhere +inf is left out of the comparisons.
+INF_EXACT = {"torch-bisect"}
+
+ROUTED_ANSWERS = {
+    "left": lambda e, q: e.search(q, "left"),
+    "right": lambda e, q: e.search(q, "right"),
+    "lookup": lambda e, q: e.lookup(q),
+    "point": lambda e, q: e.point(q).rank,
+}
+
+
+def _edge_queries(svc, rng):
+    """Queries at every place a shard edge could go wrong: +-inf, below the
+    first cut and past the last key, each cut, between a cut and its
+    shard's first key, each shard's last key (duplicate runs end there) and
+    either side of it, plus enough keys and gaps for dispatch's card tier."""
+    snaps = [h.current() for h in svc.handles]
+    column = np.concatenate([s.table.keys for s in snaps])
+    cuts = svc.boundaries
+    firsts = np.array([s.table.keys[0] if s.n_keys else c
+                       for s, c in zip(snaps, cuts)])
+    lasts = np.array([s.table.keys[-1] for s in snaps if s.n_keys])
+    return np.concatenate([
+        [-np.inf, np.inf, -2.0 ** 30, 2.0 ** 40, column[0] - 1,
+         column[0] - 0.5, column[-1] + 0.5, column[-1] + 1],
+        cuts, cuts - 0.5, cuts + 0.5, (cuts + firsts) / 2, firsts - 0.5,
+        lasts, lasts - 0.5, lasts + 0.5,
+        column[rng.integers(0, column.size, 300)],
+        np.floor(rng.uniform(-3, 2 ** 20 + 3, 100))])
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_the_view_answers_every_verb_like_the_reference_and_the_shard_route(
+        backend):
+    """Past one shard every verb answers from one engine over the view: it
+    equals the reference's sharded service, ``np.searchsorted`` on the
+    merged column and, for the ranks, the shard route it replaces -- with a
+    shard whose first key sits above its cut, an empty shard, duplicate runs
+    ending at shard edges, then after ``insert_many`` + ``publish`` and
+    after a rebalance."""
+    keys = _dup_heavy_keys(6000, seed=31)
+    ours, ref = _pair(keys, error=32, n_shards=5, buffer_size=8)
+    lasts = [h.current().table.keys[-1] for h in ours.handles][:-1]
+    assert any(np.count_nonzero(keys == k) > 1 for k in lasts)
+    cut = float(ours.boundaries[2])
+    for svc in (ours, ref):      # the same direct writes on both services
+        svc.writers[2].extract_range(cut, cut + 3000)
+        svc.writers[3].extract_range(-np.inf, np.inf)
+    assert sorted(ours.publish()) == sorted(ref.publish()) == [2, 3]
+    assert ours.handles[3].current().n_keys == 0
+    assert ours.handles[2].current().table.keys[0] > cut + 1
+    rng = np.random.default_rng(32)
+    new = np.concatenate([keys[rng.integers(0, keys.size, 400)],
+                          np.floor(rng.uniform(-50, 2 ** 20, 300))])
+
+    def check():
+        column = np.concatenate([h.current().table.keys
+                                 for h in ours.handles])
+        q = _edge_queries(ours, rng)
+        exact = (q != np.inf) | (backend in INF_EXACT)
+        for got, want in zip(_verbs(ours, q[q != np.inf], backend),
+                             _verbs(ref, q[q != np.inf], None)):
+            np.testing.assert_array_equal(got, want)
+        left, right, hit = _oracle(column, q)
+        for name, want in (("left", left), ("right", right),
+                           ("lookup", hit), ("point", hit)):
+            answer = ROUTED_ANSWERS[name]
+            got = (ours.point(q, backend).rank if name == "point" else
+                   ours.lookup(q, backend) if name == "lookup" else
+                   ours.search(q, name, backend))
+            np.testing.assert_array_equal(got[exact], want[exact])
+            np.testing.assert_array_equal(
+                got[exact], _routed_oracle(ours, q, answer, backend)[exact])
+
+    check()
+    ours.insert_many(new)
+    _insert((ref,), new)
+    assert sorted(ours.publish()) == sorted(ref.publish())
+    check()
+    assert ours.rebalance(force=True) == ref.rebalance(force=True)
+    check()
+    assert ours.epochs() == ref.epochs()
+
+
+def test_a_nine_shard_read_is_one_search_call_and_one_shard_builds_no_view(
+        monkeypatch):
+    """Each read of a nine-shard service calls the fused search once (one
+    launch on the card); a one-shard service answers from shard 0's engine
+    and never builds a view table."""
+    from repro_torch.kernels import fitting_lookup
+    calls = []
+    real = fitting_lookup.fitting_search
+    monkeypatch.setattr(fitting_lookup, "fitting_search",
+                        lambda *a, **kw: calls.append(kw["mode"]) or
+                        real(*a, **kw))
+    keys = _dup_heavy_keys(9000, seed=33)
+    q = _queries(keys, np.random.default_rng(34), 3000)
+    nine = ShardedIndexService(keys, error=32, n_shards=9, backend="cuda",
+                               engine_opts=ON_CPU, assume_sorted=True)
+    for read, mode in ((lambda s: s.search(q, "left"), "search-left"),
+                       (lambda s: s.search(q, "right"), "search-right"),
+                       (lambda s: s.lookup(q), "lookup")):
+        calls.clear()
+        np.testing.assert_array_equal(read(nine),
+                                      _routed_oracle(nine, q, lambda e, x: (
+                                          e.lookup(x) if mode == "lookup" else
+                                          e.search(x, mode[7:])), "numpy"))
+        assert calls == [mode]
+    table = nine._view[2].current().table
+    assert isinstance(table, sharded.ViewTable) and len(table.tables) == 9
+    assert "host" not in vars(table)     # no host tier asked: no host copy
+
+    def refuse(*args):
+        raise AssertionError("a one-shard read built a view table")
+
+    monkeypatch.setattr(sharded.ViewTable, "of", refuse)
+    one = IndexService(keys, error=32, engine_opts=ON_CPU, assume_sorted=True)
+    calls.clear()
+    np.testing.assert_array_equal(one.search(q), np.searchsorted(keys, q))
+    one.lookup(q), one.point(q), one.count(q, q + 9), one.range(q[0], q[9])
+    assert calls == ["search-left", "lookup", "search-left", "search-right",
+                     "search-left", "search-left", "search-right"]
+    assert one._view is None
+
+
+def test_a_publish_rebuilds_the_view_from_the_clean_shards_forms():
+    """A publish that dirties one shard uploads that shard alone: the clean
+    shards' cached device forms stay the same tensors (``data_ptr``), and
+    the next read assembles a new view form from all four."""
+    import torch
+    cpu = torch.device("cpu")
+    keys = _dup_heavy_keys(8000, seed=35)
+    svc = ShardedIndexService(keys, error=32, n_shards=4, buffer_size=8,
+                              engine_opts=ON_CPU, assume_sorted=True)
+    svc.search(keys[:8])
+
+    def forms():
+        return [h.current().table._device_cache[cpu] for h in svc.handles]
+
+    before = forms()
+    ptrs = [f.keys.data_ptr() for f in before]
+    view = svc._view[2].current().table._device_cache[cpu]
+    new = np.arange(6) + svc.boundaries[1] + 0.5
+    svc.insert_many(new)
+    assert list(svc.publish()) == [1]
+    merged = np.sort(np.concatenate([keys, new]))
+    np.testing.assert_array_equal(svc.search(merged),
+                                  np.searchsorted(merged, merged))
+    after = forms()
+    assert [a is b for a, b in zip(after, before)] == [True, False, True, True]
+    assert [f.keys.data_ptr() for f in after][::2] == ptrs[::2]
+    assert after[3].keys.data_ptr() == ptrs[3]
+    rebuilt = svc._view[2].current().table._device_cache[cpu]
+    assert rebuilt is not view
+    assert torch.equal(rebuilt.keys, torch.cat([f.keys for f in after]))
+    assert torch.equal(rebuilt.base, torch.cat(
+        [f.base + int(o) for f, o in zip(after, np.cumsum(
+            [0] + [f.keys.numel() for f in after[:-1]]))]))
+
+
+def test_a_reader_that_pinned_the_old_view_keeps_its_table():
+    """A view pinned before a publish still answers from its own table
+    after the publish lands; a new read sees the new keys."""
+    keys = _dup_heavy_keys(6000, seed=37)
+    svc = ShardedIndexService(keys, error=32, n_shards=3, buffer_size=8,
+                              engine_opts=ON_CPU, assume_sorted=True)
+    old = svc._pin_view("cuda")
+    new = np.floor(np.random.default_rng(38).uniform(0, 2 ** 20, 500))
+    svc.insert_many(new)
+    svc.publish()
+    merged = np.sort(np.concatenate([keys, new]))
+    q = _queries(merged, np.random.default_rng(39), 600)
+    np.testing.assert_array_equal(svc._search_view(old, q, "left"),
+                                  np.searchsorted(keys, q, "left"))
+    np.testing.assert_array_equal(svc.search(q), np.searchsorted(merged, q))
+    assert svc._pin_view("cuda").engine is not old.engine
+    np.testing.assert_array_equal(svc._search_view(old, q, "right"),
+                                  np.searchsorted(keys, q, "right"))
+
+
+def test_a_view_past_the_int32_positions_is_refused():
+    """The device form's positions are int32: a view of 2^31 keys or more
+    is refused before anything is assembled."""
+    import torch
+    keys = _dup_heavy_keys(2000, seed=40)
+    t = sharded.SegmentTable.from_keys(keys, 16, assume_sorted=True)
+    view = sharded.ViewTable([t, t], [0, 2 ** 31 - t.n_keys])
+    assert view.n_keys == 2 ** 31
+    with pytest.raises(ValueError, match="int32"):
+        view.assemble(torch.device("cpu"))
+    small = sharded.ViewTable([t, t], [0, t.n_keys])
+    np.testing.assert_array_equal(small.keys, np.concatenate([keys, keys]))

@@ -333,10 +333,11 @@ def test_span_rows_sit_on_the_profiler_clock():
 
 
 # the construction's publish flushes each tree (tree.flush) and the first
-# search builds each shard's engine (engine.build)
+# search builds the view's engine (engine.build); past one shard that
+# engine's device form is the view's, assembled (service.view_build)
 SERVICE_SPANS = {"service.route", "engine.stage", "engine.cast",
                  "tree.flush", "engine.build"}
-ROUTED_SPANS = SERVICE_SPANS | {"service.scatter"}
+ROUTED_SPANS = SERVICE_SPANS | {"service.view_build"}
 LSM_SPANS = {"lsm.read", "lsm.merge", "lsm.fit", "lsm.upload",
              "engine.stage", "engine.cast"}
 
@@ -359,12 +360,14 @@ def test_one_shard_search_records_every_span_and_answers_alike(backend):
         got = [svc.search(q, "left"), svc.search(q, "right"), svc.lookup(q)]
         answers.append(got)
         if mon is not None:
-            # one shard answers unrouted: no scatter, every route row
-            # (both searches and the lookup) tagged with the view's one shard
+            # one shard answers unrouted: no view, every route row (both
+            # searches and the lookup) tagged with the view's one shard and
+            # its one engine call
             assert _spans(mon) == SERVICE_SPANS
             route = mon.channel("span.service.route")
-            assert route.shape == (3, 3)
+            assert route.shape == (3, 4)
             np.testing.assert_array_equal(route[:, 2], [1, 1, 1])
+            np.testing.assert_array_equal(route[:, 3], [1, 1, 1])
             # every engine call stages once and casts once
             assert mon.count("span.engine.stage") == \
                 mon.count("span.engine.cast") == 3
@@ -399,11 +402,11 @@ def _routed_oracle(verb, keys, q):
 @pytest.mark.parametrize("backend", ["dispatch", "cuda"])
 def test_routed_search_records_the_scatter_and_tags_the_shard_count(backend,
                                                                     verb):
-    """Every routed read verb (``search``, ``lookup``, ``point``) goes
-    through the one routing loop: a ``service.route`` row tagged with the
-    shard count a call, a gather and a scatter row for each shard the batch
-    reaches, and answers equal to the unmonitored service's and the
-    oracle's."""
+    """Every routed read verb (``search``, ``lookup``, ``point``) answers a
+    view of three shards in one engine call over the view's table: a
+    ``service.route`` row tagged with the shard count and 1 a call, no
+    scatter, one assembly of the view's device form, and answers equal to
+    the unmonitored service's and the oracle's."""
     keys = np.sort(np.random.default_rng(2).integers(
         0, 2 ** 20, 40_000)).astype(np.float64)
     q = np.concatenate([keys[::7], np.random.default_rng(3).integers(
@@ -421,12 +424,14 @@ def test_routed_search_records_the_scatter_and_tags_the_shard_count(backend,
         if mon is not None:
             assert _spans(mon) == ROUTED_SPANS
             route = mon.channel("span.service.route")
-            assert route.shape == (2, 3)
+            assert route.shape == (2, 4)
             np.testing.assert_array_equal(route[:, 2], [3, 3])
-            # the queries reach every shard: a gather and a scatter each
-            assert mon.count("span.service.scatter") == 2 * 2 * 3
+            np.testing.assert_array_equal(route[:, 3], [1, 1])
+            # the view's form is assembled once, from the three shards
+            build = mon.channel("span.service.view_build")
+            assert build.shape[0] == 1 and build[0, 2] == 3
             assert mon.count("span.engine.stage") == \
-                mon.count("span.engine.cast") == 2 * 3
+                mon.count("span.engine.cast") == 2
     for ours, plain, want in zip(*answers, _routed_oracle(verb, keys, q)):
         assert ours.dtype == plain.dtype == np.int64
         np.testing.assert_array_equal(ours, plain)
